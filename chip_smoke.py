@@ -1,21 +1,36 @@
-"""Drive the PyTorch port's online pipeline once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's online and offline pipelines on one NVIDIA GPU and check them.
 
 Phases (each prints one line; any failure exits non-zero):
   0 environment: card name and power limit, torch/CUDA versions, TF32 flags
-  1 build: compile kernels K1 (jv_assign.cu) and K2 (association_fold.cu)
+  1 build: compile kernels K1 (jv_assign.cu), K2 (association_fold.cu) and
+    K3 (tracker_scan.cu), one nvcc per source, all started together
   2 K1 against its plain PyTorch version and scipy, on the card
   3 K2 against its plain PyTorch version, on the card
-  4 the slice: Pipeline.step over the two golden demo scenes (16 cameras x
-    6 people, 64 frames each) against the JAX reference's outputs stored in
-    tests/data/torch_golden_demo16.npz, with the kernel launch counts
-  5 times: Pipeline.step, and each kernel against its plain version
+  4 the online slice: Pipeline.step over the two golden demo scenes (16
+    cameras x 6 people, 64 frames each) against the JAX reference's outputs
+    stored in tests/data/torch_golden_demo16.npz, with the launch counts
+  5 online times: Pipeline.step, and K1/K2 against their plain versions
+  6 the offline slice: Pipeline.run_offline (fusion_batch=32) over the same
+    scenes, with the launch counts (K1 = 0, K2 = 2, K3 = 1 per scene); its
+    fusion and its tracker stage (K3 + reprojection on the reference's own
+    tracker inputs) against tests/data/torch_golden_offline16.npz, and the
+    whole run against the plain path on the card
+  7 K3 against its plain version on the card: the four tracker scenarios of
+    the JAX package's test_tracker_pallas.py and both demo scenes' tracker
+    inputs (a dropped spawn and a track merge must occur)
+  8 the scaled layout: run_offline with PipelineConfig.scaled_64cam() (64
+    cameras x 25 people, 32 frames, fusion_batch=4), K3 and the batched K2
+    against their plain versions on its inputs
+  9 offline times: run_offline frames/s, its stage split and host syncs,
+    and K3 against its plain version
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {...}}.
 
 Usage:  python3 chip_smoke.py [--profile DIR]
-  --profile DIR  also write a torch.profiler table of 10 warm steps to DIR
+  --profile DIR  also write torch.profiler tables of 10 warm steps and of
+                 run_offline to DIR, with the device idle shares
 """
 
 from __future__ import annotations
@@ -34,7 +49,12 @@ import torch
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(_ROOT, "tests", "data", "torch_golden_demo16.npz")
+GOLDEN_OFFLINE = os.path.join(_ROOT, "tests", "data", "torch_golden_offline16.npz")
 SCENES = ("benign", "adversarial")
+OFFLINE_FUSION_BATCH = 32
+# The scaled layout (bench.py's scaled cell): 64 cameras x 25 people.
+SCALED_SCENE = dict(num_cameras=64, num_people=25, num_frames=32, seed=1)
+SCALED_FUSION_BATCH = 4
 # Fused and predicted joints must agree with the JAX float32 reference within
 # this, outside each track's first published frame (the prediction there
 # rides on unpublished warm-up velocities; ROADMAP hazard C3).
@@ -44,6 +64,23 @@ DELTA_T_TOL_S = 1.0e-6
 # Totals of the JV solution against scipy's float64 optimum: the solver
 # works in float32, so totals agree to float32 rounding of the sums.
 TOTAL_RTOL = 1.0e-5
+# K3 against its plain version (both float32 on the card, the same inputs):
+# the tolerances of the JAX package's test_tracker_pallas.py, which holds
+# the TPU kernel to the XLA scan. The velocity ring and the prediction are
+# means of differences over dt ~ 1/30 s, so float32 rounding in another
+# summation order shows there first. Integers must be equal.
+K3_FLOAT_TOL = {
+    "pred_delta_t": 1e-6, "fused.xyz": 1e-6, "fused_pred.xyz": 1e-4,
+    "fused_pred.cov": 1e-6, "estimate": 1e-6, "vel_buffer": 1e-3, "t_prev": 0.0,
+    "height_prev": 1e-6, "root_prev": 1e-5, "fb_delay_buffer": 1e-7,
+    "t_prev_global": 0.0,
+}
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s
+# and float32 outside the tensor cores. A kernel's bound is the larger of
+# its bytes (each input read once, each output written once) over the first
+# and its operations over the second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 
 
 def log(phase: str, **fields) -> None:
@@ -217,9 +254,10 @@ def phase_k2(dev, golden, rig, cfg):
 
 # ---------------------------------------------------------------- phase 4 --
 
-def compare_step(out, golden, scene, f):
-    """Integer decisions exactly equal; joints within JOINT_TOL_M outside
-    the first-published mask. Returns (worst fused m, worst pred m)."""
+def step_mismatch(out, golden, scene, f):
+    """How one frame's outputs depart from the golden's: (decisions that
+    differ, worst fused m, worst pred m, pred_delta_t error s, all joints
+    finite). Joints are compared outside the first-published mask."""
     def g(k):
         return golden[f"{scene}/{k}"][f]
 
@@ -244,35 +282,45 @@ def compare_step(out, golden, scene, f):
         bad.append("fused_joint_on")
     if not np.array_equal((np_(out.persons_raw.score) > 0)[rv], g("raw_joint_on")[rv]):
         bad.append("raw_joint_on")
-    if bad:
-        raise AssertionError(f"slice {scene} frame {f}: decisions differ: {bad}")
     dt_err = abs(float(out.pred_delta_t) - float(g("pred_delta_t")))
-    if dt_err > DELTA_T_TOL_S:
-        raise AssertionError(f"slice {scene} frame {f}: pred_delta_t off by {dt_err} s")
     on = fv[:, None] & g("fused_joint_on") & ~g("first_published")[:, None]
     d_fused = np.abs(np_(out.fused.xyz) - g("fused_xyz"))[on].max(initial=0.0)
     d_pred = np.abs(np_(out.fused_pred.xyz) - g("pred_xyz"))[on].max(initial=0.0)
-    if not (np.isfinite(np_(out.fused.xyz)).all() and np.isfinite(np_(out.fused_pred.xyz)).all()):
+    finite = bool(np.isfinite(np_(out.fused.xyz)).all() and np.isfinite(np_(out.fused_pred.xyz)).all())
+    return bad, float(d_fused), float(d_pred), dt_err, finite
+
+
+def compare_step(out, golden, scene, f):
+    """Integer decisions exactly equal; joints within JOINT_TOL_M outside
+    the first-published mask. Returns (worst fused m, worst pred m)."""
+    bad, d_fused, d_pred, dt_err, finite = step_mismatch(out, golden, scene, f)
+    if bad:
+        raise AssertionError(f"slice {scene} frame {f}: decisions differ: {bad}")
+    if dt_err > DELTA_T_TOL_S:
+        raise AssertionError(f"slice {scene} frame {f}: pred_delta_t off by {dt_err} s")
+    if not finite:
         raise AssertionError(f"slice {scene} frame {f}: non-finite joints")
     if d_fused > JOINT_TOL_M or d_pred > JOINT_TOL_M:
         raise AssertionError(
             f"slice {scene} frame {f}: fused {d_fused * 1e3:.4f} mm, "
             f"pred {d_pred * 1e3:.4f} mm > {JOINT_TOL_M * 1e3} mm"
         )
-    return float(d_fused), float(d_pred)
+    return d_fused, d_pred
 
 
 def reset_counts():
-    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, tracker
 
     hungarian.KERNEL_LAUNCHES = 0
     association.KERNEL_LAUNCHES = 0
+    tracker.KERNEL_LAUNCHES = 0
 
 
 def read_counts():
-    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian
+    """(K1, K2, K3) launches since the last reset_counts()."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, tracker
 
-    return hungarian.KERNEL_LAUNCHES, association.KERNEL_LAUNCHES
+    return hungarian.KERNEL_LAUNCHES, association.KERNEL_LAUNCHES, tracker.KERNEL_LAUNCHES
 
 
 def phase_slice(dev, golden, rig, cfg):
@@ -300,10 +348,10 @@ def phase_slice(dev, golden, rig, cfg):
             worst_f, worst_p = max(worst_f, df), max(worst_p, dp)
             persons += int(out.fused.valid.sum())
             frames += 1
-    k1, k2 = read_counts()
-    if k1 != frames or k2 != frames:
+    k1, k2, k3 = read_counts()
+    if k1 != frames or k2 != frames or k3 != 0:
         raise AssertionError(
-            f"launch counts K1={k1} K2={k2}, expected {frames} each (one per step)"
+            f"launch counts K1={k1} K2={k2} K3={k3}, expected {frames}, {frames}, 0"
         )
     log("4 slice", frames=frames, published_persons=persons, decisions="exact",
         worst_fused_mm=worst_f * 1e3, worst_pred_mm=worst_p * 1e3,
@@ -399,11 +447,495 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
     k2_ms = sync_time(lambda: association.associate_fold(ctab, conf, dok, *args), 200)
     k2_plain = sync_time(lambda: association.associate_fold_reference(ctab, conf, dok, *args), 5)
     quart = statistics.quantiles(step_ms, n=10)
+    # Bounds: JV reads the cost and flags and writes one column per row; its
+    # searches take at most n + 1 steps of n lanes (~4 operations each) per
+    # active row. The fold reads its pair-cost table, flags and writes
+    # det_slot; per camera it sums up to c earlier costs for every
+    # (hypothesis, detection) and runs one JV over hypotheses.
+    rows = int(act.sum())
+    n = cost.shape[1]
+    k1_bound = bound_of(cost.nbytes + act.nbytes + cost.shape[0] * 4,
+                        rows * (n + 1) * n * 4 + cost.size)
+    c_cams, _, d = ctab.shape
+    h = args[0]
+    k2_bound = bound_of(
+        ctab.numel() * 4 + conf.numel() * 4 + dok.numel() + h * c_cams * 4 + 8,
+        h * d * c_cams * (c_cams - 1) // 2 + c_cams * d * (h + 1) * h * 4,
+    )
     log("5 times", steps=len(step_ms), step_ms_median=statistics.median(step_ms),
         step_ms_p10=quart[0], step_ms_p90=quart[-1], step_ms_min=min(step_ms),
         step_ms_max=max(step_ms), host_syncs_per_step=syncs,
-        k1_ms=k1_ms, k1_plain_ms=k1_plain, k2_ms=k2_ms, k2_plain_ms=k2_plain)
-    return {"jv_assign": (k1_ms, k1_plain), "association_fold": (k2_ms, k2_plain)}
+        k1_ms=k1_ms, k1_plain_ms=k1_plain, k1_bound_ms=k1_bound[0],
+        k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_bound_ms=k2_bound[0])
+    return {"jv_assign": (k1_ms, k1_plain) + k1_bound,
+            "association_fold": (k2_ms, k2_plain) + k2_bound}
+
+
+# ---------------------------------------------------------------- phase 6 --
+
+def at_frame(tree, f: int):
+    """Frame f of a StepOutput (or any tuple of tensors) with a leading
+    time axis."""
+    if isinstance(tree, torch.Tensor):
+        return tree[f]
+    return type(tree)(*(at_frame(x, f) for x in tree))
+
+
+def stacked_frames(data: dict, dev):
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    return Frame.from_arrays(data, dev)
+
+
+def golden_stage(golden, scene: str, dev):
+    """The offline golden's tracker-stage inputs on `dev`: (persons, pivots,
+    n_dropped_hypotheses, smooth_cold output) as the JAX reference's fusion
+    and cold-start LM gave them. Fields the tracker does not read (the
+    persons' covariance, the LM's measurements, whitening, bones, anchor
+    scores and marginals) are left as zeros."""
+    from smartedgesensor3dhumanpose_tpu_torch import prior
+    from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D
+
+    def g(k):
+        return torch.as_tensor(golden[f"{scene}/stage_in/{k}"], device=dev)
+
+    xyz = g("person_xyz")
+    lead = xyz.shape[:2]
+    unread = torch.zeros(lead, dtype=xyz.dtype, device=dev)
+    persons = Persons3D(
+        xyz=xyz, score=g("person_score"), cov=torch.zeros(xyz.shape + (3,), device=dev),
+        valid=g("person_valid"), person_id=torch.full(lead, -1, dtype=torch.int32, device=dev),
+    )
+    g_in = prior.GraphInputs(
+        meas=unread, active=g("graph_active"), inv_cov=unread, bone_active=unread,
+        root_xyz=g("graph_root_xyz"), root_score=unread, neck_score=unread,
+        height=g("graph_height"), score_out=g("graph_score_out"), num_meas=g("graph_num_meas"),
+    )
+    result = prior.PriorResult(x=g("result_x"), marg_cov=unread, marg_ok=unread, iters=0)
+    return persons, g("pivot"), g("n_dropped_hyp"), (g_in, result, g("xyz_out"), g("cov_out"))
+
+
+def plain_offline(pipe, state0, frames):
+    """run_offline with the plain fold and the plain tracker scan."""
+    import dataclasses
+
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
+
+    cfg = pipe.config
+    plain = dataclasses.replace(cfg, fusion=dataclasses.replace(cfg.fusion, assignment_impl="reference"))
+    persons, pivots, n_drop = pipeline.fuse_offline(frames, pipe.rig, plain, pipe.fusion_batch)
+    pre = pipeline.smooth_offline(persons, plain, pipe.fusion_batch)
+    _, track = tracker.tracker_scan_reference(state0, persons, pivots.to(persons.xyz.dtype),
+                                              frames.fb_delay, pre, cfg.prior, cfg.tracker)
+    return pipeline.offline_outputs(frames, persons, pivots, n_drop, track, pipe.rig, cfg)
+
+
+def compare_outputs(got, want, name: str) -> float:
+    """The main path against the plain path on the card: every integer
+    field equal, floats within K3's tolerances (fusion and the LM run the
+    same ops on both sides). Returns the largest float difference."""
+    worst = 0.0
+    for path, a, b in zip(("persons_raw", "fused", "fused_pred"), got[:3], want[:3]):
+        for field in ("valid", "person_id"):
+            if not torch.equal(getattr(a, field), getattr(b, field)):
+                raise AssertionError(f"{name} {path}.{field}: kernels != plain")
+        tol = K3_FLOAT_TOL["fused_pred.xyz"] if path == "fused_pred" else K3_FLOAT_TOL["fused.xyz"]
+        diff = float((a.xyz - b.xyz).abs().max())
+        if not diff <= tol:
+            raise AssertionError(f"{name} {path}.xyz: kernels vs plain off by {diff} > {tol}")
+        worst = max(worst, diff)
+    for field in ("n_dropped_hypotheses", "n_dropped_track_spawns"):
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"{name} {field}: kernels != plain")
+    if not torch.equal(got.feedback.kp_valid, want.feedback.kp_valid):
+        raise AssertionError(f"{name} feedback.kp_valid: kernels != plain")
+    return worst
+
+
+def phase_offline(dev, golden, rig, cfg, inputs):
+    """run_offline over both demo scenes, with the launch counts of each
+    call, checked in three ways:
+      - its fusion stage against the offline golden: every decision exact;
+      - its tracker stage (K3 + reprojection) on the golden's own tracker
+        inputs against the golden's tracker stage: every decision exact,
+        joints within JOINT_TOL_M outside the first-published mask;
+      - end to end against the plain path (plain fold, plain tracker scan)
+        on the card: every decision exact.
+    End to end against the golden it is reported, not gated: the float32
+    cold-start LM of the reference does not converge on some ghost persons,
+    where its output depends on the summation order (PERF.md, ROADMAP C6)."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+    from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
+
+    pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=OFFLINE_FUSION_BATCH)
+    launches = [0, 0, 0]
+    report = {}
+    for scene in SCENES:
+        data = inputs[scene]
+        if synthetic.frames_digest(data) != str(golden[f"{scene}/input_sha256"]):
+            raise AssertionError(f"{scene}: regenerated scene differs from the offline golden's input")
+        frames = stacked_frames(data, dev)
+        n = data["kp2d"].shape[0]
+        state0 = pipe.init_state()
+        reset_counts()
+        _, out = pipe.run_offline(state0, frames)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = (0, -(-n // OFFLINE_FUSION_BATCH), 1)
+        if counts != want:
+            raise AssertionError(f"offline {scene}: launch counts (K1, K2, K3) = {counts}, expected {want}")
+        launches = [a + b for a, b in zip(launches, counts)]
+
+        e2e_frames = 0
+        e2e_fused = e2e_pred = 0.0
+        for f in range(n):
+            bad, d_fused, d_pred, _, finite = step_mismatch(at_frame(out, f), golden, scene, f)
+            fusion_bad = [k for k in bad if k in ("raw_valid", "raw_joint_on", "n_dropped_hyp")]
+            if fusion_bad or not finite:
+                raise AssertionError(f"offline {scene} frame {f}: fusion decisions differ {fusion_bad}")
+            if not bad:
+                e2e_frames += 1
+                e2e_fused, e2e_pred = max(e2e_fused, d_fused), max(e2e_pred, d_pred)
+
+        persons, pivots, n_drop, pre = golden_stage(golden, scene, dev)
+        _, track = tracker.tracker_scan(pipe.init_state(), persons, pivots, frames.fb_delay, pre,
+                                        cfg.prior, cfg.tracker)
+        stage = pipeline.offline_outputs(frames, persons, pivots, n_drop, track, rig, cfg)
+        st_fused = st_pred = 0.0
+        for f in range(n):
+            d_fused, d_pred = compare_step(at_frame(stage, f), golden, f"{scene}/stage", f)
+            st_fused, st_pred = max(st_fused, d_fused), max(st_pred, d_pred)
+
+        plain_err = compare_outputs(out, plain_offline(pipe, state0, frames), f"offline {scene}")
+        report[scene] = dict(
+            published=int(out.fused.valid.sum()), stage_decisions="exact",
+            stage_worst_fused_mm=st_fused * 1e3, stage_worst_pred_mm=st_pred * 1e3,
+            plain_decisions="exact", plain_max_abs_err=plain_err,
+            golden_frames_exact=f"{e2e_frames}/{n}",
+            golden_worst_fused_mm=e2e_fused * 1e3, golden_worst_pred_mm=e2e_pred * 1e3,
+        )
+    log("6 offline slice", fusion_batch=OFFLINE_FUSION_BATCH, frames_per_scene=n,
+        fusion_decisions="exact", k1_launches=launches[0], k2_launches=launches[1],
+        k3_launches=launches[2], scenes="'" + json.dumps(report) + "'")
+    return pipe, {"association_fold": launches[1], "tracker_scan": launches[2]}
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+def tracker_inputs(pipe, frames):
+    """The tracker scan's inputs as run_offline builds them: (persons,
+    pivots, fb_delay, smooth_cold output), stacked over frames."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+
+    persons, pivots, _ = pipeline.fuse_offline(frames, pipe.rig, pipe.config, pipe.fusion_batch)
+    pre = pipeline.smooth_offline(persons, pipe.config, pipe.fusion_batch)
+    return persons, pivots.to(persons.xyz.dtype), frames.fb_delay, pre
+
+
+def scenario_inputs(name: str, dev):
+    """A tracker scenario of io.synthetic on the card: (state0, persons,
+    pivots, fb_delay, smooth_cold output, TrackerConfig)."""
+    from smartedgesensor3dhumanpose_tpu_torch import config, tracking
+    from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+    from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D, TrackerState
+
+    arrays, pivots, fb, t_slots, min_obs = synthetic.tracker_scenario(name)
+    persons = Persons3D(**{
+        k: torch.as_tensor(v, dtype=torch.float32 if v.dtype == np.float64 else None, device=dev)
+        for k, v in arrays.items()
+    })
+    tcfg = config.TrackerConfig(max_tracks=t_slots, min_num_obs=min_obs)
+    state0 = TrackerState.initial(t_slots, tcfg.n_mov_avg, tcfg.avg_delay, device=dev)
+    pre = tracking.smooth_cold(persons, config.PriorConfig())
+    return (state0, persons, torch.as_tensor(pivots, device=dev),
+            torch.as_tensor(fb, device=dev), pre, tcfg)
+
+
+def count_merges(state0, persons, pivots, fb, pre, prior_cfg, tcfg) -> int:
+    """Tracks the plain scan removes by merging: alive before a frame, dead
+    after it, and not decayed."""
+    from smartedgesensor3dhumanpose_tpu_torch import tracking
+    from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian, tracker
+
+    state = state0
+    merged = 0
+    for f in range(pivots.shape[0]):
+        new, _ = tracking.step(
+            state, tracker._frame(persons, f), pivots[f], fb[f], prior_cfg, tcfg,
+            precomputed=tracker._frame(pre, f), assign=hungarian.linear_sum_assignment_reference,
+        )
+        fresh = (pivots[f] - new.t_prev) <= tcfg.max_unobserved_time
+        merged += int((state.alive & ~new.alive & fresh).sum())
+        state = new
+    return merged
+
+
+def compare_scan(got, want, name: str) -> float:
+    """K3 against the plain scan: integers equal, floats within
+    K3_FLOAT_TOL. Returns the largest float difference."""
+    st_g, out_g = got
+    st_w, out_w = want
+    exact = {
+        "publish": (out_g.fused.valid, out_w.fused.valid),
+        "person_id": (out_g.fused.person_id, out_w.fused.person_id),
+        "pred ids": (out_g.fused_pred.person_id, out_w.fused_pred.person_id),
+        "n_dropped_spawns": (out_g.n_dropped_spawns, out_w.n_dropped_spawns),
+    }
+    for field in ("alive", "track_id", "num_obs", "next_id", "frame_nr", "est_exists"):
+        exact[field] = (getattr(st_g, field), getattr(st_w, field))
+    bad = [k for k, (a, b) in exact.items() if not torch.equal(a.cpu(), b.cpu())]
+    if bad:
+        raise AssertionError(f"K3 {name}: integer outputs differ from the plain scan: {bad}")
+    floats = {
+        "pred_delta_t": (out_g.pred_delta_t, out_w.pred_delta_t),
+        "fused.xyz": (out_g.fused.xyz, out_w.fused.xyz),
+        "fused_pred.xyz": (out_g.fused_pred.xyz, out_w.fused_pred.xyz),
+        "fused_pred.cov": (out_g.fused_pred.cov, out_w.fused_pred.cov),
+    }
+    for field in ("estimate", "vel_buffer", "t_prev", "height_prev", "root_prev",
+                  "fb_delay_buffer", "t_prev_global"):
+        floats[field] = (getattr(st_g, field), getattr(st_w, field))
+    worst = 0.0
+    for k, (a, b) in floats.items():
+        a = a.detach().double().cpu()
+        b = b.detach().double().cpu()
+        both_inf = torch.isinf(a) & torch.isinf(b) & (torch.sign(a) == torch.sign(b))
+        diff = torch.where(both_inf, 0.0, (a - b).abs())
+        if torch.isnan(diff).any() or float(diff.max()) > K3_FLOAT_TOL[k]:
+            raise AssertionError(
+                f"K3 {name} {k}: off by {float(diff.max())} > {K3_FLOAT_TOL[k]}"
+            )
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def check_k3(name, state0, persons, pivots, fb, pre, prior_cfg, tcfg):
+    """K3 against its plain version on one sequence; returns (largest float
+    difference, spawns dropped, tracks merged, frames)."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
+
+    got = tracker.tracker_scan(state0, persons, pivots, fb, pre, prior_cfg, tcfg)
+    torch.cuda.synchronize()
+    want = tracker.tracker_scan_reference(state0, persons, pivots, fb, pre, prior_cfg, tcfg)
+    err = compare_scan(got, want, name)
+    if int(want[1].fused.valid.sum()) == 0:
+        raise AssertionError(f"K3 {name}: the plain scan published nothing")
+    drops = int(want[1].n_dropped_spawns.sum())
+    merges = count_merges(state0, persons, pivots, fb, pre, prior_cfg, tcfg)
+    return err, drops, merges, int(pivots.shape[0])
+
+
+def phase_k3(dev, pipe, inputs):
+    from smartedgesensor3dhumanpose_tpu_torch import config
+    from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+
+    prior_cfg = config.PriorConfig()
+    worst = 0.0
+    drops = merges = frames = 0
+    per_case = {}
+    for name in synthetic.TRACKER_SCENARIOS:
+        state0, persons, pivots, fb, pre, tcfg = scenario_inputs(name, dev)
+        e, d, m, n = check_k3(name, state0, persons, pivots, fb, pre, prior_cfg, tcfg)
+        worst, drops, merges, frames = max(worst, e), drops + d, merges + m, frames + n
+        per_case[name] = (d, m)
+    for scene in SCENES:
+        persons, pivots, fb, pre = tracker_inputs(pipe, stacked_frames(inputs[scene], dev))
+        e, d, m, n = check_k3(scene, pipe.init_state(), persons, pivots, fb, pre,
+                              pipe.config.prior, pipe.config.tracker)
+        worst, drops, merges, frames = max(worst, e), drops + d, merges + m, frames + n
+        per_case[scene] = (d, m)
+    if drops == 0 or merges == 0:
+        raise AssertionError(f"K3: no dropped spawn or no merge was exercised {per_case}")
+    log("7 K3 vs plain", sequences=len(per_case), frames=frames, decisions="exact",
+        max_abs_err=worst, dropped_spawns=drops, merged_tracks=merges,
+        per_case="'" + json.dumps(per_case) + "'")
+    return worst
+
+
+# ---------------------------------------------------------------- phase 8 --
+
+def phase_scaled(dev):
+    """The scaled layout end to end, then K3 and the batched K2 against
+    their plain versions on its inputs."""
+    from smartedgesensor3dhumanpose_tpu_torch import cameras, fusion, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, tracker
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    cfg = PipelineConfig.scaled_64cam()
+    rig = cameras.hall_rig(SCALED_SCENE["num_cameras"], device=dev)
+    data = scene_data(SCALED_SCENE, cfg.fusion.max_dets_per_cam)
+    frames = stacked_frames(data, dev)
+    n = data["kp2d"].shape[0]
+    pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=SCALED_FUSION_BATCH)
+    t0 = time.perf_counter()
+    reset_counts()
+    _, out = pipe.run_offline(pipe.init_state(), frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall_s = time.perf_counter() - t0
+    want = (0, -(-n // SCALED_FUSION_BATCH), 1)
+    if counts != want:
+        raise AssertionError(f"scaled: launch counts (K1, K2, K3) = {counts}, expected {want}")
+    published = int(out.fused.valid.sum())
+    pub = out.fused.valid
+    if published == 0:
+        raise AssertionError("scaled: run_offline published nobody")
+    if not (torch.isfinite(out.fused.xyz[pub]).all() and torch.isfinite(out.fused_pred.xyz[pub]).all()):
+        raise AssertionError("scaled: non-finite published joints")
+
+    persons, pivots, fb, pre = tracker_inputs(pipe, frames)
+    state0 = pipe.init_state()
+    err, drops, merges, _ = check_k3("scaled64", state0, persons, pivots, fb, pre,
+                                     cfg.prior, cfg.tracker)
+    k3_ms = sync_time(lambda: tracker.tracker_scan(state0, persons, pivots, fb, pre,
+                                                   cfg.prior, cfg.tracker), 10)
+    chunk, _ = pipeline.mask_stale_cameras(
+        Frame(*(x[:SCALED_FUSION_BATCH] for x in frames)), cfg.fusion.max_sync_diff
+    )
+    kp_n, _, det_ok = fusion.normalize_frame(chunk, rig, cfg.fusion)
+    ctab, conf = fusion.fold_inputs(kp_n, chunk.det_score, rig, cfg.fusion)
+    args = (cfg.fusion.max_hypotheses, cfg.fusion.max_epipolar_error, cfg.fusion.max_cost)
+    got = association.associate_fold_batched(ctab, conf, det_ok, *args)
+    torch.cuda.synchronize()
+    ref = association.associate_fold_batched_reference(ctab, conf, det_ok, *args)
+    for g, w, what in zip(got, ref, ("det_slot", "n_hyp", "n_dropped")):
+        if not torch.equal(g.cpu(), w.cpu().to(g.dtype)):
+            raise AssertionError(f"scaled K2 batched {what}: kernel != plain")
+    log("8 scaled", cams=SCALED_SCENE["num_cameras"], people=SCALED_SCENE["num_people"],
+        frames=n, dets=cfg.fusion.max_dets_per_cam, hyps=cfg.fusion.max_hypotheses,
+        tracks=cfg.tracker.max_tracks, first_call_s=wall_s, published_persons=published,
+        k3_vs_plain="exact", k3_max_abs_err=err, k3_dropped=drops, k3_merged=merges, k3_ms=k3_ms,
+        k2_batched_frames=SCALED_FUSION_BATCH, k2_vs_plain="exact",
+        n_hyp=[int(x) for x in got[1]])
+    return err
+
+
+# ---------------------------------------------------------------- phase 9 --
+
+def count_syncs(fn) -> int:
+    """Host syncs of one call of `fn`, as torch's sync debug mode reports."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def k3_bound(persons, state0, has_dets) -> tuple:
+    """(bound ms, what bounds it) of K3 on these inputs: the kernel's input,
+    state and output bytes once each, and the operations these frames need
+    (the cost of valid persons against every slot, their JV searches at
+    most n + 1 steps of n lanes, the per-joint velocity update, and the
+    [T, T] merge distances on frames with detections)."""
+    f, p, k, _ = persons.xyz.shape
+    t_slots = state0.alive.shape[0]
+    w = state0.vel_buffer.shape[2]
+    n_valid = int(persons.valid.sum())
+    n_det_frames = int(has_dets.sum())
+    inputs = (f * p * k * 3 * 4 * 2          # fusion joints, LM result
+              + f * p * (3 + 1) * 4          # root, height
+              + f * p * k * 2 + f * p * 2    # joint and person flags
+              + f * 5 * 4 + k * 4)           # frame scalars, vel sigmas
+    state = sum(x.numel() * x.element_size() for x in (
+        state0.estimate, state0.est_exists, state0.vel_buffer, state0.t_prev,
+        state0.height_prev, state0.root_prev, state0.alive, state0.track_id,
+        state0.num_obs)) + 4
+    outputs = f * p * k * 3 * 4 + f * p * (1 + 4) + f * 4
+    nbytes = inputs + 2 * state + outputs
+    ops = (n_valid * t_slots * k * 19                      # association cost
+           + n_valid * (t_slots + 1) * t_slots * 4         # JV searches
+           + n_valid * k * 3 * (8 + w)                     # velocity ring, offset
+           + n_det_frames * t_slots * (t_slots - 1) // 2 * k * 16)  # merge
+    return bound_of(nbytes, ops)
+
+
+def bound_of(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_offline_times(dev, pipe, inputs, profile_dir):
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
+
+    cfg, rig = pipe.config, pipe.rig
+    data = inputs["benign"]
+    frames = stacked_frames(data, dev)
+    n = data["kp2d"].shape[0]
+    pipe.run_offline(pipe.init_state(), frames)
+    torch.cuda.synchronize()
+    run_s = []
+    for _ in range(5):
+        state0 = pipe.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_offline(state0, frames)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+    syncs = count_syncs(lambda: pipe.run_offline(pipe.init_state(), frames))
+
+    # Stage split, a sync after each stage (run_offline's own calls).
+    laps = {"fuse_ms": [], "smooth_ms": [], "track_ms": [], "reproject_ms": []}
+    for _ in range(3):
+        state0 = pipe.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        persons, pivots, n_drop = pipeline.fuse_offline(frames, rig, cfg, pipe.fusion_batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pre = pipeline.smooth_offline(persons, cfg, pipe.fusion_batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _, track = tracker.tracker_scan(state0, persons, pivots.to(persons.xyz.dtype),
+                                        frames.fb_delay, pre, cfg.prior, cfg.tracker)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pipeline.offline_outputs(frames, persons, pivots, n_drop, track, rig, cfg)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(laps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            laps[key].append(dt * 1e3)
+
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pipe.run_offline(pipe.init_state(), frames)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        averages = prof.key_averages()
+        busy_ms = sum(e.self_device_time_total for e in averages) / 1e3 / 3
+        with open(os.path.join(profile_dir, "profile_offline.txt"), "w") as fh:
+            fh.write(averages.table(sort_by="self_device_time_total", row_limit=40))
+        log("9 profile", runs=3, wall_ms_per_run=wall_ms, device_busy_ms_per_run=busy_ms,
+            device_idle_share=1.0 - busy_ms / wall_ms)
+
+    # K3 at the demo shape (64 frames, 16 persons, 24 slots), wrapper call
+    # (frame-local precompute, packing, one launch) against the plain scan.
+    persons, pivots, fb, pre = tracker_inputs(pipe, frames)
+    state0 = pipe.init_state()
+    reset_counts()
+    k3_ms = sync_time(lambda: tracker.tracker_scan(state0, persons, pivots, fb, pre,
+                                                   cfg.prior, cfg.tracker), 20)
+    k3_plain = sync_time(lambda: tracker.tracker_scan_reference(state0, persons, pivots, fb, pre,
+                                                                cfg.prior, cfg.tracker), 2)
+    bound_ms, bound_by = k3_bound(persons, state0, persons.valid.any(dim=1))
+    med = statistics.median(run_s)
+    log("9 offline times", runs=len(run_s), frames=n, fusion_batch=pipe.fusion_batch,
+        run_ms_median=med * 1e3, run_ms_min=min(run_s) * 1e3, run_ms_max=max(run_s) * 1e3,
+        fused_fps_median=n / med, host_syncs_per_run=syncs,
+        **{k: statistics.median(v) for k, v in laps.items()},
+        k3_ms=k3_ms, k3_plain_ms=k3_plain, k3_bound_ms=bound_ms, k3_bound_by=bound_by)
+    return {"tracker_scan": (k3_ms, k3_plain, bound_ms, bound_by)}
 
 
 def main() -> int:
@@ -436,24 +968,43 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     golden = np.load(GOLDEN)
+    golden_offline = np.load(GOLDEN_OFFLINE)
     cfg = PipelineConfig.demo_16cam()
     rig = cameras.hall_rig(16, device=dev)
     k1_err = phase_k1(dev, rng)
     k2_err = phase_k2(dev, golden, rig, cfg)
-    pipe, _, launches = phase_slice(dev, golden, rig, cfg)
+    pipe, inputs, launches = phase_slice(dev, golden, rig, cfg)
     times = phase_times(dev, pipe, golden, rig, cfg, rng, args.profile)
+    off_pipe, off_launches = phase_offline(dev, golden_offline, rig, cfg, inputs)
+    k3_err = phase_k3(dev, off_pipe, inputs)
+    k3_err = max(k3_err, phase_scaled(dev))
+    times.update(phase_offline_times(dev, off_pipe, inputs, args.profile))
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
-    kernels = [
-        {"name": "jv_assign", "route": "cuda", "source": f"{pkg}/jv_assign.cu",
-         "replaces": "smartedgesensor3dhumanpose_tpu/ops/hungarian_pallas.py:238",
-         "launches": launches["jv_assign"], "max_abs_err": float(k1_err),
-         "ms": times["jv_assign"][0], "plain_ms": times["jv_assign"][1]},
-        {"name": "association_fold", "route": "cuda", "source": f"{pkg}/association_fold.cu",
-         "replaces": "smartedgesensor3dhumanpose_tpu/ops/association_pallas.py:419",
-         "launches": launches["association_fold"], "max_abs_err": float(k2_err),
-         "ms": times["association_fold"][0], "plain_ms": times["association_fold"][1]},
-    ]
+    tpu = "smartedgesensor3dhumanpose_tpu/ops"
+    # launches: the online path's (phase 4) plus the offline path's (phase
+    # 6) counts; no single PyTorch call computes JV, the fold or the scan,
+    # so there is no library time.
+    by_path = {
+        "jv_assign": {"step": launches["jv_assign"], "run_offline": 0},
+        "association_fold": {"step": launches["association_fold"],
+                             "run_offline": off_launches["association_fold"]},
+        "tracker_scan": {"step": 0, "run_offline": off_launches["tracker_scan"]},
+    }
+    specs = (
+        ("jv_assign", "jv_assign.cu", f"{tpu}/hungarian_pallas.py:238", k1_err),
+        ("association_fold", "association_fold.cu", f"{tpu}/association_pallas.py:419", k2_err),
+        ("tracker_scan", "tracker_scan.cu", f"{tpu}/tracker_pallas.py:621", k3_err),
+    )
+    kernels = []
+    for name, src, replaces, err in specs:
+        ms, plain_ms, bound_ms, bound_by = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{pkg}/{src}", "replaces": replaces,
+            "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 The kernels have a plain C interface, so they compile with `nvcc` alone
-(seconds, no PyTorch headers) into one shared library that is loaded with
-ctypes. The build happens at first use, from the sources of this checkout
-only, into `_build/` next to this file; the library's name carries a hash
-of the sources and flags, so an edited source is never served stale.
+(seconds, no PyTorch headers): one `nvcc -c` per source, all started
+together, then one link into a shared library that is loaded with ctypes.
+The build happens at first use, from the sources of this checkout only,
+into `_build/` next to this file; the library's name carries a hash of the
+sources and flags, so an edited source is never served stale.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -22,14 +23,13 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("jv_assign.cu", "association_fold.cu")
+SOURCES = ("jv_assign.cu", "association_fold.cu", "tracker_scan.cu")
 HEADERS = ("jv.cuh",)
 # --fmad=false: every float operation rounds on its own, as in the plain
 # PyTorch versions the kernels are held to bit for bit.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -64,19 +64,34 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(CSRC / s) for s in SOURCES]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = []
+    for src, proc in zip(SOURCES, procs):
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{stdout}\n{stderr}")
+        logs.append(f"{src}:\n{stdout}{stderr}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print("\n".join(logs))
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
@@ -94,6 +109,8 @@ def library() -> ctypes.CDLL:
             p, p, p, p, p, i, i, i, i, f, f, p
         ]
         lib.ses3d_association_fold.restype = i
+        lib.ses3d_tracker_scan.argtypes = [p] * 25 + [i, i, i, i, f, f, i, f, f, p]
+        lib.ses3d_tracker_scan.restype = i
         _lib = lib
     return _lib
 

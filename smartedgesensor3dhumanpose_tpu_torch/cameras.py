@@ -81,7 +81,7 @@ def build_rig(
     K: np.ndarray,
     image_size: np.ndarray | Tuple[int, int] = (640, 480),
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> CameraRig:
     """Assemble a CameraRig from extrinsics [C, 3, 4] and intrinsics ([C, 4]
     (fx, fy, cx, cy) or [C, 3, 3]); `image_size` is [C, 2] or one
@@ -242,7 +242,7 @@ def hall_rig(
     intrinsics: Tuple[float, float, float, float] = (420.0, 420.0, 320.0, 240.0),
     image_size: Tuple[int, int] = (640, 480),
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> CameraRig:
     """The demo hall rig with nominal 640x480 sensor intrinsics; beyond 16
     cameras it extends with `ring_extrinsics`."""

@@ -4,6 +4,8 @@ The online path carries no learned weights: what crosses between the JAX
 package and the port is the calibration, the frames and the carried
 TrackerState. Field names and layouts match the JAX package's types, so a
 state taken from a JAX run mid-sequence (as numpy) continues in the port.
+Like every entry point of the port, these place their tensors on the card
+unless the caller asks for the CPU (`device="cpu"`).
 """
 
 from __future__ import annotations
@@ -19,18 +21,18 @@ _STATE_BOOL = {"alive", "est_exists"}
 
 
 def rig_from_numpy(K, P, image_size=(640, 480), dtype=torch.float32,
-                   device="cpu") -> CameraRig:
+                   device="cuda") -> CameraRig:
     """CameraRig from intrinsics K ([C, 4] or [C, 3, 3]) and extrinsics P
     [C, 3, 4]; the fundamental matrices are recomputed in float64."""
     return cameras.build_rig(P, K, image_size, dtype=dtype, device=device)
 
 
-def frame_from_arrays(data: dict, device="cpu") -> Frame:
+def frame_from_arrays(data: dict, device="cuda") -> Frame:
     """Frame from a dict of host arrays (see Frame.from_arrays)."""
     return Frame.from_arrays(data, device)
 
 
-def tracker_state_from_numpy(arrays: dict, device="cpu", dtype=None) -> TrackerState:
+def tracker_state_from_numpy(arrays: dict, device="cuda", dtype=None) -> TrackerState:
     """TrackerState from a dict of arrays named like its fields. Float
     fields keep their dtype unless `dtype` is given; ids and counters become
     int32, masks bool."""

@@ -59,28 +59,6 @@ struct SharedCost {
   __device__ float operator()(int i, int j) const { return base[i * ld + j]; }
 };
 
-// Inclusive prefix sum over the block's 128 threads; `total` gets the sum.
-__device__ int block_inclusive_scan(int x, int* warp_sums, int& total) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(full, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  int prefix = 0;
-  int sum = 0;
-  for (int w = 0; w < ses3d::kLanes / 32; ++w) {
-    if (w < warp) prefix += warp_sums[w];
-    sum += warp_sums[w];
-  }
-  total = sum;
-  __syncthreads();
-  return x + prefix;
-}
-
 __global__ void __launch_bounds__(ses3d::kLanes)
 association_fold_kernel(const float* __restrict__ ctab,
                         const float* __restrict__ conf,
@@ -203,9 +181,9 @@ association_fold_kernel(const float* __restrict__ ctab,
     const bool spawn_unhandled = t < dp && dok_c[t] && !handled[t];
 
     int total1, total2;
-    const int cum1 = block_inclusive_scan(spawn_from_hyp ? 1 : 0, warp_sums, total1);
+    const int cum1 = ses3d::block_inclusive_scan(spawn_from_hyp ? 1 : 0, warp_sums, total1);
     const int n1 = n_hyp + total1;
-    const int cum2 = block_inclusive_scan(spawn_unhandled ? 1 : 0, warp_sums, total2);
+    const int cum2 = ses3d::block_inclusive_scan(spawn_unhandled ? 1 : 0, warp_sums, total2);
     const int n2 = n1 + total2;
     if (spawn_from_hyp) dts1[a] = n_hyp + cum1 - 1;
     __syncthreads();

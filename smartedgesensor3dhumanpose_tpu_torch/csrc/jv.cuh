@@ -2,8 +2,9 @@
 //
 // Replaces the solve core of the TPU kernels in
 // smartedgesensor3dhumanpose_tpu/ops/hungarian_pallas.py (_jv_kernel and
-// jv_core_batched), which K1 (jv_assign.cu) launches on its own and K2
-// (association_fold.cu) embeds once per camera.
+// jv_core_batched), which K1 (jv_assign.cu) launches on its own, K2
+// (association_fold.cu) embeds once per camera and K3 (tracker_scan.cu)
+// once per frame. The block prefix scan below is shared by K2 and K3.
 //
 // What bounds it on an H100: nothing the card is rated for. A solve of
 // n <= 120 columns is a sequential walk: the row reduction, then for each
@@ -89,6 +90,29 @@ __device__ inline void block_argmin(float val, int idx, JvShared& s,
   out_val = bv;
   out_idx = bi;
   __syncthreads();
+}
+
+// Inclusive prefix sum of `x` over the block's 128 threads; `total` gets
+// the block's sum. All 128 threads must call it.
+__device__ inline int block_inclusive_scan(int x, int* warp_sums, int& total) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(full, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int prefix = 0;
+  int sum = 0;
+  for (int w = 0; w < kLanes / 32; ++w) {
+    if (w < warp) prefix += warp_sums[w];
+    sum += warp_sums[w];
+  }
+  total = sum;
+  __syncthreads();
+  return x + prefix;
 }
 
 // Solve the assignment of rows [0, n_rows) to columns [0, n), n <= kMaxN,

@@ -1,10 +1,11 @@
-"""Multi-view fusion of one frame: cross-view association + triangulation.
+"""Multi-view fusion: cross-view association + triangulation.
 
 Port of the JAX package's fusion.py, the reference skeleton_3d node's hot
 path (skeleton_3d_triang_mult_node.cpp triangulate_persons, :525-997):
 
 * the greedy association fold over cameras (:562-674), kernel K2
-  (ops.association) on the card,
+  (ops.association) on the card, one launch for a whole chunk of frames
+  (`fuse_frames`; the online `fuse_frame` is a chunk of one),
 * confidence-weighted DLT with 3-view / leave-one-out outlier rejection
   (:676-844), every leave-one-out variant computed as one batch axis,
 * unscented 3D covariance (:508-523), limb, root and feet gates, and the
@@ -34,7 +35,7 @@ from smartedgesensor3dhumanpose_tpu_torch.types import CameraRig, Frame, Persons
 class HypothesisSet(NamedTuple):
     """Fixed-slot person hypotheses accumulated across cameras: slot h
     observes camera c iff cam_mask[h, c] (reference PersonHypothesis,
-    :153-159)."""
+    :153-159). Fields may carry a leading frame axis."""
 
     kp: torch.Tensor         # [H, C, J, 3] normalized keypoints (x, y, conf)
     cov: torch.Tensor        # [H, C, J, 3] packed normalized covariance
@@ -47,32 +48,40 @@ class HypothesisSet(NamedTuple):
 def fold_inputs(kp_n, det_score, rig: CameraRig, config: FusionConfig):
     """The association fold's inputs: the per-observation epipolar costs
     between every detection pair, computed once per frame and packed as
-    ctab [C2, C1*D1, D2] (-1 where unusable, including c1 >= c2), and the
-    confident-voter flags conf_obs [C*D] (score > 0.5, :352)."""
-    c, d, _, _ = kp_n.shape
+    ctab [..., C2, C1*D1, D2] (-1 where unusable, including c1 >= c2), and
+    the confident-voter flags conf_obs [..., C*D] (score > 0.5, :352).
+    kp_n [..., C, D, J, 3]: leading axes (frames) pass through."""
+    c, d = kp_n.shape[-4:-2]
+    lead = kp_n.shape[:-4]
     dtype = kp_n.dtype
     cost_p, usable_p, iu, ju = epipolar.pairwise_association_costs_packed(
         kp_n, rig.F, config.min_kp_score
     )
-    ctab = torch.full((c, c, d, d), -1.0, dtype=dtype, device=kp_n.device)
-    ctab[ju, iu] = torch.where(usable_p, cost_p, -1.0)
-    conf_obs = (det_score > 0.5).to(dtype).reshape(c * d)
-    return ctab.reshape(c, c * d, d), conf_obs
+    ctab = torch.full(lead + (c, c, d, d), -1.0, dtype=dtype, device=kp_n.device)
+    ctab[..., ju, iu, :, :] = torch.where(usable_p, cost_p, -1.0)
+    conf_obs = (det_score > 0.5).to(dtype).reshape(lead + (c * d,))
+    return ctab.reshape(lead + (c, c * d, d)), conf_obs
 
 
 def associate(kp_n, cov_n, det_score, det_ok, rig: CameraRig,
               config: FusionConfig) -> HypothesisSet:
-    """Greedy cross-view association over all cameras: the fold
-    (ops.association) only gathers the precomputed pair costs by the
-    hypotheses' observation identities.
+    """Greedy cross-view association over all cameras of a chunk of frames:
+    the fold (ops.association, one launch for the chunk) only gathers the
+    precomputed pair costs by the hypotheses' observation identities.
 
-    kp_n, cov_n: [C, D, J, 3]; det_score [C, D]; det_ok [C, D] bool.
+    kp_n, cov_n: [B, C, D, J, 3]; det_score [B, C, D]; det_ok [B, C, D]
+    bool; a HypothesisSet with the same leading frame axis comes back. One
+    frame without that axis gives one HypothesisSet without it.
     """
+    if kp_n.dim() == 4:
+        hyps = associate(kp_n[None], cov_n[None], det_score[None], det_ok[None],
+                         rig, config)
+        return HypothesisSet(*(x[0] for x in hyps))
     ctab, conf_obs = fold_inputs(kp_n, det_score, rig, config)
     fold = (
-        association.associate_fold
+        association.associate_fold_batched
         if config.assignment_impl == "kernel"
-        else association.associate_fold_reference
+        else association.associate_fold_batched_reference
     )
     det_slot, n_hyp, n_dropped = fold(
         ctab, conf_obs, det_ok, config.max_hypotheses,
@@ -82,14 +91,17 @@ def associate(kp_n, cov_n, det_score, det_ok, rig: CameraRig,
 
 
 def _gather_hypotheses(det_slot, n_hyp, n_dropped, kp_n, cov_n, det_score):
-    """Select each (hypothesis, camera) slot's detection data."""
-    on = det_slot >= 0  # [H, C]
-    cams = torch.arange(det_slot.shape[1], device=det_slot.device)[None, :]
+    """Select each (frame, hypothesis, camera) slot's detection data:
+    det_slot [B, H, C], kp_n [B, C, D, J, 3]."""
+    on = det_slot >= 0  # [B, H, C]
+    b, _, c = det_slot.shape
+    frames = torch.arange(b, device=det_slot.device)[:, None, None]
+    cams = torch.arange(c, device=det_slot.device)
     sel = det_slot.clamp(min=0).long()
     unobserved = linalg.constant([0.0, 0.0, -1.0], kp_n.device, kp_n.dtype)
-    kp = torch.where(on[..., None, None], kp_n[cams, sel], unobserved)
-    cov = torch.where(on[..., None, None], cov_n[cams, sel], 0.0)
-    obs_score = torch.where(on, det_score[cams, sel], 0.0)
+    kp = torch.where(on[..., None, None], kp_n[frames, cams, sel], unobserved)
+    cov = torch.where(on[..., None, None], cov_n[frames, cams, sel], 0.0)
+    obs_score = torch.where(on, det_score[frames, cams, sel], 0.0)
     return HypothesisSet(
         kp=kp, cov=cov, cam_mask=on, obs_score=obs_score,
         n_hyp=n_hyp, n_dropped=n_dropped,
@@ -319,49 +331,53 @@ def merge_close_persons(persons: Persons3D, config: FusionConfig) -> Persons3D:
     (:984-996), as P-1 steps over victim slots j in ascending order, each
     merging j into the first close keeper i < j; this visits the same states
     as the reference's lexicographic pair loop (see the JAX package's
-    fusion.merge_close_persons)."""
-    p = persons.xyz.shape[0]
+    fusion.merge_close_persons). Leading axes (frames) of `persons` are
+    merged independently, in the same P-1 steps."""
+    p = persons.xyz.shape[-3]
     if p < 2:
         return persons
     idx = torch.arange(p, device=persons.xyz.device)
     xyz, score, cov, valid = persons.xyz, persons.score, persons.cov, persons.valid
     for j in range(1, p):
-        xj, sj, cj = xyz[j], score[j], cov[j]
-        joint_ok = (score > 0) & (sj > 0)  # [P, K]
-        d = torch.linalg.vector_norm(xyz - xj[None], dim=-1)
+        xj = xyz[..., j:j + 1, :, :]  # [..., 1, K, 3]
+        sj = score[..., j:j + 1, :]
+        cj = cov[..., j:j + 1, :, :, :]
+        joint_ok = (score > 0) & (sj > 0)  # [..., P, K]
+        d = torch.linalg.vector_norm(xyz - xj, dim=-1)
         n = torch.sum(joint_ok, dim=-1)
         mean_d = torch.sum(torch.where(joint_ok, d, 0.0), dim=-1) / torch.clamp(n, min=1)
         close = (
-            valid & valid[j] & (idx < j) & (n > 0)
+            valid & valid[..., j:j + 1] & (idx < j) & (n > 0)
             & (mean_d < config.merge_dist_thresh)
-        )
-        do_merge = close.any()
-        k = torch.argmax(close.to(torch.int32)).reshape(1)  # first close keeper
+        )  # [..., P]
+        do_merge = close.any(dim=-1, keepdim=True)
+        # The first close keeper, gathered without a host read.
+        k = torch.argmax(close.to(torch.int32), dim=-1, keepdim=True)  # [..., 1]
+        xk = torch.take_along_dim(xyz, k[..., None, None], dim=-3)  # [..., 1, K, 3]
+        si = torch.take_along_dim(score, k[..., None], dim=-2)
+        ck = torch.take_along_dim(cov, k[..., None, None, None], dim=-4)
         # merge_persons (:410-423): score-weighted position, max score,
         # averaged covariance wherever the combined score is positive.
-        xk = xyz.index_select(0, k)[0]
-        si = score.index_select(0, k)[0]
-        ck = cov.index_select(0, k)[0]
         tot = si + sj
         any_score = tot > 0
         w_i = torch.where(any_score, si / torch.where(any_score, tot, 1.0), 0.0)
         merged_xyz = torch.where(
-            any_score[:, None], w_i[:, None] * xk + (1 - w_i)[:, None] * xj, xk
+            any_score[..., None], w_i[..., None] * xk + (1 - w_i)[..., None] * xj, xk
         )
         merged_score = torch.where(any_score, torch.maximum(si, sj), si)
-        merged_cov = torch.where(any_score[:, None, None], 0.5 * (ck + cj), ck)
-        into = (idx == k) & do_merge  # [P], the keeper's row when merging
-        xyz = torch.where(into[:, None, None], merged_xyz, xyz)
-        score = torch.where(into[:, None], merged_score, score)
-        cov = torch.where(into[:, None, None, None], merged_cov, cov)
+        merged_cov = torch.where(any_score[..., None, None], 0.5 * (ck + cj), ck)
+        into = (idx == k) & do_merge  # [..., P], the keeper's row when merging
+        xyz = torch.where(into[..., None, None], merged_xyz, xyz)
+        score = torch.where(into[..., None], merged_score, score)
+        cov = torch.where(into[..., None, None, None], merged_cov, cov)
         valid = valid & ~((idx == j) & do_merge)
     return persons._replace(xyz=xyz, score=score, cov=cov, valid=valid)
 
 
 def normalize_frame(frame: Frame, rig: CameraRig, config: FusionConfig):
-    """Normalized keypoints and covariances [C, D, J, 3] and the usable
-    detections det_ok [C, D]: a populated slot with more than half its
-    keypoints valid (:579,599)."""
+    """Normalized keypoints and covariances [..., C, D, J, 3] and the usable
+    detections det_ok [..., C, D]: a populated slot with more than half its
+    keypoints valid (:579,599). Leading axes (frames) pass through."""
     kp_n, cov_n, kp_ok = cameras_lib.normalize_keypoints(
         frame.kp2d, frame.cov2d, rig.K, config.min_kp_score
     )
@@ -369,22 +385,42 @@ def normalize_frame(frame: Frame, rig: CameraRig, config: FusionConfig):
     return kp_n, cov_n, frame.det_valid & enough
 
 
+def fuse_frames(frames: Frame, rig: CameraRig, config: FusionConfig):
+    """Full fusion of a chunk of synchronized frames (every Frame field with
+    a leading frame axis B): normalize -> associate (one fold launch for the
+    chunk) -> triangulate (the chunk's hypotheses as one batch) -> gate ->
+    merge; the skeleton_3d node's per-frame path, frame by frame the same
+    as `fuse_frame`.
+
+    Returns (persons [B, H, ...], n_dropped [B] int32 hypothesis spawns lost
+    to the slot capacity).
+    """
+    kp_n, cov_n, det_ok = normalize_frame(frames, rig, config)
+    hyps = associate(kp_n, cov_n, frames.det_score, det_ok, rig, config)
+    b, h = hyps.cam_mask.shape[:2]
+    flat = hyps._replace(
+        kp=hyps.kp.flatten(0, 1), cov=hyps.cov.flatten(0, 1),
+        cam_mask=hyps.cam_mask.flatten(0, 1), obs_score=hyps.obs_score.flatten(0, 1),
+    )
+    persons = triangulate_hypotheses(flat, rig, config)
+    persons = Persons3D(*(x.reshape((b, h) + x.shape[1:]) for x in persons))
+    # Hypotheses need >= 2 observations to triangulate (:684).
+    active = torch.arange(h, device=kp_n.device) < hyps.n_hyp[:, None]
+    n_obs = torch.sum(hyps.cam_mask, dim=-1)
+    persons = persons._replace(valid=persons.valid & active & (n_obs >= 2))
+    return merge_close_persons(persons, config), hyps.n_dropped
+
+
 def fuse_frame(frame: Frame, rig: CameraRig, config: FusionConfig,
                with_stats: bool = False):
-    """Full fusion of one synchronized frame: normalize -> associate ->
-    triangulate -> gate -> merge (the skeleton_3d node's per-frame path).
+    """Full fusion of one synchronized frame (`fuse_frames` on a chunk of
+    one).
 
     with_stats: also return the [] int32 count of hypothesis spawns lost to
     the slot capacity, as `(persons, n_dropped)`.
     """
-    kp_n, cov_n, det_ok = normalize_frame(frame, rig, config)
-    hyps = associate(kp_n, cov_n, frame.det_score, det_ok, rig, config)
-    persons = triangulate_hypotheses(hyps, rig, config)
-    # Hypotheses need >= 2 observations to triangulate (:684).
-    active = torch.arange(persons.valid.shape[0], device=kp_n.device) < hyps.n_hyp
-    n_obs = torch.sum(hyps.cam_mask, dim=-1)
-    persons = persons._replace(valid=persons.valid & active & (n_obs >= 2))
-    merged = merge_close_persons(persons, config)
+    persons, n_dropped = fuse_frames(Frame(*(x[None] for x in frame)), rig, config)
+    persons = Persons3D(*(x[0] for x in persons))
     if with_stats:
-        return merged, hyps.n_dropped
-    return merged
+        return persons, n_dropped[0]
+    return persons

@@ -153,7 +153,8 @@ def generate_scene(cfg: SceneConfig, rig: Optional[CameraRig] = None):
     """
     rng = np.random.default_rng(cfg.seed)
     if rig is None:
-        rig = cameras_lib.hall_rig(cfg.num_cameras)
+        # Only the rig's numbers are read, on the host.
+        rig = cameras_lib.hall_rig(cfg.num_cameras, device="cpu")
     P_mat = rig.P.detach().cpu().numpy().astype(np.float64)
     K = rig.K.detach().cpu().numpy().astype(np.float64)
     size = rig.image_size.detach().cpu().numpy().astype(np.float64)
@@ -393,3 +394,63 @@ def frames_digest(data: dict) -> str:
     for k in ("kp2d", "cov2d", "det_score", "det_valid", "cam_stamp", "fb_delay"):
         h.update(np.ascontiguousarray(data[k]).tobytes())
     return h.hexdigest()
+
+
+# Tracker-scan scenarios: fabricated fusion outputs that drive the tracker
+# through spawn churn, capacity overflow (dropped spawns), decay,
+# detection-free frames and close-track merges, as the JAX package's
+# tests/test_tracker_pallas.py builds them. name -> (persons, track slots,
+# merge-heavy, seed, frames, min_num_obs).
+TRACKER_SCENARIOS = {
+    "spawn_churn": (5, 8, False, 0, 30, 3),
+    "capacity_drops": (6, 6, False, 1, 30, 3),
+    "merges": (8, 12, True, 2, 30, 3),
+    "scaled": (30, 64, False, 7, 10, 2),
+}
+
+
+def person_sequence(rng: np.random.Generator, f: int, p: int, merge_heavy=False):
+    """Fabricated fusion outputs (Persons3D fields as float64/bool/int32
+    NumPy arrays with a leading frame axis): wandering people with
+    teleports, dropouts, detection-free frames and, with `merge_heavy`,
+    tight clusters. The same draws as test_tracker_pallas's generator."""
+    k = 21
+    base = rng.uniform(-3, 3, size=(p, 3))
+    xyz = np.zeros((f, p, k, 3))
+    score = np.zeros((f, p, k))
+    valid = np.zeros((f, p), bool)
+    pos = base.copy()
+    for t in range(f):
+        pos = pos + rng.normal(scale=0.02, size=(p, 3))
+        jump = rng.uniform(size=p) < 0.08  # teleports: track loss + respawn
+        pos[jump] = rng.uniform(-3, 3, size=(jump.sum(), 3))
+        if merge_heavy and t > f // 3:
+            pos[: p // 2] = pos[0] + rng.normal(scale=0.02, size=(p // 2, 3))
+        offs = rng.normal(scale=0.25, size=(p, k, 3))
+        xyz[t] = pos[:, None, :] + offs
+        xyz[t, :, :, 2] += 0.9
+        score[t] = rng.uniform(0.3, 1.0, size=(p, k))
+        score[t][rng.uniform(size=(p, k)) < 0.15] = 0.0
+        valid[t] = rng.uniform(size=p) > 0.25
+        if rng.uniform() < 0.1:
+            valid[t] = False  # detection-free frame
+    cov = np.broadcast_to(np.eye(3) * 4e-3, (f, p, k, 3, 3)).copy()
+    cov += rng.uniform(0, 1e-3, size=(f, p, 1, 1, 1)) * np.eye(3)
+    return dict(xyz=xyz, score=score, cov=cov, valid=valid,
+                person_id=-np.ones((f, p), np.int32))
+
+
+def tracker_scenario(name: str):
+    """(persons arrays, pivots [F] float32, fb_delay [F, C] float32, track
+    slots, min_num_obs) of a TRACKER_SCENARIOS entry."""
+    p, t_slots, merge_heavy, seed, f, min_obs = TRACKER_SCENARIOS[name]
+    rng = np.random.default_rng(seed)
+    arrays = person_sequence(rng, f, p, merge_heavy)
+    if name == "scaled":
+        pivots = (np.arange(f) / 30.0).astype(np.float32)
+        fb = np.full((f, 8), 0.1, np.float32)
+    else:
+        pivots = (np.arange(f) / 30.0 + rng.normal(scale=1e-3, size=f)).astype(np.float32)
+        fb = np.where(rng.uniform(size=(f, 4)) < 0.8, rng.uniform(0.05, 0.2, size=(f, 4)),
+                      -1.0).astype(np.float32)
+    return arrays, pivots, fb, t_slots, min_obs

@@ -204,18 +204,25 @@ def associate_fold(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     return ds[0], nh[0], nd[0]
 
 
+def associate_fold_batched_reference(ctab, conf_obs, det_ok, h_cap, gate,
+                                     max_cost):
+    """Plain PyTorch fold of B frames, frame by frame (shapes as in
+    `associate_fold_batched`)."""
+    outs = [
+        associate_fold_reference(ctab[i], conf_obs[i], det_ok[i], h_cap, gate, max_cost)
+        for i in range(ctab.shape[0])
+    ]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def associate_fold_batched(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     """The fold of B frames, one thread block per frame on the card:
     ctab [B, C, C*D, D], conf_obs [B, C*D], det_ok [B, C, D] ->
     (det_slot [B, h_cap, C], n_hyp [B], n_dropped [B])."""
     if ctab.device.type == "cpu":
-        outs = [
-            associate_fold_reference(
-                ctab[i], conf_obs[i], det_ok[i], h_cap, gate, max_cost
-            )
-            for i in range(ctab.shape[0])
-        ]
-        return tuple(torch.stack(x) for x in zip(*outs))
+        return associate_fold_batched_reference(
+            ctab, conf_obs, det_ok, h_cap, gate, max_cost
+        )
     if ctab.device.type != "cuda":
         raise ValueError(f"unsupported device {ctab.device}")
     return _launch(ctab, conf_obs, det_ok, h_cap, gate, max_cost)

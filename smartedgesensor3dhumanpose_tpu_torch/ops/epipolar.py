@@ -21,26 +21,27 @@ def pairwise_association_costs_packed(
     """calcCost's per-observation term for every unordered camera pair.
 
     Args:
-      kp: [C, D, J, 3] normalized keypoints (x, y, conf).
+      kp: [..., C, D, J, 3] normalized keypoints (x, y, conf); leading axes
+        (frames) pass through.
       F: [C, C, 3, 3] fundamental matrices (i -> j).
       min_kp_score: joint confidence gate.
 
-    Returns (cost [Np, D, D], usable [Np, D, D] bool, iu, ju) where
+    Returns (cost [..., Np, D, D], usable [..., Np, D, D] bool, iu, ju) where
     (iu[p], ju[p]) enumerate the C(C-1)/2 pairs with iu < ju (NumPy triu
     order) and entry [p, d1, d2] is the symmetric epipolar distance between
     detection (iu[p], d1) and (ju[p], d2) averaged over joints confident in
     both; `usable` marks pairs sharing any such joint.
     """
-    c = kp.shape[0]
+    c = kp.shape[-4]
     iu_np, ju_np = np.triu_indices(c, k=1)
     iu = linalg.constant(iu_np, kp.device)
     ju = linalg.constant(ju_np, kp.device)
-    xT = kp[..., 0].transpose(-1, -2)  # [C, J, D]
+    xT = kp[..., 0].transpose(-1, -2)  # [..., C, J, D]
     yT = kp[..., 1].transpose(-1, -2)
     conf_okT = kp[..., 2].transpose(-1, -2) > min_kp_score
 
-    x1, y1 = xT[iu], yT[iu]  # [Np, J, D1]
-    x2, y2 = xT[ju], yT[ju]  # [Np, J, D2]
+    x1, y1 = xT[..., iu, :, :], yT[..., iu, :, :]  # [..., Np, J, D1]
+    x2, y2 = xT[..., ju, :, :], yT[..., ju, :, :]  # [..., Np, J, D2]
     Fp = F[iu, ju]  # [Np, 3, 3]
 
     def line(f0, f1, f2, xs, ys):
@@ -55,7 +56,7 @@ def pairwise_association_costs_packed(
         return l0 * inv, l1 * inv, l2 * inv
 
     # Line of (c1, d1, j) in camera c2: Fp @ [x1, y1, 1], scaled by
-    # 1/||l_xy|| so the [Np, J, D1, D2] product needs no normalization.
+    # 1/||l_xy|| so the [..., Np, J, D1, D2] product needs no normalization.
     l10, l11, l12 = unit(
         line(Fp[:, 0, 0], Fp[:, 0, 1], Fp[:, 0, 2], x1, y1),
         line(Fp[:, 1, 0], Fp[:, 1, 1], Fp[:, 1, 2], x1, y1),
@@ -69,20 +70,20 @@ def pairwise_association_costs_packed(
     )
 
     num1 = (
-        x2[:, :, None, :] * l10[..., None]
-        + y2[:, :, None, :] * l11[..., None]
+        x2[..., None, :] * l10[..., None]
+        + y2[..., None, :] * l11[..., None]
         + l12[..., None]
     )
     num2 = (
-        x1[..., None] * l20[:, :, None, :]
-        + y1[..., None] * l21[:, :, None, :]
-        + l22[:, :, None, :]
+        x1[..., None] * l20[..., None, :]
+        + y1[..., None] * l21[..., None, :]
+        + l22[..., None, :]
     )
-    d = torch.abs(num1) + torch.abs(num2)  # [Np, J, D1, D2]
+    d = torch.abs(num1) + torch.abs(num2)  # [..., Np, J, D1, D2]
 
-    both_ok = conf_okT[iu][..., None] & conf_okT[ju][:, :, None, :]
-    n_joints = torch.sum(both_ok, dim=1)  # [Np, D1, D2]
-    dist_sum = torch.sum(torch.where(both_ok, d, 0.0), dim=1)
+    both_ok = conf_okT[..., iu, :, :][..., None] & conf_okT[..., ju, :, :][..., None, :]
+    n_joints = torch.sum(both_ok, dim=-3)  # [..., Np, D1, D2]
+    dist_sum = torch.sum(torch.where(both_ok, d, 0.0), dim=-3)
     cost_p = dist_sum / torch.where(n_joints > 0, n_joints, 1)
     return cost_p, n_joints > 0, iu, ju
 

@@ -1,0 +1,294 @@
+"""The offline tracker scan: kernel K3 and its plain PyTorch version.
+
+The tracker is sequential across frames: association costs, spawns, the
+velocity ring buffers and the merge sweep all read the previous frame's
+track state. Offline, after the LM smoothing has been hoisted out of the
+loop (tracking.smooth_cold), what is left is the whole scan of
+`tracking.step(..., precomputed=...)` over a sequence. This module is the
+port of the JAX package's ops/tracker_pallas.py:
+
+* `frame_local_chain`: the per-frame quantities that depend only on the
+  frame's inputs and counters (the feedback-delay ring and prediction
+  horizon, the velocity-ring slot, the inter-frame delta), computed for the
+  whole sequence in vectorized torch ops outside the kernel;
+* `tracker_scan_reference`: the plain version, a loop over frames of
+  `tracking.step(..., precomputed=pre_t)` with the plain JV;
+* `tracker_scan`: kernel K3 (csrc/tracker_scan.cu) for CUDA float32
+  tensors, one launch for all frames with the track state resident on
+  chip; the plain version for CPU tensors. There is no other path.
+
+Layout of the kernel's inputs (`_pack`): per frame, persons' joints as
+[F, P, K*3] float32 rows, joint flags and person flags as uint8, and two
+small frame-scalar tables; the state as [T, ...] rows, one per track slot.
+The TPU kernel's [rows, 128 lanes] tiles, 8-row padding and SMEM scalar
+blocks were Mosaic limits and are not carried over.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smartedgesensor3dhumanpose_tpu_torch import _kernels, skeleton, tracking
+from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian, linalg
+from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D, TrackerState
+
+K_JOINTS = skeleton.NUM_FUSION_JOINTS
+# Track slots K3 takes: the embedded JV solves persons x slots with n = T
+# columns, so T is bounded by the JV's own limit (ops.hungarian.MAX_N).
+MAX_TRACKS = hungarian.MAX_N
+
+# Launches of the CUDA kernel; the wrapper adds one per launch.
+KERNEL_LAUNCHES = 0
+
+
+def frame_local_chain(state0: TrackerState, has_dets, fb_delay, pivots, cfg):
+    """Vectorized precompute of every frame-local scalar the scan carries
+    (tracking.step's feedback-delay and frame-counter arithmetic, exactly).
+
+    has_dets [F] bool, fb_delay [F, C], pivots [F]. Returns (pred_delta_t
+    [F], slot_w [F] int32 velocity-ring slot, dt_glob [F], final
+    fb_delay_buffer [W], final frame_nr [] int32).
+    """
+    f = pivots.shape[0]
+    w = state0.fb_delay_buffer.shape[0]
+    dtype = pivots.dtype
+    dev = pivots.device
+
+    valid_delay = fb_delay > 0
+    n_valid = torch.sum(valid_delay, dim=1)
+    curr_avg = torch.where(
+        n_valid > 0,
+        torch.sum(torch.where(valid_delay, fb_delay, 0.0), dim=1)
+        / torch.clamp(n_valid, min=1),
+        cfg.avg_delay,
+    ).to(dtype)
+
+    # frame_nr only advances on frames with detections; the ring slot of a
+    # frame is its frame_nr at entry modulo W.
+    has_i = has_dets.to(torch.int64)
+    fn = state0.frame_nr.to(torch.int64) + torch.cumsum(has_i, 0) - has_i
+    slot = fn % w
+
+    # Ring entry k after frame f: the delay of the last frame <= f that
+    # wrote slot k, else the initial entry.
+    idx = torch.arange(f, device=dev)
+    rings = []
+    for k in range(w):
+        last = torch.cummax(torch.where(slot == k, idx, -1), dim=0).values
+        rings.append(torch.where(
+            last >= 0, curr_avg[last.clamp(min=0)], state0.fb_delay_buffer[k]
+        ))
+    ring = torch.stack(rings, dim=0)  # [W, F]
+    pred_delta_t = torch.mean(ring, dim=0)
+
+    prev_pivot = torch.cat([state0.t_prev_global[None].to(dtype), pivots[:-1]])
+    dt_glob = torch.clamp(pivots - prev_pivot, min=1e-6)
+    frame_nr = (state0.frame_nr + torch.sum(has_i)).to(torch.int32)
+    return pred_delta_t, slot.to(torch.int32), dt_glob, ring[:, -1], frame_nr
+
+
+def _rebuild(like, values):
+    """A tuple or NamedTuple of the same type as `like` holding `values`."""
+    return type(like)(*values) if hasattr(like, "_fields") else tuple(values)
+
+
+def _frame(tree, f: int):
+    """Frame f of a stacked Persons3D / precomputed tuple (PriorResult's
+    iteration count is a plain int and passes through)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[f]
+    if isinstance(tree, int):
+        return tree
+    return _rebuild(tree, [_frame(x, f) for x in tree])
+
+
+def _stack(items):
+    """Stack a list of per-frame TrackStepOutputs along a new frame axis."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    return _rebuild(first, [_stack(list(xs)) for xs in zip(*items)])
+
+
+def tracker_scan_reference(state0: TrackerState, persons: Persons3D, pivots,
+                           fb_delay, pre, prior_cfg, cfg):
+    """Plain PyTorch K3: `tracking.step(..., precomputed=pre_t)` frame by
+    frame, with the plain JV. Arguments and returns as `tracker_scan`."""
+    dtype = persons.xyz.dtype
+    state = state0
+    outs = []
+    for f in range(pivots.shape[0]):
+        state, out = tracking.step(
+            state, _frame(persons, f), pivots[f].to(dtype), fb_delay[f],
+            prior_cfg, cfg, precomputed=_frame(pre, f),
+            assign=hungarian.linear_sum_assignment_reference,
+        )
+        outs.append(out)
+    return state, _stack(outs)
+
+
+def check_domain(p: int, t_slots: int, k_j: int) -> None:
+    """Raise unless K3 takes these shapes: P <= T <= MAX_TRACKS, K = 21."""
+    if not (p <= t_slots <= MAX_TRACKS and k_j == K_JOINTS):
+        raise ValueError(
+            f"the tracker-scan kernel takes persons <= track slots <= "
+            f"{MAX_TRACKS} (the JV's limit) and {K_JOINTS} joints; got "
+            f"persons={p}, track slots={t_slots}, joints={k_j}"
+        )
+
+
+def _pack(persons: Persons3D, pre, prior_cfg, pivots, pred_delta_t, dt_glob,
+          slot_w, has_dets):
+    """Per-frame kernel inputs, contiguous, in the kernel's layout."""
+    g_in, result, _, _ = pre
+    f, p, k, _ = persons.xyz.shape
+    u8 = torch.uint8
+    f32 = torch.float32
+    return dict(
+        meas=persons.xyz.reshape(f, p, 3 * k).to(f32).contiguous(),
+        rx=result.x.reshape(f, p, 3 * k).to(f32).contiguous(),
+        root=g_in.root_xyz.to(f32).contiguous(),
+        hgt=g_in.height.to(f32).contiguous(),
+        okpk=(persons.score > prior_cfg.min_score).to(u8).contiguous(),
+        act=g_in.active.to(u8).contiguous(),
+        valid=persons.valid.to(u8).contiguous(),
+        hm=(g_in.num_meas > 0).to(u8).contiguous(),
+        fsc=torch.stack([pivots, pred_delta_t, dt_glob], dim=1).to(f32).contiguous(),
+        fint=torch.stack([slot_w, has_dets.to(torch.int32)], dim=1).contiguous(),
+    )
+
+
+def state_buffers(state: TrackerState) -> dict:
+    """The kernel's state buffers: fresh copies of `state` in its layout.
+    The kernel reads the initial state from them and writes the final state
+    back into them (the caller's state is never written)."""
+    t = state.alive.shape[0]
+    f32 = torch.float32
+    return dict(
+        est=state.estimate.reshape(t, -1).to(f32).clone().contiguous(),
+        ex=state.est_exists.to(torch.uint8).contiguous(),
+        vel=state.vel_buffer.to(f32).clone().contiguous(),
+        tprev=state.t_prev.to(f32).clone().contiguous(),
+        hprev=state.height_prev.to(f32).clone().contiguous(),
+        rootp=state.root_prev.to(f32).clone().contiguous(),
+        alive=state.alive.to(torch.uint8).contiguous(),
+        tid=state.track_id.to(torch.int32).clone().contiguous(),
+        nobs=state.num_obs.to(torch.int32).clone().contiguous(),
+        next_id=state.next_id.to(torch.int32).reshape(1).clone(),
+    )
+
+
+def state_from_buffers(buf: dict, state0: TrackerState, frame_nr, fb_final,
+                       t_prev_global) -> TrackerState:
+    """The TrackerState held in the kernel's state buffers."""
+    t, k = state0.est_exists.shape
+    dtype = state0.estimate.dtype
+    return TrackerState(
+        alive=buf["alive"] > 0,
+        track_id=buf["tid"],
+        estimate=buf["est"].reshape(t, k, 3).to(dtype),
+        est_exists=buf["ex"] > 0,
+        vel_buffer=buf["vel"].to(dtype),
+        t_prev=buf["tprev"].to(dtype),
+        num_obs=buf["nobs"],
+        height_prev=buf["hprev"].to(dtype),
+        root_prev=buf["rootp"].to(dtype),
+        next_id=buf["next_id"][0],
+        frame_nr=frame_nr,
+        fb_delay_buffer=fb_final.to(state0.fb_delay_buffer.dtype),
+        t_prev_global=t_prev_global.to(state0.t_prev_global.dtype),
+    )
+
+
+def _launch(inp: dict, st: dict, p: int, t_slots: int, w: int, cfg):
+    """K3 on the card. Returns (pred_offset [F, P, K*3], publish [F, P]
+    uint8, ids [F, P] int32, n_dropped [F] int32); `st` holds the final
+    state afterwards."""
+    global KERNEL_LAUNCHES
+    dev = inp["meas"].device
+    f = inp["meas"].shape[0]
+    off = torch.empty((f, p, 3 * K_JOINTS), dtype=torch.float32, device=dev)
+    publish = torch.empty((f, p), dtype=torch.uint8, device=dev)
+    ids = torch.empty((f, p), dtype=torch.int32, device=dev)
+    n_dropped = torch.empty((f,), dtype=torch.int32, device=dev)
+    vel_sig = linalg.constant(skeleton.FUSION_VEL_SIGMAS, dev, torch.float32)
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ses3d_tracker_scan(
+        inp["meas"].data_ptr(), inp["rx"].data_ptr(), inp["root"].data_ptr(),
+        inp["hgt"].data_ptr(), inp["okpk"].data_ptr(), inp["act"].data_ptr(),
+        inp["valid"].data_ptr(), inp["hm"].data_ptr(), inp["fsc"].data_ptr(),
+        inp["fint"].data_ptr(), vel_sig.data_ptr(),
+        st["est"].data_ptr(), st["ex"].data_ptr(), st["vel"].data_ptr(),
+        st["tprev"].data_ptr(), st["hprev"].data_ptr(), st["rootp"].data_ptr(),
+        st["alive"].data_ptr(), st["tid"].data_ptr(), st["nobs"].data_ptr(),
+        st["next_id"].data_ptr(),
+        off.data_ptr(), publish.data_ptr(), ids.data_ptr(), n_dropped.data_ptr(),
+        f, p, t_slots, w,
+        float(cfg.max_dist), float(cfg.dist_threshold), int(cfg.min_num_obs),
+        float(cfg.max_unobserved_time), float(cfg.merge_dist_thresh), stream,
+    )
+    _kernels.check(err, "tracker_scan launch")
+    KERNEL_LAUNCHES += 1
+    return off, publish, ids, n_dropped
+
+
+def tracker_scan(state0: TrackerState, persons: Persons3D, pivots, fb_delay,
+                 pre, prior_cfg, cfg):
+    """The whole offline tracker scan over a stacked sequence.
+
+    `persons` (fusion output), `pivots` [F], `fb_delay` [F, C] and `pre`
+    (the stacked `tracking.smooth_cold` output) carry a leading frame axis.
+    Returns (final TrackerState, TrackStepOutput stacked over frames), the
+    same as `lax.scan(tracking.step(..., precomputed=pre_t))`; `state0` is
+    left as it was. CUDA float32 tensors go to kernel K3 (one launch,
+    persons <= track slots <= MAX_TRACKS and 21 joints, else it raises);
+    CPU tensors to the plain version.
+    """
+    dev = persons.xyz.device
+    if dev.type == "cpu":
+        return tracker_scan_reference(
+            state0, persons, pivots, fb_delay, pre, prior_cfg, cfg
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    dtype = persons.xyz.dtype
+    if dtype != torch.float32:
+        raise TypeError(f"the CUDA tracker-scan kernel takes float32, got {dtype}")
+    f, p, k_j, _ = persons.xyz.shape
+    t_slots = state0.alive.shape[0]
+    w = state0.vel_buffer.shape[2]
+    check_domain(p, t_slots, k_j)
+
+    g_in, _, xyz_out, cov_out = pre
+    has_dets = persons.valid.any(dim=1)
+    pred_delta_t, slot_w, dt_glob, fb_final, frame_nr = frame_local_chain(
+        state0, has_dets, fb_delay.to(dtype), pivots.to(dtype), cfg
+    )
+    inp = _pack(persons, pre, prior_cfg, pivots.to(dtype), pred_delta_t,
+                dt_glob, slot_w, has_dets)
+    st = state_buffers(state0)
+    off, publish, ids, n_dropped = _launch(inp, st, p, t_slots, w, cfg)
+
+    # Outputs composed as tracking.step composes them from the precomputed
+    # smoothing; the kernel owns the sequential decisions and offsets.
+    publish = publish > 0
+    pred_offset = off.reshape(f, p, k_j, 3).to(dtype)
+    pred_noise = cfg.pred_noise_sigma ** 2 * torch.eye(3, dtype=dtype, device=dev)
+    cov_pred = torch.where(g_in.active[..., None, None], cov_out + pred_noise, 0.0)
+    fused = Persons3D(
+        xyz=xyz_out, score=g_in.score_out, cov=cov_out,
+        valid=publish, person_id=ids,
+    )
+    fused_pred = Persons3D(
+        xyz=xyz_out + pred_offset, score=g_in.score_out, cov=cov_pred,
+        valid=publish, person_id=ids,
+    )
+    outs = tracking.TrackStepOutput(
+        fused=fused,
+        fused_pred=fused_pred,
+        pred_delta_t=pred_delta_t,
+        n_dropped_spawns=n_dropped,
+    )
+    state = state_from_buffers(st, state0, frame_nr, fb_final, pivots[-1])
+    return state, outs

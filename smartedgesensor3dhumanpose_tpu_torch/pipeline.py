@@ -1,4 +1,5 @@
-"""The closed-loop pipeline, one frame at a time.
+"""The closed-loop pipeline: online, one frame at a time, and offline
+over a whole recorded sequence.
 
     step(tracker_state, frame) -> (tracker_state, StepOutput)
 
@@ -8,7 +9,14 @@ triangulation), prior smoothing + tracking + prediction, and per-camera
 reprojection feedback — the reference's three-node ROS graph
 (pose_triangulate_demo.launch:11-29) as one function.
 
-The step is functional: it returns a new TrackerState and never writes into
+`Pipeline.run_offline` (the bag-replay mode) computes the same outputs for
+a stacked sequence with the frame-independent stages batched: fusion in
+chunks of `fusion_batch` frames (one association-fold launch per chunk),
+the LM smoothing cold-started and batched per chunk (tracking.smooth_cold),
+then the sequential tracker as one kernel launch (ops.tracker), then
+reprojection over all frames.
+
+Both are functional: they return a new TrackerState and never write into
 the one passed in, so a caller may keep or reuse any earlier state. (The
 JAX package donates the state buffers on the TPU instead, and forbids
 reuse.)
@@ -22,7 +30,7 @@ import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import fusion, reprojection, tracking
 from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
-from smartedgesensor3dhumanpose_tpu_torch.ops import linalg
+from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import (
     CameraRig,
     Frame,
@@ -50,10 +58,11 @@ class StepOutput(NamedTuple):
 
 
 def mask_stale_cameras(frame: Frame, max_sync_diff: float):
-    """Drop cameras lagging the pivot (newest) stamp (:1029-1057)."""
-    pivot = torch.max(frame.cam_stamp)
-    fresh = (pivot - frame.cam_stamp) <= max_sync_diff
-    return frame._replace(det_valid=frame.det_valid & fresh[:, None]), pivot
+    """Drop cameras lagging the pivot (newest) stamp (:1029-1057). Leading
+    axes (frames) pass through; returns (frame, pivot [...])."""
+    pivot = frame.cam_stamp.amax(dim=-1)
+    fresh = (pivot[..., None] - frame.cam_stamp) <= max_sync_diff
+    return frame._replace(det_valid=frame.det_valid & fresh[..., None]), pivot
 
 
 def step(state: TrackerState, frame: Frame, rig: CameraRig,
@@ -101,23 +110,98 @@ def step(state: TrackerState, frame: Frame, rig: CameraRig,
     )
 
 
+def _chunks(n: int, size: int):
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
+
+
+def _cat(parts):
+    """Concatenate per-chunk results (tensors, tuples, NamedTuples) along
+    the frame axis; PriorResult's iteration count keeps its largest."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts)
+    if isinstance(first, int):
+        return max(parts)
+    values = [_cat(list(xs)) for xs in zip(*parts)]
+    return type(first)(*values) if hasattr(first, "_fields") else tuple(values)
+
+
+def fuse_offline(frames: Frame, rig: CameraRig, config: PipelineConfig,
+                 fusion_batch: int):
+    """Stale-camera masking and fusion of a stacked sequence, `fusion_batch`
+    frames at a time (one association-fold launch per chunk). Returns
+    (persons [F, H, ...], pivots [F], n_dropped_hypotheses [F])."""
+    outs = []
+    for lo, hi in _chunks(frames.kp2d.shape[0], fusion_batch):
+        chunk, pivot = mask_stale_cameras(
+            Frame(*(x[lo:hi] for x in frames)), config.fusion.max_sync_diff
+        )
+        persons, n_drop = fusion.fuse_frames(chunk, rig, config.fusion)
+        outs.append((persons, pivot, n_drop))
+    return _cat(outs)
+
+
+def smooth_offline(persons: Persons3D, config: PipelineConfig, fusion_batch: int):
+    """tracking.smooth_cold over a stacked sequence, `fusion_batch` frames
+    at a time; returns the stacked `precomputed` tuple."""
+    n = persons.xyz.shape[0]
+    return _cat([
+        tracking.smooth_cold(Persons3D(*(x[lo:hi] for x in persons)), config.prior)
+        for lo, hi in _chunks(n, fusion_batch)
+    ])
+
+
+def offline_outputs(frames: Frame, persons, pivots, n_dropped_hyp, track,
+                    rig: CameraRig, config: PipelineConfig) -> StepOutput:
+    """Reprojection and bounding boxes of a tracked sequence: the
+    StepOutput (leading time axis) of `run_offline` from the fusion's
+    outputs and the tracker scan's stacked TrackStepOutput."""
+    feedback = reprojection.reproject(
+        track.fused_pred, rig, config.prior.pose_method, track.pred_delta_t,
+        ut_kappa=config.fusion.ut_kappa, ts_per_cam=frames.cam_stamp,
+    )
+    bbox_c, bbox_s = person_bbox3d(track.fused.xyz, track.fused.score, track.fused.valid)
+    return StepOutput(
+        persons_raw=persons,
+        fused=track.fused,
+        fused_pred=track.fused_pred,
+        feedback=feedback,
+        pred_delta_t=track.pred_delta_t,
+        pivot_stamp=pivots,
+        ts_per_cam=frames.cam_stamp,
+        fb_delay_per_cam_raw=frames.fb_delay,
+        fb_delay_per_cam=track.pred_delta_t[:, None].expand(frames.cam_stamp.shape),
+        bbox3d_center=bbox_c,
+        bbox3d_size=bbox_s,
+        n_dropped_hypotheses=n_dropped_hyp,
+        n_dropped_track_spawns=track.n_dropped_spawns,
+    )
+
+
 class Pipeline:
-    """The rig and config with the online entry points.
+    """The rig and config with the online and offline entry points.
 
     `device` places every tensor the pipeline creates; the rig and the
-    frames must already live there. On CUDA the two assignment solvers run
-    as kernels K1/K2 and the hot path is float32; matrix products are
-    pinned to IEEE fp32 (no TF32).
+    frames must already live there. It is the card unless the caller asks
+    for the CPU. On CUDA the solvers run as kernels K1/K2/K3 and the hot path
+    is float32; matrix products are pinned to IEEE fp32 (no TF32).
+    `fusion_batch` is the chunk size of the offline fusion and smoothing.
     """
 
-    def __init__(self, rig: CameraRig, config: PipelineConfig, device="cpu"):
+    def __init__(self, rig: CameraRig, config: PipelineConfig, device="cuda",
+                 fusion_batch: int = 64):
         self.device = torch.device(device)
         if self.device.type == "cuda":
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
             linalg.require_ieee_fp32()
         if rig.P.device != self.device:
             raise ValueError(f"rig is on {rig.P.device}, pipeline on {self.device}")
+        if fusion_batch < 1:
+            raise ValueError(f"fusion_batch must be >= 1, got {fusion_batch}")
         self.rig = rig
         self.config = config
+        self.fusion_batch = fusion_batch
 
     def init_state(self, dtype=torch.float32) -> TrackerState:
         t = self.config.tracker
@@ -139,7 +223,16 @@ class Pipeline:
         return state, outs
 
     def run_offline(self, state: TrackerState, frames: Frame):
-        raise NotImplementedError(
-            "run_offline (batched fusion, smooth_cold and the tracker-scan "
-            "kernel) is not ported yet; see ROADMAP.md, queue A, item 1"
+        """The offline replay of a stacked sequence (leading time axis on
+        every Frame field): chunked fusion, chunked cold-start smoothing,
+        one tracker scan, reprojection. Returns (final state, StepOutput
+        with a leading time axis); `state` is left as it was."""
+        cfg = self.config
+        persons, pivots, n_drop = fuse_offline(frames, self.rig, cfg, self.fusion_batch)
+        pre = smooth_offline(persons, cfg, self.fusion_batch)
+        state, track = tracker.tracker_scan(
+            state, persons, pivots.to(persons.xyz.dtype), frames.fb_delay, pre,
+            cfg.prior, cfg.tracker,
         )
+        return state, offline_outputs(frames, persons, pivots, n_drop, track,
+                                      self.rig, cfg)

@@ -1,11 +1,18 @@
-"""Track management, smoothing and velocity prediction (online step).
+"""Track management, smoothing and velocity prediction.
 
-Port of the JAX package's tracking.step with `precomputed=None`: the
-stateful half of the reference pose_prior node (pose_prior_mult_node.cpp
-skeletonCallback, :505-921) — feedback-delay moving average, velocity-
-normalized track association through kernel K1 (ops.hungarian), the LM
-smoother warm-started from each matched track, velocity ring buffers and
-prediction, spawn / decay / merge, and the publish gate.
+Port of the JAX package's tracking.py: the stateful half of the reference
+pose_prior node (pose_prior_mult_node.cpp skeletonCallback, :505-921) —
+feedback-delay moving average, velocity-normalized track association
+through kernel K1 (ops.hungarian), the LM smoother warm-started from each
+matched track (or, offline, `smooth_cold` hoisted out of the frame loop),
+velocity ring buffers and prediction, spawn / decay / merge, and the
+publish gate.
+
+The joint sums that decide an assignment, a gate or a merge (the
+association cost and the track distance) accumulate joint by joint in k
+order, as the tracker-scan kernel K3 (csrc/tracker_scan.cu) does, so the
+kernel and its plain version (ops.tracker.tracker_scan_reference, a loop
+of `step`) make the same integer decisions.
 
 `step` is functional: it returns a new TrackerState and never writes into
 the one passed in.
@@ -32,6 +39,25 @@ class TrackStepOutput(NamedTuple):
     n_dropped_spawns: torch.Tensor  # [] int32 spawns lost to the slot capacity
 
 
+def _joint_dist(a, b):
+    """Euclidean distance over the last axis of 3, as ((x*x + y*y) + z*z)
+    under the square root: the order kernel K3 computes it in."""
+    d = a - b
+    sq = d * d
+    return torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
+
+
+def _masked_mean_over_joints(dist, ok):
+    """Mean of `dist` [..., K] over the joints where `ok`, summed in k order
+    (K3's order; a reduction kernel may sum in any order). Returns (mean,
+    count); the mean is 0 where the count is 0."""
+    acc = torch.zeros(dist.shape[:-1], dtype=dist.dtype, device=dist.device)
+    for k in range(dist.shape[-1]):
+        acc = acc + torch.where(ok[..., k], dist[..., k], 0.0)
+    n = torch.sum(ok, dim=-1)
+    return acc / torch.clamp(n, min=1), n
+
+
 def _association_cost(state: TrackerState, persons: Persons3D, t,
                       cfg: TrackerConfig, prior_cfg: PriorConfig):
     """Detection x track cost [P, T]: mean joint distance normalized by
@@ -43,21 +69,62 @@ def _association_cost(state: TrackerState, persons: Persons3D, t,
         state.estimate * state.height_prev[:, None, None]
         + state.root_prev[:, None, :]
     )  # [T, K, 3]
-    diff = persons.xyz[:, None] - prev[None]  # [P, T, K, 3]
-    dist = torch.linalg.vector_norm(diff, dim=-1) / (vel_sig[None, None] * delta_t)
+    diff_norm = _joint_dist(persons.xyz[:, None], prev[None])  # [P, T, K]
+    dist = diff_norm / (vel_sig[None, None] * delta_t)
     ok = (persons.score > prior_cfg.min_score)[:, None, :] & state.est_exists[None]
-    n = torch.sum(ok, dim=-1)
-    mean = torch.sum(torch.where(ok, dist, 0.0), dim=-1) / torch.clamp(n, min=1)
+    mean, n = _masked_mean_over_joints(dist, ok)
     cost = torch.where(n > 0, mean, cfg.max_dist)
     return torch.where(
         persons.valid[:, None] & state.alive[None], cost, cfg.max_dist
     )
 
 
+def smooth_cold(persons: Persons3D, prior_cfg: PriorConfig):
+    """Frame-independent LM smoothing, cold-started from the measurements
+    (the JAX package's tracking.smooth_cold).
+
+    The online step warm-starts the LM from each matched track, which ties
+    it into the frame loop; the offline replay hoists the smoother out of
+    the loop and runs it once over a whole chunk of frames. `persons` may
+    carry leading axes (frames): they are flattened into the LM's person
+    batch, and every person stops on its own `done` (prior.optimize), so
+    the result does not depend on how frames are grouped.
+
+    Returns the `precomputed` tuple (g_in, result, xyz_out, cov_out) that
+    `step` accepts, with the leading axes of `persons`.
+    """
+    batch = persons.valid.shape  # (leading axes..., P)
+    flat = Persons3D(*(x.reshape((-1,) + x.shape[len(batch):]) for x in persons))
+    g_in = prior.build_graph_inputs(flat, prior_cfg)
+    result = prior.optimize(g_in, g_in.meas, prior_cfg)
+    xyz_out, cov_out = prior.denormalize(result, g_in, prior_cfg)
+    xyz_out = torch.where(g_in.active[..., None], xyz_out, 0.0)
+    cov_out = torch.where(g_in.active[..., None, None], cov_out, 0.0)
+
+    def unflat(x):
+        return x.reshape(batch + x.shape[1:])
+
+    return (
+        prior.GraphInputs(*(unflat(x) for x in g_in)),
+        result._replace(
+            x=unflat(result.x), marg_cov=unflat(result.marg_cov),
+            marg_ok=unflat(result.marg_ok),
+        ),
+        unflat(xyz_out),
+        unflat(cov_out),
+    )
+
+
 def step(state: TrackerState, persons: Persons3D, t, fb_delay,
-         prior_cfg: PriorConfig, cfg: TrackerConfig):
+         prior_cfg: PriorConfig, cfg: TrackerConfig, precomputed=None,
+         assign=hungarian.linear_sum_assignment):
     """One tracker frame: `persons` from fusion, `t` the frame (pivot)
     stamp, `fb_delay` [C] measured feedback delays (-1 = unmeasured).
+
+    `precomputed`: this frame's `smooth_cold` output (offline replay); the
+    LM then does not run here. With None the LM runs warm-started from the
+    tracks (the online path). `assign` solves the track assignment (K1 for
+    CUDA tensors by default; the plain tracker scan passes the plain JV).
     Returns (new TrackerState, TrackStepOutput); `state` is left as it was.
     """
     dtype = persons.xyz.dtype
@@ -87,7 +154,7 @@ def step(state: TrackerState, persons: Persons3D, t, fb_delay,
     # searches are skipped (row_active; sound only with P <= T).
     cost = _association_cost(state, persons, t, cfg, prior_cfg)
     row_hint = persons.valid if t_slots >= p else None
-    assignment = hungarian.linear_sum_assignment(
+    assignment = assign(
         torch.clamp(cost, max=_COST_CLIP).contiguous(), row_active=row_hint
     ).long()  # [P] -> track slot or -1
     t_ids = torch.arange(t_slots, device=dev)
@@ -134,8 +201,11 @@ def step(state: TrackerState, persons: Persons3D, t, fb_delay,
     root_prev = torch.where(spawned[:, None], 0.0, state.root_prev)
     next_id = (state.next_id + new_ok.sum()).to(i32)
 
-    # ---- per-person graph + LM smoothing warm-started from the track
-    g_in = prior.build_graph_inputs(persons, prior_cfg)
+    # ---- per-person graph (+ LM smoothing warm-started from the track)
+    if precomputed is None:
+        g_in = prior.build_graph_inputs(persons, prior_cfg)
+    else:
+        g_in = precomputed[0]
     participates = has_track & (g_in.num_meas > 0)  # (:739-741)
 
     # Each person's previous track state (garbage where no track; masked).
@@ -149,11 +219,14 @@ def step(state: TrackerState, persons: Persons3D, t, fb_delay,
     root_prev_p = torch.where(uninit[:, None], g_in.root_xyz, root_prev_p)
 
     use_velocity = g_in.active & prev_exists_p  # (:500)
-    warm = torch.where(use_velocity[..., None], prev_est_p, g_in.meas)
-    result = prior.optimize(g_in, warm, prior_cfg)
-    xyz_out, cov_out = prior.denormalize(result, g_in, prior_cfg)
-    xyz_out = torch.where(g_in.active[..., None], xyz_out, 0.0)
-    cov_out = torch.where(g_in.active[..., None, None], cov_out, 0.0)
+    if precomputed is None:
+        warm = torch.where(use_velocity[..., None], prev_est_p, g_in.meas)
+        result = prior.optimize(g_in, warm, prior_cfg)
+        xyz_out, cov_out = prior.denormalize(result, g_in, prior_cfg)
+        xyz_out = torch.where(g_in.active[..., None], xyz_out, 0.0)
+        cov_out = torch.where(g_in.active[..., None, None], cov_out, 0.0)
+    else:
+        _, result, xyz_out, cov_out = precomputed
 
     # ---- velocity buffers + prediction (:818-831)
     dt_glob = torch.clamp(t - state.t_prev_global, min=1e-6)
@@ -253,9 +326,7 @@ def _merge_tracks(alive, track_id, est, est_exists, height_prev, root_prev,
     idx = torch.arange(t_slots, device=alive.device)
     world = est * height_prev[:, None, None] + root_prev[:, None, :]
     ok = est_exists[:, None] & est_exists[None, :]  # [T, T, K]
-    d = torch.linalg.vector_norm(world[:, None] - world[None], dim=-1)
-    n = torch.sum(ok, dim=-1)
-    mean_d = torch.sum(torch.where(ok, d, 0.0), dim=-1) / torch.clamp(n, min=1)
+    mean_d, n = _masked_mean_over_joints(_joint_dist(world[:, None], world[None]), ok)
     close = (
         (idx[:, None] < idx[None, :])
         & has_dets

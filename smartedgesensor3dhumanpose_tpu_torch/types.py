@@ -82,14 +82,15 @@ class Reprojection2D(NamedTuple):
 
 
 def person_bbox3d(xyz: torch.Tensor, score: torch.Tensor, valid: torch.Tensor):
-    """Axis-aligned 3D bounding box per person over its valid joints.
+    """Axis-aligned 3D bounding box per person over its valid joints;
+    xyz [..., P, K, 3], leading axes (frames) pass through.
 
-    Returns (center [P, 3], size [P, 3]); zeros for empty persons.
+    Returns (center [..., P, 3], size [..., P, 3]); zeros for empty persons.
     """
-    ok = ((score > 0) & valid[:, None])[..., None]  # [P, K, 1]
-    lo = torch.where(ok, xyz, 1e9).amin(dim=1)
-    hi = torch.where(ok, xyz, -1e9).amax(dim=1)
-    any_ok = ok.any(dim=1)  # [P, 1]
+    ok = ((score > 0) & valid[..., None])[..., None]  # [..., P, K, 1]
+    lo = torch.where(ok, xyz, 1e9).amin(dim=-2)
+    hi = torch.where(ok, xyz, -1e9).amax(dim=-2)
+    any_ok = ok.any(dim=-2)  # [..., P, 1]
     center = torch.where(any_ok, 0.5 * (lo + hi), 0.0)
     size = torch.where(any_ok, hi - lo, 0.0)
     return center, size
@@ -115,7 +116,7 @@ class TrackerState(NamedTuple):
 
     @staticmethod
     def initial(max_tracks: int, n_mov_avg: int = 3, avg_delay: float = 0.10,
-                dtype=torch.float32, device="cpu") -> "TrackerState":
+                dtype=torch.float32, device="cuda") -> "TrackerState":
         k = skeleton.NUM_FUSION_JOINTS
         t = max_tracks
         f = dict(dtype=dtype, device=device)

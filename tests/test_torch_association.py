@@ -59,7 +59,7 @@ def test_fold_matches_jax(scenario, impl, dtype):
                            assignment_impl=impl)
     tcfg = FusionConfig(num_cameras=cams, max_dets_per_cam=d, max_hypotheses=h)
     jrig = jax_cameras.hall_rig(cams, dtype=jdt)
-    trig = cameras.hall_rig(cams, dtype=tdt)
+    trig = cameras.hall_rig(cams, dtype=tdt, device="cpu")
 
     @jax.jit
     def jax_assoc(kp2d, cov2d, det_score, det_valid):
@@ -100,7 +100,7 @@ def test_reference_impl_equals_kernel_wrapper():
     cams, people, frames, seed, h, kw = SCENARIOS["ghosts"]
     data = _scene(cams, people, 1, seed, **kw)
     frame = Frame.from_arrays({k: np.asarray(v[0]) for k, v in data.items()}, "cpu")
-    rig = cameras.hall_rig(cams)
+    rig = cameras.hall_rig(cams, device="cpu")
     base = FusionConfig(num_cameras=cams, max_dets_per_cam=data["kp2d"].shape[2],
                         max_hypotheses=h)
     kp_n, cov_n, det_ok = fusion.normalize_frame(frame, rig, base)
@@ -116,7 +116,7 @@ def test_reference_impl_equals_kernel_wrapper():
 def test_batched_fold_equals_per_frame():
     cams, people, frames, seed, h, kw = SCENARIOS["benign"]
     data = _scene(cams, people, frames, seed, **kw)
-    rig = cameras.hall_rig(cams)
+    rig = cameras.hall_rig(cams, device="cpu")
     cfg = FusionConfig(num_cameras=cams, max_dets_per_cam=data["kp2d"].shape[2],
                        max_hypotheses=h)
     inputs = []

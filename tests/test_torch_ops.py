@@ -84,7 +84,7 @@ def _views(rng, h, j, c):
 def test_epipolar_matches_jax(rng):
     c = 6
     jrig = jax_cameras.hall_rig(c, dtype=jnp.float64)
-    trig = cameras.hall_rig(c, dtype=torch.float64)
+    trig = cameras.hall_rig(c, dtype=torch.float64, device="cpu")
     kp = np.concatenate(
         [rng.uniform(-0.6, 0.6, (c, 4, 17, 2)), rng.uniform(0.0, 1.0, (c, 4, 17, 1))],
         axis=-1,
@@ -107,7 +107,7 @@ def test_epipolar_matches_jax(rng):
 def test_triangulation_and_covariance_match_jax(rng):
     c = 6
     jP = jax_cameras.hall_rig(c, dtype=jnp.float64).P
-    tP = cameras.hall_rig(c, dtype=torch.float64).P
+    tP = cameras.hall_rig(c, dtype=torch.float64, device="cpu").P
     kp, mask = _views(rng, 3, 5, c)
     cov2d = np.stack(
         [np.full(kp.shape[:-1], 4e-5), np.full(kp.shape[:-1], 1e-6),
@@ -134,7 +134,7 @@ def test_triangulation_and_covariance_match_jax(rng):
         rtol=1e-6, atol=1e-12,
     )
     jrig = jax_cameras.hall_rig(c, dtype=jnp.float64)
-    trig = cameras.hall_rig(c, dtype=torch.float64)
+    trig = cameras.hall_rig(c, dtype=torch.float64, device="cpu")
     pts = rng.uniform([-1, -1, 0.2], [1, 1, 1.8], size=(4, 3))
     cov3 = spd(rng, (4,), 3) * 1e-3
     got = covariance.project_with_covariance(
