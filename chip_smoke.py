@@ -3,9 +3,11 @@
 Phases (each prints one line; any failure exits non-zero):
   0 environment: card name and power limit, torch/CUDA versions, TF32 flags
   1 build: compile kernels K1 (jv_assign.cu), K2 (association_fold.cu) and
-    K3 (tracker_scan.cu), one nvcc per source, all started together
+    K3 (tracker_scan.cu), one nvcc per source, all started together; the
+    wrappers' shared-memory plans against the kernels' own byte counts
   2 K1 against its plain PyTorch version and scipy, on the card
-  3 K2 against its plain PyTorch version, on the card
+  3 K2 against its plain PyTorch version, on the card, also at h_cap = 120
+    (the JV's limit) on scaled-layout frames
   4 the online slice: Pipeline.step over the two golden demo scenes (16
     cameras x 6 people, 64 frames each) against the JAX reference's outputs
     stored in tests/data/torch_golden_demo16.npz, with the launch counts
@@ -16,8 +18,10 @@ Phases (each prints one line; any failure exits non-zero):
     tracker inputs) against tests/data/torch_golden_offline16.npz, and the
     whole run against the plain path on the card
   7 K3 against its plain version on the card: the four tracker scenarios of
-    the JAX package's test_tracker_pallas.py and both demo scenes' tracker
-    inputs (a dropped spawn and a track merge must occur)
+    the JAX package's test_tracker_pallas.py, both demo scenes' tracker
+    inputs, a sequence at the domain's edge P = T = 120 (one staged frame,
+    velocity rings in device memory) and one with an odd slot count (a
+    dropped spawn and a track merge must occur)
   8 the scaled layout: run_offline with PipelineConfig.scaled_64cam() (64
     cameras x 25 people, 32 frames, fusion_batch=4), K3 and the batched K2
     against their plain versions on its inputs
@@ -55,6 +59,13 @@ OFFLINE_FUSION_BATCH = 32
 # The scaled layout (bench.py's scaled cell): 64 cameras x 25 people.
 SCALED_SCENE = dict(num_cameras=64, num_people=25, num_frames=32, seed=1)
 SCALED_FUSION_BATCH = 4
+# K3 at the edge of its domain: persons = track slots = the JV's limit.
+EDGE_SLOTS = 120
+EDGE_FRAMES = 10
+# K3 with an odd slot count and everything on chip: (persons, track slots).
+ODD_SHAPE = (7, 9)
+# Scaled-layout frames K2 is held to its plain version on at h_cap = EDGE_SLOTS.
+EDGE_FOLD_FRAMES = 2
 # Fused and predicted joints must agree with the JAX float32 reference within
 # this, outside each track's first published frame (the prediction there
 # rides on unpublished warm-up velocities; ROADMAP hazard C3).
@@ -107,6 +118,37 @@ def sync_time(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def check_plans() -> int:
+    """The wrappers' shared-memory plans (ops/tracker.py::scan_plan,
+    ops/association.py::fold_plan) against the byte counts of the kernels'
+    own sources, across K3's domain (P <= T <= 120, W = 3) and K2's shapes
+    up to the scaled layout and the JV's limit. Returns the plans checked."""
+    from smartedgesensor3dhumanpose_tpu_torch import _kernels
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, tracker
+
+    lib = _kernels.library()
+    checked = 0
+    for t_slots in range(1, tracker.MAX_TRACKS + 1):
+        for p in range(1, t_slots + 1):
+            plan = tracker.scan_plan(p, t_slots, 3)
+            c_bytes = lib.ses3d_tracker_scan_smem_bytes(p, t_slots, 3, plan.stages,
+                                                        int(plan.rings_on_chip))
+            if c_bytes != plan.smem_bytes:
+                raise AssertionError(f"K3 plan {p}x{t_slots}: wrapper {plan}, kernel {c_bytes} bytes")
+            checked += 1
+    for c in (1, 2, 5, 16, 33, 64):
+        for d in (1, 6, 8, 9, 32):
+            for h in (1, 4, 16, 40, 120):
+                if max(h, association.padded_dets(d)) > 120:
+                    continue
+                plan = association.fold_plan(c, d, h)
+                c_bytes = lib.ses3d_association_fold_smem_bytes(c, d, h, int(plan.prefetch))
+                if c_bytes != plan.smem_bytes:
+                    raise AssertionError(f"K2 plan C={c} D={d} H={h}: wrapper {plan}, kernel {c_bytes}")
+                checked += 1
+    return checked
 
 
 # ---------------------------------------------------------------- phase 2 --
@@ -211,7 +253,7 @@ def fold_case(frame, rig, fusion_cfg):
     return ctab, conf, det_ok
 
 
-def phase_k2(dev, golden, rig, cfg):
+def phase_k2(dev, golden, rig, cfg, scaled):
     from smartedgesensor3dhumanpose_tpu_torch.ops import association
 
     f_cfg = cfg.fusion
@@ -248,8 +290,46 @@ def phase_k2(dev, golden, rig, cfg):
         single = association.associate_fold(ctab[i], conf[i], dok[i], *args)
         if not all(torch.equal(b[i], s) for b, s in zip(batched, single)):
             raise AssertionError(f"K2 batched frame {i} != single")
-    log("3 K2 vs plain", frames=solved, overcap_dropped=dropped, max_abs_err=0)
+    # The JV's limit, h_cap = 120 hypothesis slots, on scaled-layout frames
+    # (64 cameras, D = 32, so n = 120 solver columns over 32 detection rows).
+    s_cfg, s_rig, s_frames = scaled
+    ctab, conf, dok = chunk_fold_inputs(s_frames, s_rig, s_cfg.fusion, EDGE_FOLD_FRAMES)
+    args = (EDGE_SLOTS, s_cfg.fusion.max_epipolar_error, s_cfg.fusion.max_cost)
+    got = association.associate_fold_batched(ctab, conf, dok, *args)
+    torch.cuda.synchronize()
+    want = association.associate_fold_batched_reference(ctab, conf, dok, *args)
+    for g, w, what in zip(got, want, ("det_slot", "n_hyp", "n_dropped")):
+        if not torch.equal(g.cpu(), w.cpu().to(g.dtype)):
+            raise AssertionError(f"K2 h_cap={EDGE_SLOTS} {what}: kernel != plain")
+    log("3 K2 vs plain", frames=solved, overcap_dropped=dropped, max_abs_err=0,
+        hcap120_frames=EDGE_FOLD_FRAMES, hcap120_n_hyp=[int(x) for x in got[1]],
+        demo_plan=repr(association.fold_plan(16, f_cfg.max_dets_per_cam, f_cfg.max_hypotheses)),
+        hcap120_plan=repr(association.fold_plan(ctab.shape[1], ctab.shape[3], EDGE_SLOTS)))
     return 0
+
+
+def scaled_setup(dev):
+    """The scaled layout (bench.py's scaled cell) on the card: (config, rig,
+    stacked frames of SCALED_SCENE)."""
+    from smartedgesensor3dhumanpose_tpu_torch import cameras
+    from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig.scaled_64cam()
+    rig = cameras.hall_rig(SCALED_SCENE["num_cameras"], device=dev)
+    data = scene_data(SCALED_SCENE, cfg.fusion.max_dets_per_cam)
+    return cfg, rig, stacked_frames(data, dev)
+
+
+def chunk_fold_inputs(frames, rig, fusion_cfg, n: int):
+    """(ctab, conf_obs, det_ok) of the first n frames as fuse_offline's
+    chunk builds them."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    chunk, _ = pipeline.mask_stale_cameras(Frame(*(x[:n] for x in frames)), fusion_cfg.max_sync_diff)
+    kp_n, _, det_ok = fusion.normalize_frame(chunk, rig, fusion_cfg)
+    ctab, conf = fusion.fold_inputs(kp_n, chunk.det_score, rig, fusion_cfg)
+    return ctab, conf, det_ok
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -637,11 +717,32 @@ def tracker_inputs(pipe, frames):
 def scenario_inputs(name: str, dev):
     """A tracker scenario of io.synthetic on the card: (state0, persons,
     pivots, fb_delay, smooth_cold output, TrackerConfig)."""
-    from smartedgesensor3dhumanpose_tpu_torch import config, tracking
     from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+
+    return sequence_inputs(*synthetic.tracker_scenario(name), dev)
+
+
+def edge_inputs(dev, persons: int = EDGE_SLOTS, t_slots: int = EDGE_SLOTS):
+    """A merge-heavy synthetic sequence of EDGE_FRAMES frames, by default at
+    the edge of K3's domain, P = T = EDGE_SLOTS (the JV's limit), where K3's
+    layout keeps the velocity rings in device memory and stages one frame at
+    a time. As scenario_inputs."""
+    from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+
+    f = EDGE_FRAMES
+    arrays = synthetic.person_sequence(np.random.default_rng(5), f, persons, merge_heavy=True)
+    pivots = (np.arange(f) / 30.0).astype(np.float32)
+    fb = np.full((f, 4), 0.1, np.float32)
+    return sequence_inputs(arrays, pivots, fb, t_slots, 2, dev)
+
+
+def sequence_inputs(arrays, pivots, fb, t_slots, min_obs, dev):
+    """A person sequence of io.synthetic on the card, with its cold-start
+    smoothing and a fresh tracker state: (state0, persons, pivots,
+    fb_delay, smooth_cold output, TrackerConfig)."""
+    from smartedgesensor3dhumanpose_tpu_torch import config, tracking
     from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D, TrackerState
 
-    arrays, pivots, fb, t_slots, min_obs = synthetic.tracker_scenario(name)
     persons = Persons3D(**{
         k: torch.as_tensor(v, dtype=torch.float32 if v.dtype == np.float64 else None, device=dev)
         for k, v in arrays.items()
@@ -730,6 +831,7 @@ def check_k3(name, state0, persons, pivots, fb, pre, prior_cfg, tcfg):
 def phase_k3(dev, pipe, inputs):
     from smartedgesensor3dhumanpose_tpu_torch import config
     from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+    from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
 
     prior_cfg = config.PriorConfig()
     worst = 0.0
@@ -746,29 +848,40 @@ def phase_k3(dev, pipe, inputs):
                               pipe.config.prior, pipe.config.tracker)
         worst, drops, merges, frames = max(worst, e), drops + d, merges + m, frames + n
         per_case[scene] = (d, m)
+    # The domain's edge, P = T = 120: the plan stages one frame at a time
+    # and keeps the velocity rings in device memory.
+    state0, persons, pivots, fb, pre, tcfg = edge_inputs(dev)
+    plan = tracker.scan_plan(EDGE_SLOTS, EDGE_SLOTS, state0.vel_buffer.shape[2])
+    if plan.stages == 2 and plan.rings_on_chip:
+        raise AssertionError(f"K3 edge: {plan} keeps everything on chip; the case tests nothing")
+    e, d, m, n = check_k3(f"edge{EDGE_SLOTS}", state0, persons, pivots, fb, pre, prior_cfg, tcfg)
+    worst, drops, merges, frames = max(worst, e), drops + d, merges + m, frames + n
+    per_case[f"edge{EDGE_SLOTS}"] = (d, m)
+    # An odd slot count with everything on chip: the state after the rings
+    # [T, 21, 3, 3] f32 must stay 8-byte aligned whatever T is.
+    state0, persons, pivots, fb, pre, tcfg = edge_inputs(dev, *ODD_SHAPE)
+    e, d, m, n = check_k3("odd", state0, persons, pivots, fb, pre, prior_cfg, tcfg)
+    worst, drops, merges, frames = max(worst, e), drops + d, merges + m, frames + n
+    per_case["odd"] = (d, m)
     if drops == 0 or merges == 0:
         raise AssertionError(f"K3: no dropped spawn or no merge was exercised {per_case}")
     log("7 K3 vs plain", sequences=len(per_case), frames=frames, decisions="exact",
         max_abs_err=worst, dropped_spawns=drops, merged_tracks=merges,
-        per_case="'" + json.dumps(per_case) + "'")
+        per_case="'" + json.dumps(per_case) + "'", edge_plan=repr(plan),
+        demo_plan=repr(tracker.scan_plan(16, 24, 3)))
     return worst
 
 
 # ---------------------------------------------------------------- phase 8 --
 
-def phase_scaled(dev):
+def phase_scaled(dev, scaled):
     """The scaled layout end to end, then K3 and the batched K2 against
     their plain versions on its inputs."""
-    from smartedgesensor3dhumanpose_tpu_torch import cameras, fusion, pipeline
-    from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
     from smartedgesensor3dhumanpose_tpu_torch.ops import association, tracker
-    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
 
-    cfg = PipelineConfig.scaled_64cam()
-    rig = cameras.hall_rig(SCALED_SCENE["num_cameras"], device=dev)
-    data = scene_data(SCALED_SCENE, cfg.fusion.max_dets_per_cam)
-    frames = stacked_frames(data, dev)
-    n = data["kp2d"].shape[0]
+    cfg, rig, frames = scaled
+    n = frames.kp2d.shape[0]
     pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=SCALED_FUSION_BATCH)
     t0 = time.perf_counter()
     reset_counts()
@@ -792,11 +905,7 @@ def phase_scaled(dev):
                                      cfg.prior, cfg.tracker)
     k3_ms = sync_time(lambda: tracker.tracker_scan(state0, persons, pivots, fb, pre,
                                                    cfg.prior, cfg.tracker), 10)
-    chunk, _ = pipeline.mask_stale_cameras(
-        Frame(*(x[:SCALED_FUSION_BATCH] for x in frames)), cfg.fusion.max_sync_diff
-    )
-    kp_n, _, det_ok = fusion.normalize_frame(chunk, rig, cfg.fusion)
-    ctab, conf = fusion.fold_inputs(kp_n, chunk.det_score, rig, cfg.fusion)
+    ctab, conf, det_ok = chunk_fold_inputs(frames, rig, cfg.fusion, SCALED_FUSION_BATCH)
     args = (cfg.fusion.max_hypotheses, cfg.fusion.max_epipolar_error, cfg.fusion.max_cost)
     got = association.associate_fold_batched(ctab, conf, det_ok, *args)
     torch.cuda.synchronize()
@@ -964,20 +1073,22 @@ def main() -> int:
     _kernels.build(verbose=True)
     _kernels.library()
     log("1 build", seconds=round(time.perf_counter() - t0, 2),
-        fresh_build_seconds=_kernels.build_seconds, flags=" ".join(_kernels.NVCC_FLAGS))
+        fresh_build_seconds=_kernels.build_seconds, flags=" ".join(_kernels.NVCC_FLAGS),
+        plans_checked=check_plans())
 
     rng = np.random.default_rng(0)
     golden = np.load(GOLDEN)
     golden_offline = np.load(GOLDEN_OFFLINE)
     cfg = PipelineConfig.demo_16cam()
     rig = cameras.hall_rig(16, device=dev)
+    scaled = scaled_setup(dev)
     k1_err = phase_k1(dev, rng)
-    k2_err = phase_k2(dev, golden, rig, cfg)
+    k2_err = phase_k2(dev, golden, rig, cfg, scaled)
     pipe, inputs, launches = phase_slice(dev, golden, rig, cfg)
     times = phase_times(dev, pipe, golden, rig, cfg, rng, args.profile)
     off_pipe, off_launches = phase_offline(dev, golden_offline, rig, cfg, inputs)
     k3_err = phase_k3(dev, off_pipe, inputs)
-    k3_err = max(k3_err, phase_scaled(dev))
+    k3_err = max(k3_err, phase_scaled(dev, scaled))
     times.update(phase_offline_times(dev, off_pipe, inputs, args.profile))
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"

@@ -1,0 +1,295 @@
+"""Time the port's kernels K2 (association fold), K3 (tracker scan) and the
+batched K1 on one NVIDIA GPU, optionally beside another checkout's kernels.
+
+Each version runs in its own process (the two packages share a name), in
+turns: other, this, this, other. Every process builds its checkout's kernels
+from source (`nvcc -Xptxas -v`, whose register, spill and shared-memory lines
+it reports), makes the same inputs from the same seeds and golden scene
+descriptions (chip_smoke.py's helpers), and times:
+
+  k3_demo           K3 on the benign demo scene's tracker inputs (64 frames,
+                    P 16, T 24); k3_demo_no_persons, the same frames with
+                    every person invalid (no cost phase, no JV);
+                    k3_demo_no_dets, with has_dets false on every frame (no
+                    merge)
+  k3_scaled         K3 on the scaled layout's inputs (32 frames, P 40, T 64)
+  k3_edge           K3 at the domain's edge (P = T = 120)
+  k2_frame_*        K2 on one demo frame (benign and adversarial frame 40)
+  k2_chunk32_*      K2 on the offline chunk, B = 32 demo frames
+  k2_scaled_chunk   K2 on the scaled chunk (B = 4, C 64, D 32, H 40)
+  k2_per_frame      K2 on each frame of both demo scenes, with the camera
+                    steps that needed a JV solve (counted on the plain fold)
+  k1b               the batched K1 at B = 64 problems of 16 x 24, and its
+                    plain version on the same card tensors (`plain_ms`)
+
+Per case: `ms`, CUDA events over back-to-back wrapper calls (the wrapper's
+host work shows where it is longer than the device's), and `device_ms`, the
+kernel's own mean duration in a torch.profiler trace; `bound_ms` as
+chip_smoke.py computes it.
+
+Usage:  python3 kernel_ab.py [--other DIR] [--out FILE]
+  --other DIR  a checkout holding smartedgesensor3dhumanpose_tpu_torch/ to
+               time beside this one (other, this, this, other)
+  --out FILE   also write every process's results there as JSON
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib.util
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+_TAG = "KERNEL_AB "
+
+
+def _smoke():
+    """chip_smoke.py of this checkout, as a module of its own name."""
+    spec = importlib.util.spec_from_file_location("_ab_chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_durations(fn, kernel: str, reps: int) -> list:
+    """Durations in µs of every launch of `kernel` in a profiler trace of
+    `reps` calls of `fn`, in launch order."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if kernel in e.name and e.device_type == DeviceType.CUDA]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() for e in evs]
+
+
+def measure(cs, fn, kernel: str, reps: int, bound=None) -> dict:
+    durs = kernel_durations(fn, kernel, reps)
+    out = {
+        "ms": cs.sync_time(fn, reps),
+        "device_ms": statistics.mean(durs) / 1e3 if durs else None,
+        "device_ms_min": min(durs) / 1e3 if durs else None,
+        "launches_traced": len(durs),
+    }
+    if bound is not None:
+        out["bound_ms"], out["bound_by"] = bound
+    return out
+
+
+def need_solves(ctab, conf, dok, args) -> int:
+    """Camera steps of the plain fold of one frame that ran a JV solve."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian
+
+    count = [0]
+    plain = hungarian._jv_plain
+
+    def counted(*a, **k):
+        count[0] += 1
+        return plain(*a, **k)
+
+    hungarian._jv_plain = counted
+    try:
+        association.associate_fold_reference(ctab.cpu(), conf.cpu(), dok.cpu(), *args)
+    finally:
+        hungarian._jv_plain = plain
+    return count[0]
+
+
+def fold_bound(cs, ctab, conf, dok, h_cap):
+    """chip_smoke.py's K2 bound, for one frame or a batch of frames."""
+    c_cams, _, d = ctab.shape[-3:]
+    b = ctab.numel() // (c_cams * c_cams * d * d)
+    return cs.bound_of(
+        ctab.numel() * 4 + conf.numel() * 4 + dok.numel() + b * (h_cap * c_cams * 4 + 8),
+        b * (h_cap * d * c_cams * (c_cams - 1) // 2 + c_cams * d * (h_cap + 1) * h_cap * 4),
+    )
+
+
+def worker(pkg_root: str, label: str) -> dict:
+    sys.path.insert(0, pkg_root)
+    import smartedgesensor3dhumanpose_tpu_torch as pkg
+
+    if not os.path.abspath(pkg.__file__).startswith(os.path.abspath(pkg_root) + os.sep):
+        raise RuntimeError(f"imported {pkg.__file__}, not the package under {pkg_root}")
+    from smartedgesensor3dhumanpose_tpu_torch import _kernels, cameras, fusion, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig, PriorConfig
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, tracker
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    cs = _smoke()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _kernels.build(verbose=True)
+    _kernels.library()
+    ptxas = [ln.strip() for ln in log.getvalue().splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    dev = torch.device("cuda", 0)
+    res = {"label": label, "pkg_root": pkg_root, "ptxas": ptxas}
+
+    golden = np.load(cs.GOLDEN)
+    cfg = PipelineConfig.demo_16cam()
+    rig = cameras.hall_rig(16, device=dev)
+    pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=cs.OFFLINE_FUSION_BATCH)
+    scenes = {s: cs.scene_data(json.loads(str(golden[f"{s}/scene"])), cfg.fusion.max_dets_per_cam)
+              for s in cs.SCENES}
+
+    # K3 at the demo shape, then without persons and without detections.
+    frames = cs.stacked_frames(scenes["benign"], dev)
+    persons, pivots, fb, pre = cs.tracker_inputs(pipe, frames)
+    state0 = pipe.init_state()
+
+    def k3(p=persons):
+        return tracker.tracker_scan(state0, p, pivots, fb, pre, cfg.prior, cfg.tracker)
+
+    bound = cs.k3_bound(persons, state0, persons.valid.any(dim=1))
+    res["k3_demo"] = measure(cs, k3, "tracker_scan_kernel", 20, bound)
+    nobody = persons._replace(valid=torch.zeros_like(persons.valid))
+    res["k3_demo_no_persons"] = measure(cs, lambda: k3(nobody), "tracker_scan_kernel", 20)
+    pack = tracker._pack
+    tracker._pack = lambda *a: pack(*a[:-1], torch.zeros_like(a[-1]))
+    try:
+        res["k3_demo_no_dets"] = measure(cs, k3, "tracker_scan_kernel", 20)
+    finally:
+        tracker._pack = pack
+
+    # K2 on one demo frame and on the offline chunks.
+    args = (cfg.fusion.max_hypotheses, cfg.fusion.max_epipolar_error, cfg.fusion.max_cost)
+    per_frame = {}
+    for s in cs.SCENES:
+        cases = [cs.fold_case(cs.frame_at(scenes[s], f, dev), rig, cfg.fusion) for f in range(64)]
+        ctab, conf, dok = cases[40]
+        res[f"k2_frame_{s}"] = measure(
+            cs, lambda: association.associate_fold(ctab, conf, dok, *args),
+            "association_fold_kernel", 50, fold_bound(cs, ctab, conf, dok, args[0]))
+        res[f"k2_frame_{s}"]["need_solves"] = need_solves(ctab, conf, dok, args)
+        bt = [torch.stack([c[i] for c in cases[:32]]) for i in range(3)]
+        res[f"k2_chunk32_{s}"] = measure(
+            cs, lambda: association.associate_fold_batched(*bt, *args),
+            "association_fold_kernel", 50, fold_bound(cs, *bt, args[0]))
+        reps = 10
+        durs = kernel_durations(
+            lambda: [association.associate_fold(*c, *args) for c in cases for _ in range(reps)],
+            "association_fold_kernel", 1)
+        needs = [need_solves(*c, args) for c in cases]
+        per_frame[s] = {
+            "need_solves": needs,
+            "device_us": ([statistics.mean(durs[i * reps:(i + 1) * reps]) for i in range(len(cases))]
+                          if len(durs) == reps * len(cases) else None),
+        }
+    res["k2_per_frame"] = per_frame
+
+    # The scaled layout: K3 on its tracker inputs, K2 on its first chunk.
+    cfg_s = PipelineConfig.scaled_64cam()
+    rig_s = cameras.hall_rig(cs.SCALED_SCENE["num_cameras"], device=dev)
+    frames_s = cs.stacked_frames(cs.scene_data(cs.SCALED_SCENE, cfg_s.fusion.max_dets_per_cam), dev)
+    pipe_s = pipeline.Pipeline(rig_s, cfg_s, device=dev, fusion_batch=cs.SCALED_FUSION_BATCH)
+    persons_s, pivots_s, fb_s, pre_s = cs.tracker_inputs(pipe_s, frames_s)
+    state_s = pipe_s.init_state()
+    res["k3_scaled"] = measure(
+        cs, lambda: tracker.tracker_scan(state_s, persons_s, pivots_s, fb_s, pre_s,
+                                         cfg_s.prior, cfg_s.tracker),
+        "tracker_scan_kernel", 10, cs.k3_bound(persons_s, state_s, persons_s.valid.any(dim=1)))
+    chunk, _ = pipeline.mask_stale_cameras(
+        Frame(*(x[:cs.SCALED_FUSION_BATCH] for x in frames_s)), cfg_s.fusion.max_sync_diff)
+    kp_n, _, det_ok = fusion.normalize_frame(chunk, rig_s, cfg_s.fusion)
+    ctab_s, conf_s = fusion.fold_inputs(kp_n, chunk.det_score, rig_s, cfg_s.fusion)
+    args_s = (cfg_s.fusion.max_hypotheses, cfg_s.fusion.max_epipolar_error, cfg_s.fusion.max_cost)
+    res["k2_scaled_chunk"] = measure(
+        cs, lambda: association.associate_fold_batched(ctab_s, conf_s, det_ok, *args_s),
+        "association_fold_kernel", 10, fold_bound(cs, ctab_s, conf_s, det_ok, args_s[0]))
+
+    # K3 at the edge of its domain.
+    e_state, e_persons, e_pivots, e_fb, e_pre, e_cfg = cs.edge_inputs(dev)
+    res["k3_edge"] = measure(
+        cs, lambda: tracker.tracker_scan(e_state, e_persons, e_pivots, e_fb, e_pre,
+                                         PriorConfig(), e_cfg),
+        "tracker_scan_kernel", 5, cs.k3_bound(e_persons, e_state, e_persons.valid.any(dim=1)))
+
+    # The batched K1 at phase 2's largest batch.
+    cost = np.random.default_rng(0).uniform(size=(64, 16, 24)).astype(np.float32)
+    c_dev = torch.from_numpy(cost).to(dev)
+    b, r, n = cost.shape
+    res["k1b"] = measure(
+        cs, lambda: hungarian.linear_sum_assignment_batched(c_dev), "jv_assign_kernel", 50,
+        cs.bound_of(cost.nbytes + b * r * 4, b * (r * (n + 1) * n * 4 + r * n)))
+    res["k1b"]["plain_ms"] = cs.sync_time(
+        lambda: hungarian.linear_sum_assignment_batched_reference(c_dev), 2)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", default=None, help="another checkout to time beside this one")
+    ap.add_argument("--out", default=None, help="write the results here as JSON")
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--label", default="this", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device visible; nothing was run", file=sys.stderr)
+        return 2
+    if args.worker:
+        print(_TAG + json.dumps(worker(args.worker, args.label)), flush=True)
+        return 0
+
+    smi = _smoke().smi_line()
+    order = [("this", _ROOT), ("this", _ROOT)]
+    if args.other:
+        other = os.path.abspath(args.other)
+        order = [("other", other), ("this", _ROOT), ("this", _ROOT), ("other", other)]
+    runs = []
+    for label, root in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", root, "--label", label],
+            capture_output=True, text=True, timeout=900,
+        )
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(_TAG)]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+            raise RuntimeError(f"kernel_ab worker {label} ({root}) failed: {proc.returncode}")
+        runs.append(json.loads(lines[-1][len(_TAG):]))
+
+    cases = [k for k, v in runs[0].items() if isinstance(v, dict) and "ms" in v]
+    print(f"card: {smi}")
+    print(f"{'case':24s} " + " ".join(f"{r['label'] + ' ms/dev':>22s}" for r in runs) + f" {'bound_ms':>10s}")
+    for case in cases:
+        cells = " ".join(f"{r[case]['ms']:10.4f}/{r[case]['device_ms'] or float('nan'):<10.4f}"
+                         for r in runs)
+        print(f"{case:24s} {cells} {runs[0][case].get('bound_ms', float('nan')):10.3g}")
+    for r in runs:
+        for s, pf in r["k2_per_frame"].items():
+            if pf["device_us"] is None:
+                continue
+            by_need = {}
+            for n_solve, us in zip(pf["need_solves"], pf["device_us"]):
+                by_need.setdefault(n_solve, []).append(us)
+            print(f"k2 per frame {r['label']} {s}: mean {statistics.mean(pf['device_us']):.2f} us; "
+                  + ", ".join(f"{k} solves: {statistics.mean(v):.2f} us x{len(v)}"
+                              for k, v in sorted(by_need.items())))
+    print("k1b plain ms: " + " ".join(f"{r['label']} {r['k1b']['plain_ms']:.4f}" for r in runs))
+    for r in runs[:len(order) // 2 + 1]:
+        if r["ptxas"]:
+            print(f"ptxas ({r['label']}):\n  " + "\n  ".join(r["ptxas"]))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump({"card": smi, "runs": runs}, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,7 +24,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("jv_assign.cu", "association_fold.cu", "tracker_scan.cu")
-HEADERS = ("jv.cuh",)
+HEADERS = ("jv.cuh", "bulk_copy.cuh")
 # --fmad=false: every float operation rounds on its own, as in the plain
 # PyTorch versions the kernels are held to bit for bit.
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -106,11 +106,15 @@ def library() -> ctypes.CDLL:
         lib.ses3d_jv_assign.argtypes = [p, p, p, i, i, i, p]
         lib.ses3d_jv_assign.restype = i
         lib.ses3d_association_fold.argtypes = [
-            p, p, p, p, p, i, i, i, i, f, f, p
+            p, p, p, p, p, i, i, i, i, i, i, f, f, p
         ]
         lib.ses3d_association_fold.restype = i
-        lib.ses3d_tracker_scan.argtypes = [p] * 25 + [i, i, i, i, f, f, i, f, f, p]
+        lib.ses3d_association_fold_smem_bytes.argtypes = [i, i, i, i]
+        lib.ses3d_association_fold_smem_bytes.restype = i
+        lib.ses3d_tracker_scan.argtypes = [p] * 16 + [i] * 8 + [f, f, i, f, f, p]
         lib.ses3d_tracker_scan.restype = i
+        lib.ses3d_tracker_scan_smem_bytes.argtypes = [i] * 5
+        lib.ses3d_tracker_scan_smem_bytes.restype = i
         _lib = lib
     return _lib
 

@@ -53,14 +53,17 @@ struct JvShared {
   int way[kLanes];     // predecessor column on the search tree
   int used[kLanes];    // column on the search tree
   int tree[kLanes];    // row on the search tree
-  int aux[kLanes];     // first argmin column per row; then the inverse map
-  float red_val[kLanes / 32];
-  int red_idx[kLanes / 32];
+  int aux[kLanes];     // scratch of the caller (K1: the inverse map)
+  unsigned assigned[kLanes / 32];  // rows matched by the row reduction
+  float red_val[2][kLanes / 32];   // argmin partials, double-buffered
+  int red_idx[2][kLanes / 32];
 };
 
 // Block-wide lexicographic min of (val, idx): the lowest idx among the
-// minimal values. All 128 threads must call it.
-__device__ inline void block_argmin(float val, int idx, JvShared& s,
+// minimal values. All 128 threads must call it. One barrier: partials go
+// to buffer `buf`, so a caller that alternates buffers needs one barrier of
+// its own between two calls, not one inside.
+__device__ inline void block_argmin(float val, int idx, JvShared& s, int buf,
                                     float& out_val, int& out_idx) {
   const unsigned full = 0xffffffffu;
   for (int off = 16; off > 0; off >>= 1) {
@@ -73,15 +76,15 @@ __device__ inline void block_argmin(float val, int idx, JvShared& s,
   }
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) {
-    s.red_val[warp] = val;
-    s.red_idx[warp] = idx;
+    s.red_val[buf][warp] = val;
+    s.red_idx[buf][warp] = idx;
   }
   __syncthreads();
-  float bv = s.red_val[0];
-  int bi = s.red_idx[0];
+  float bv = s.red_val[buf][0];
+  int bi = s.red_idx[buf][0];
   for (int w = 1; w < kLanes / 32; ++w) {
-    const float wv = s.red_val[w];
-    const int wi = s.red_idx[w];
+    const float wv = s.red_val[buf][w];
+    const int wi = s.red_idx[buf][w];
     if (wv < bv || (wv == bv && wi < bi)) {
       bv = wv;
       bi = wi;
@@ -89,7 +92,6 @@ __device__ inline void block_argmin(float val, int idx, JvShared& s,
   }
   out_val = bv;
   out_idx = bi;
-  __syncthreads();
 }
 
 // Inclusive prefix sum of `x` over the block's 128 threads; `total` gets
@@ -115,14 +117,116 @@ __device__ inline int block_inclusive_scan(int x, int* warp_sums, int& total) {
   return x + prefix;
 }
 
+// jv_solve_block for n < 32 columns, run by warp 0 alone: lane j holds
+// column j (the virtual column n included) and row j, the solver state
+// lives in registers, and a search step is warp shuffles with no block
+// barrier. The same operations in the same order as the block routine, so
+// the same result.
+template <class Cost>
+__device__ void jv_solve_warp(const Cost& cost, int n, int n_rows,
+                              const int* row_active, JvShared& s) {
+  const int t = threadIdx.x;
+  if (t < 32) {
+    const unsigned full = 0xffffffffu;
+    // Row reduction: lane i scans row i for its minimum and first argmin.
+    float u = 0.0f;  // potential of row t
+    int amin = -1;
+    if (t < n_rows) {
+      u = kInf;
+      amin = n;
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) {
+        const float c = cost(t, j);
+        if (c < u) {
+          u = c;
+          amin = j;
+        }
+      }
+      if (row_active != nullptr && row_active[t] == 0) amin = -1;
+    }
+    // Column j goes to the lowest active row whose first argmin it is: the
+    // lowest lane of each group of lanes with the same claim.
+    s.roc[t] = -1;
+    __syncwarp();
+    const bool claims = amin >= 0 && amin < n;
+    const unsigned group = __match_any_sync(full, claims ? amin : -1 - t);
+    if (claims && (group & ((1u << t) - 1u)) == 0u) s.roc[amin] = t;
+    __syncwarp();
+    int roc = s.roc[t];  // row matched to column t
+    const unsigned assigned = __reduce_or_sync(full, roc >= 0 ? 1u << roc : 0u);
+    const bool active = t < n_rows && (row_active == nullptr || row_active[t] != 0);
+    float v = 0.0f;  // potential of column t
+
+    // Rows left free by the reduction, in order (see jv_solve_block).
+    for (unsigned pending = __ballot_sync(full, active) & ~assigned; pending;
+         pending &= pending - 1u) {
+      const int r = __ffs(pending) - 1;
+      float minv = kInf;
+      int way = n;
+      bool used = false;
+      bool tree = false;
+      if (t == n) roc = r;
+      int j0 = n;
+      for (int step = 0; step <= n + 1; ++step) {
+        const int i0 = __shfl_sync(full, roc, j0);
+        if (i0 < 0) break;
+        used = used || t == j0;
+        tree = tree || t == i0;
+        const float u_i0 = __shfl_sync(full, u, i0);
+        float masked = kInf;
+        if (t < n) {
+          const float cur = cost(i0, t) - u_i0 - v;
+          if (cur < minv && !used) {
+            minv = cur;
+            way = j0;
+          }
+          if (!used) masked = minv;
+        }
+        float val = masked;
+        int idx = t;
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_down_sync(full, val, off);
+          const int oi = __shfl_down_sync(full, idx, off);
+          if (ov < val || (ov == val && oi < idx)) {
+            val = ov;
+            idx = oi;
+          }
+        }
+        const float delta = __shfl_sync(full, val, 0);
+        if (tree) u = u + delta;
+        if (used) v = v - delta;
+        if (!used && t < n) minv = minv - delta;
+        j0 = __shfl_sync(full, idx, 0);
+      }
+      // Augment along the predecessor chain back to the virtual column.
+      int j = j0;
+      for (int step = 0; j != n && step <= n + 1; ++step) {
+        const int jp = __shfl_sync(full, way, j);
+        const int from = __shfl_sync(full, roc, jp);
+        if (t == j) roc = from;
+        j = jp;
+      }
+    }
+    s.roc[t] = roc;
+  } else {
+    s.roc[t] = -1;
+  }
+  __syncthreads();
+}
+
 // Solve the assignment of rows [0, n_rows) to columns [0, n), n <= kMaxN,
 // n_rows <= n. `cost(i, j)` returns the float cost of row i, column j.
 // `row_active` (may be null) is read as row_active[i] != 0. On return
 // s.roc[j] holds the row matched to column j, or -1. All threads of the
-// block must call it; blockDim.x == kLanes.
+// block must call it; blockDim.x == kLanes. Below 32 columns the solve
+// runs in one warp (jv_solve_warp).
 template <class Cost>
 __device__ void jv_solve_block(const Cost& cost, int n, int n_rows,
                                const int* row_active, JvShared& s) {
+  if (n < 32) {
+    jv_solve_warp(cost, n, n_rows, row_active, s);
+    return;
+  }
   const int t = threadIdx.x;
 
   // Row reduction: thread t scans row t for its minimum and first argmin.
@@ -142,24 +246,22 @@ __device__ void jv_solve_block(const Cost& cost, int n, int n_rows,
   }
   s.u[t] = rowmin;
   s.v[t] = 0.0f;
-  s.aux[t] = amin;
+  s.roc[t] = n_rows;  // no claim yet
+  if (t < kLanes / 32) s.assigned[t] = 0u;
   __syncthreads();
-  // Column t goes to the lowest active row whose first argmin it is.
-  int winner = -1;
-  if (t < n) {
-    for (int i = 0; i < n_rows; ++i) {
-      if (s.aux[i] == t) {
-        winner = i;
-        break;
-      }
-    }
-  }
-  s.roc[t] = winner;
+  // Column j goes to the lowest active row whose first argmin it is.
+  if (amin >= 0 && amin < n) atomicMin(&s.roc[amin], t);
+  __syncthreads();
+  if (s.roc[t] == n_rows) s.roc[t] = -1;
+  if (s.roc[t] >= 0) atomicOr(&s.assigned[s.roc[t] >> 5], 1u << (s.roc[t] & 31));
   __syncthreads();
 
+  // Rows left free by the reduction, in order. An augmenting path only
+  // moves matched rows between columns, so a row matched now is still
+  // matched when the loop reaches it, and a free row is still free.
   for (int r = 0; r < n_rows; ++r) {
     if (row_active != nullptr && row_active[r] == 0) continue;
-    if (__syncthreads_or(t < n && s.roc[t] == r)) continue;
+    if ((s.assigned[r >> 5] >> (r & 31)) & 1u) continue;
 
     // Dijkstra search from the virtual column n, which holds row r.
     s.minv[t] = kInf;
@@ -185,7 +287,7 @@ __device__ void jv_solve_block(const Cost& cost, int n, int n_rows,
       }
       float delta;
       int j1;
-      block_argmin(masked, t, s, delta, j1);
+      block_argmin(masked, t, s, step & 1, delta, j1);
       if (tree_t) s.u[t] = s.u[t] + delta;
       if (used_t) s.v[t] = s.v[t] - delta;
       s.minv[t] = (!used_t && t < n) ? minv_t - delta : minv_t;

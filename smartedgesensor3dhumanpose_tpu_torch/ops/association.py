@@ -17,6 +17,8 @@ float32 the two agree bit for bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import _kernels
@@ -36,10 +38,55 @@ INVALID_DET_COST = 2.0 * ASSIGN_COST_CLIP
 # Launches of the CUDA kernel; the wrapper adds one per launch.
 KERNEL_LAUNCHES = 0
 
+# Shared memory one thread block may hold on an H100 (static + dynamic,
+# after the opt-in), an upper bound of K2's static shared memory (the JV
+# state, five per-lane arrays, the scan sums, two barriers: ~6.7 KB), and
+# the most the kernel spends on its two prefetched table slices.
+SMEM_PER_BLOCK = 232_448
+STATIC_SMEM_RESERVE = 8_192
+PREFETCH_MAX_BYTES = 64 * 1024
+
+
+class FoldPlan(NamedTuple):
+    """K2's shared-memory layout for one launch: whether each camera's
+    table slice [C*D, D] is copied on chip during the previous camera step,
+    and the dynamic shared memory in bytes."""
+
+    prefetch: bool
+    smem_bytes: int
+
 
 def padded_dets(d: int) -> int:
     """Row count of the fold's solve: D rounded up to a multiple of 8."""
     return max(8, -(-d // 8) * 8)
+
+
+def fold_smem_bytes(c: int, d: int, h_cap: int, prefetch: bool) -> int:
+    """K2's dynamic shared memory (association_fold.cu::fold_smem_bytes):
+    the two table slices when prefetching, det_slot [C, 128] int32, the
+    frame's flags [C*D] float32 and int32, the solver's cost [dp, n] float32
+    and the feasibility mask [dp, 128] bytes."""
+    dp = padded_dets(d)
+    n_jv = max(h_cap, dp)
+    slices = 2 * 4 * c * d * d if prefetch else 0
+    return slices + c * 128 * 4 + 2 * c * d * 4 + dp * n_jv * 4 + dp * 128
+
+
+def fold_plan(c: int, d: int, h_cap: int) -> FoldPlan:
+    """The layout K2 takes at these shapes: prefetch the table slices when
+    two of them fit in PREFETCH_MAX_BYTES (and a slice is a whole number of
+    16-byte units, as the bulk copy needs); raise if even the fold's state
+    does not fit in a block."""
+    slice_bytes = 4 * c * d * d
+    prefetch = slice_bytes % 16 == 0 and 2 * slice_bytes <= PREFETCH_MAX_BYTES
+    smem = fold_smem_bytes(c, d, h_cap, prefetch)
+    budget = SMEM_PER_BLOCK - STATIC_SMEM_RESERVE
+    if smem > budget:
+        raise ValueError(
+            f"the fold kernel needs {smem} bytes of shared memory at cameras={c}, "
+            f"detections={d}, h_cap={h_cap}; a block holds {budget}"
+        )
+    return FoldPlan(prefetch, smem)
 
 
 def associate_fold_reference(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
@@ -178,15 +225,19 @@ def _launch(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     ctab = ctab.contiguous()
     conf = conf_obs.to(torch.float32).contiguous()
     dok = det_ok.to(torch.int32).contiguous()
+    # The bulk copies read the table from 16-byte aligned addresses only.
+    prefetch = fold_plan(c, d, h_cap).prefetch and ctab.data_ptr() % 16 == 0
+    smem = fold_smem_bytes(c, d, h_cap, prefetch)
     det_slot = torch.empty((b, h_cap, c), dtype=torch.int32, device=ctab.device)
     counts = torch.empty((b, 2), dtype=torch.int32, device=ctab.device)
     lib = _kernels.library()
     stream = torch.cuda.current_stream(ctab.device).cuda_stream
     err = lib.ses3d_association_fold(
         ctab.data_ptr(), conf.data_ptr(), dok.data_ptr(), det_slot.data_ptr(),
-        counts.data_ptr(), b, c, d, h_cap, float(gate), float(max_cost), stream,
+        counts.data_ptr(), b, c, d, h_cap, int(prefetch), smem,
+        float(gate), float(max_cost), stream,
     )
-    _kernels.check(err, "association_fold launch")
+    _kernels.check(err, f"association_fold launch (prefetch={prefetch}, smem={smem})")
     KERNEL_LAUNCHES += 1
     return det_slot, counts[:, 0], counts[:, 1]
 

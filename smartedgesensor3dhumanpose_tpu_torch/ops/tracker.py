@@ -17,14 +17,19 @@ port of the JAX package's ops/tracker_pallas.py:
   tensors, one launch for all frames with the track state resident on
   chip; the plain version for CPU tensors. There is no other path.
 
-Layout of the kernel's inputs (`_pack`): per frame, persons' joints as
-[F, P, K*3] float32 rows, joint flags and person flags as uint8, and two
-small frame-scalar tables; the state as [T, ...] rows, one per track slot.
-The TPU kernel's [rows, 128 lanes] tiles, 8-row padding and SMEM scalar
-blocks were Mosaic limits and are not carried over.
+Layout of the kernel's inputs (`_pack`): one record per frame
+(`frame_layout`: the persons' joints, flags and the frame scalars, each
+field 16-byte aligned), which the kernel copies into shared memory one
+frame ahead; the state as [T, ...] rows, one per track slot. `scan_plan`
+decides per launch what of it lives on chip. The TPU kernel's [rows, 128
+lanes] tiles, 8-row padding and SMEM scalar blocks were Mosaic limits and
+are not carried over.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -137,25 +142,113 @@ def check_domain(p: int, t_slots: int, k_j: int) -> None:
         )
 
 
+# Shared memory one thread block may hold on an H100 (static + dynamic,
+# after the opt-in), and an upper bound of K3's static shared memory (the JV
+# state, the scan sums, the velocity sigmas and two barriers: ~4.3 KB).
+SMEM_PER_BLOCK = 232_448
+STATIC_SMEM_RESERVE = 5_120
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def frame_layout(p: int):
+    """K3's per-frame input record for `p` persons: (fields, bytes). Each
+    field is (name, dtype, shape within one frame, byte offset); every
+    offset is 16-byte aligned and `bytes` a multiple of 16, as the kernel's
+    bulk copies need (csrc/tracker_scan.cu::frame_layout, the same rule)."""
+    f32, u8 = torch.float32, torch.uint8
+    shapes = (
+        ("meas", f32, (p, 3 * K_JOINTS)),  # fusion joints
+        ("rx", f32, (p, 3 * K_JOINTS)),    # LM result, normalized joints
+        ("root", f32, (p, 3)),
+        ("hgt", f32, (p,)),
+        ("okpk", u8, (p, K_JOINTS)),       # joint score above min_score
+        ("act", u8, (p, K_JOINTS)),        # LM-active joints
+        ("valid", u8, (p,)),
+        ("hm", u8, (p,)),                  # person has measurements
+        ("fsc", f32, (3,)),                # pivot, pred_delta_t, dt_glob
+        ("fint", torch.int32, (2,)),       # slot_w, has_dets
+    )
+    fields, offset = [], 0
+    for name, dtype, shape in shapes:
+        fields.append((name, dtype, shape, offset))
+        offset += _pad16(math.prod(shape) * dtype.itemsize)
+    return fields, offset
+
+
+def pack_frames(values: dict, p: int) -> torch.Tensor:
+    """The records [F, bytes] uint8 of `frame_layout(p)` holding `values`
+    (name -> [F, ...] tensor of the field's shape), padding zeroed: one
+    copy per field into a view of its bytes."""
+    fields, nbytes = frame_layout(p)
+    f = values["fsc"].shape[0]
+    records = torch.zeros((f, nbytes), dtype=torch.uint8, device=values["fsc"].device)
+    for name, dtype, shape, offset in fields:
+        n = math.prod(shape) * dtype.itemsize
+        records[:, offset:offset + n].view(dtype).copy_(values[name].reshape(f, -1))
+    return records
+
+
+class ScanPlan(NamedTuple):
+    """K3's shared-memory layout for one launch: frame records staged on
+    chip (2 = the next frame lands while this one runs), whether the
+    velocity rings live on chip, and the dynamic shared memory in bytes."""
+
+    stages: int
+    rings_on_chip: bool
+    smem_bytes: int
+
+
+def state_smem_bytes(p: int, t_slots: int) -> int:
+    """K3's track state and scratch in shared memory (tracker_scan.cu::
+    state_bytes): 4-byte words for the estimates and their world joints,
+    the cost's divisors and reciprocals [T, 21], the cost [P, T], the
+    merge's bit sets [T, 4] and boxes [T, 6], the slot and person scalars,
+    lists and joint bit sets; bytes for the joint flags."""
+    words = (2 * t_slots * 3 * K_JOINTS + 2 * t_slots * K_JOINTS + p * t_slots
+             + 22 * t_slots + 10 * p)
+    return 4 * words + t_slots * K_JOINTS
+
+
+def scan_plan(p: int, t_slots: int, w: int) -> ScanPlan:
+    """The layout K3 takes at these shapes, within SMEM_PER_BLOCK less the
+    kernel's static shared memory: the frame records double-buffered if
+    they fit beside the state, else single; then the velocity rings
+    [T, 21, W, 3] if they fit too, else they stay in device memory."""
+    budget = SMEM_PER_BLOCK - STATIC_SMEM_RESERVE
+    record = frame_layout(p)[1]
+    state = state_smem_bytes(p, t_slots)
+    rings = _pad16(4 * t_slots * K_JOINTS * w * 3)  # keeps the state after it aligned
+    stages = 2 if state + 2 * record <= budget else 1
+    rings_on_chip = state + stages * record + rings <= budget
+    smem = state + stages * record + (rings if rings_on_chip else 0)
+    if smem > budget:
+        raise ValueError(
+            f"the tracker-scan kernel needs {smem} bytes of shared memory at "
+            f"persons={p}, track slots={t_slots}, window={w}; a block holds {budget}"
+        )
+    return ScanPlan(stages, rings_on_chip, smem)
+
+
 def _pack(persons: Persons3D, pre, prior_cfg, pivots, pred_delta_t, dt_glob,
           slot_w, has_dets):
-    """Per-frame kernel inputs, contiguous, in the kernel's layout."""
+    """The kernel's per-frame input records [F, bytes] (frame_layout)."""
     g_in, result, _, _ = pre
     f, p, k, _ = persons.xyz.shape
-    u8 = torch.uint8
-    f32 = torch.float32
-    return dict(
-        meas=persons.xyz.reshape(f, p, 3 * k).to(f32).contiguous(),
-        rx=result.x.reshape(f, p, 3 * k).to(f32).contiguous(),
-        root=g_in.root_xyz.to(f32).contiguous(),
-        hgt=g_in.height.to(f32).contiguous(),
-        okpk=(persons.score > prior_cfg.min_score).to(u8).contiguous(),
-        act=g_in.active.to(u8).contiguous(),
-        valid=persons.valid.to(u8).contiguous(),
-        hm=(g_in.num_meas > 0).to(u8).contiguous(),
-        fsc=torch.stack([pivots, pred_delta_t, dt_glob], dim=1).to(f32).contiguous(),
-        fint=torch.stack([slot_w, has_dets.to(torch.int32)], dim=1).contiguous(),
-    )
+    return pack_frames(dict(
+        meas=persons.xyz,
+        rx=result.x,
+        root=g_in.root_xyz,
+        hgt=g_in.height,
+        okpk=persons.score > prior_cfg.min_score,
+        act=g_in.active,
+        valid=persons.valid,
+        hm=g_in.num_meas > 0,
+        fsc=torch.stack([pivots, pred_delta_t, dt_glob], dim=1),
+        fint=torch.stack([slot_w, has_dets.to(torch.int32)], dim=1),
+    ), p)
 
 
 def state_buffers(state: TrackerState) -> dict:
@@ -200,13 +293,14 @@ def state_from_buffers(buf: dict, state0: TrackerState, frame_nr, fb_final,
     )
 
 
-def _launch(inp: dict, st: dict, p: int, t_slots: int, w: int, cfg):
-    """K3 on the card. Returns (pred_offset [F, P, K*3], publish [F, P]
-    uint8, ids [F, P] int32, n_dropped [F] int32); `st` holds the final
-    state afterwards."""
+def _launch(records, st: dict, p: int, t_slots: int, w: int, cfg):
+    """K3 on the card over the frame records [F, bytes]. Returns
+    (pred_offset [F, P, K*3], publish [F, P] uint8, ids [F, P] int32,
+    n_dropped [F] int32); `st` holds the final state afterwards."""
     global KERNEL_LAUNCHES
-    dev = inp["meas"].device
-    f = inp["meas"].shape[0]
+    plan = scan_plan(p, t_slots, w)
+    dev = records.device
+    f = records.shape[0]
     off = torch.empty((f, p, 3 * K_JOINTS), dtype=torch.float32, device=dev)
     publish = torch.empty((f, p), dtype=torch.uint8, device=dev)
     ids = torch.empty((f, p), dtype=torch.int32, device=dev)
@@ -215,20 +309,18 @@ def _launch(inp: dict, st: dict, p: int, t_slots: int, w: int, cfg):
     lib = _kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ses3d_tracker_scan(
-        inp["meas"].data_ptr(), inp["rx"].data_ptr(), inp["root"].data_ptr(),
-        inp["hgt"].data_ptr(), inp["okpk"].data_ptr(), inp["act"].data_ptr(),
-        inp["valid"].data_ptr(), inp["hm"].data_ptr(), inp["fsc"].data_ptr(),
-        inp["fint"].data_ptr(), vel_sig.data_ptr(),
+        records.data_ptr(), vel_sig.data_ptr(),
         st["est"].data_ptr(), st["ex"].data_ptr(), st["vel"].data_ptr(),
         st["tprev"].data_ptr(), st["hprev"].data_ptr(), st["rootp"].data_ptr(),
         st["alive"].data_ptr(), st["tid"].data_ptr(), st["nobs"].data_ptr(),
         st["next_id"].data_ptr(),
         off.data_ptr(), publish.data_ptr(), ids.data_ptr(), n_dropped.data_ptr(),
-        f, p, t_slots, w,
+        f, p, t_slots, w, records.shape[1], plan.stages, int(plan.rings_on_chip),
+        plan.smem_bytes,
         float(cfg.max_dist), float(cfg.dist_threshold), int(cfg.min_num_obs),
         float(cfg.max_unobserved_time), float(cfg.merge_dist_thresh), stream,
     )
-    _kernels.check(err, "tracker_scan launch")
+    _kernels.check(err, f"tracker_scan launch ({plan})")
     KERNEL_LAUNCHES += 1
     return off, publish, ids, n_dropped
 
@@ -265,10 +357,10 @@ def tracker_scan(state0: TrackerState, persons: Persons3D, pivots, fb_delay,
     pred_delta_t, slot_w, dt_glob, fb_final, frame_nr = frame_local_chain(
         state0, has_dets, fb_delay.to(dtype), pivots.to(dtype), cfg
     )
-    inp = _pack(persons, pre, prior_cfg, pivots.to(dtype), pred_delta_t,
-                dt_glob, slot_w, has_dets)
+    records = _pack(persons, pre, prior_cfg, pivots.to(dtype), pred_delta_t,
+                    dt_glob, slot_w, has_dets)
     st = state_buffers(state0)
-    off, publish, ids, n_dropped = _launch(inp, st, p, t_slots, w, cfg)
+    off, publish, ids, n_dropped = _launch(records, st, p, t_slots, w, cfg)
 
     # Outputs composed as tracking.step composes them from the precomputed
     # smoothing; the kernel owns the sequential decisions and offsets.

@@ -133,3 +133,27 @@ def test_batched_fold_equals_per_frame():
         single = association.associate_fold(ctab, conf, det_ok, *args)
         for b, s in zip(batched, single):
             assert torch.equal(b[t], s), t
+
+
+@pytest.mark.parametrize("c,d,h_cap,prefetch", [
+    (16, 8, 16, True),    # the demo shape: two 8 KB table slices on chip
+    (6, 8, 16, True),
+    (64, 32, 40, False),  # the scaled layout: a 256 KB slice stays in device memory
+    (64, 32, 120, False),  # the JV's limit
+    (5, 3, 4, False),     # a slice that is not a whole number of 16-byte units
+])
+def test_fold_plan(c, d, h_cap, prefetch):
+    """K2's shared-memory plan: which shapes prefetch the table slices, and
+    a byte count that is the sum of what the block holds and fits it."""
+    plan = association.fold_plan(c, d, h_cap)
+    assert plan.prefetch is prefetch
+    dp = association.padded_dets(d)
+    want = (2 * 4 * c * d * d if prefetch else 0) + 4 * c * 128 + 8 * c * d \
+        + 4 * dp * max(h_cap, dp) + dp * 128
+    assert plan.smem_bytes == want == association.fold_smem_bytes(c, d, h_cap, prefetch)
+    assert plan.smem_bytes + association.STATIC_SMEM_RESERVE <= association.SMEM_PER_BLOCK
+
+
+def test_fold_plan_refuses_what_a_block_cannot_hold():
+    with pytest.raises(ValueError, match="shared memory"):
+        association.fold_plan(400, 32, 120)

@@ -11,6 +11,8 @@ they test the scan alone. JAX runs on the CPU as conftest sets it up, the port o
 tensors (its kernels' plain versions).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,3 +249,58 @@ def test_state_buffers_round_trip():
     for x in buf.values():
         x.zero_()
     assert torch.equal(state.track_id, torch.as_tensor(arrays["track_id"], dtype=torch.int32))
+
+
+def test_scan_plan_stages_every_frame_within_a_block():
+    """K3's shared-memory plan: the demo and scaled shapes keep everything on
+    chip (two frame records and the velocity rings); across the whole
+    domain (P <= T <= 120, W = 3) the plan stages each frame at least once,
+    fits a block beside the kernel's static shared memory, and its byte
+    count is the sum of what it holds."""
+    for p, t_slots in ((16, 24), (40, 64)):
+        plan = tracker.scan_plan(p, t_slots, 3)
+        assert plan.stages == 2 and plan.rings_on_chip, (p, t_slots, plan)
+    edge = tracker.scan_plan(tracker.MAX_TRACKS, tracker.MAX_TRACKS, 3)
+    assert not (edge.stages == 2 and edge.rings_on_chip), edge
+    budget = tracker.SMEM_PER_BLOCK - tracker.STATIC_SMEM_RESERVE
+    assert tracker.SMEM_PER_BLOCK == 232_448
+    for t_slots in range(1, tracker.MAX_TRACKS + 1):
+        for p in range(1, t_slots + 1):
+            plan = tracker.scan_plan(p, t_slots, 3)
+            assert plan.stages in (1, 2)
+            assert plan.smem_bytes <= budget, (p, t_slots, plan)
+            rings = -(-4 * t_slots * 21 * 3 * 3 // 16) * 16
+            want = (tracker.state_smem_bytes(p, t_slots)
+                    + plan.stages * tracker.frame_layout(p)[1]
+                    + (rings if plan.rings_on_chip else 0))
+            assert plan.smem_bytes == want, (p, t_slots, plan)
+
+
+@pytest.mark.parametrize("p", [1, 5, 16, 40, 120])
+def test_frame_records_round_trip(p):
+    """The packed frame record holds the ten per-frame fields exactly, each
+    at a 16-byte-aligned offset, the record a multiple of 16 bytes."""
+    g = torch.Generator().manual_seed(p)
+    f = 3
+    vals = dict(
+        meas=torch.randn(f, p, 21, 3, generator=g), rx=torch.randn(f, p, 21, 3, generator=g),
+        root=torch.randn(f, p, 3, generator=g), hgt=torch.randn(f, p, generator=g),
+        okpk=torch.rand(f, p, 21, generator=g) > 0.5, act=torch.rand(f, p, 21, generator=g) > 0.5,
+        valid=torch.rand(f, p, generator=g) > 0.5, hm=torch.rand(f, p, generator=g) > 0.5,
+        fsc=torch.randn(f, 3, generator=g),
+        fint=torch.randint(0, 3, (f, 2), dtype=torch.int32, generator=g),
+    )
+    records = tracker.pack_frames(vals, p)
+    fields, nbytes = tracker.frame_layout(p)
+    assert records.dtype == torch.uint8 and records.shape == (f, nbytes) and nbytes % 16 == 0
+    assert [name for name, *_ in fields] == list(vals)
+    for name, dtype, shape, offset in fields:
+        assert offset % 16 == 0, name
+        raw = records[:, offset:offset + math.prod(shape) * dtype.itemsize]
+        back = raw.contiguous().view(dtype).reshape(f, *shape)
+        assert torch.equal(back, vals[name].to(dtype).reshape(f, *shape)), name
+    # Padding between fields is zero.
+    used = torch.zeros(nbytes, dtype=torch.bool)
+    for name, dtype, shape, offset in fields:
+        used[offset:offset + math.prod(shape) * dtype.itemsize] = True
+    assert not records[:, ~used].any()
