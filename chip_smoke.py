@@ -4,14 +4,18 @@ Phases (each prints one line; any failure exits non-zero):
   0 environment: card name and power limit, torch/CUDA versions, TF32 flags
   1 build: compile kernels K1 (jv_assign.cu), K2 (association_fold.cu) and
     K3 (tracker_scan.cu), one nvcc per source, all started together; the
-    wrappers' shared-memory plans against the kernels' own byte counts
-  2 K1 against its plain PyTorch version and scipy, on the card
+    wrappers' shared-memory plans against the kernels' own byte counts; K1
+    without local memory (-Xptxas -v)
+  2 K1 against its plain PyTorch version and scipy, on the card, at every
+    register slot count (n up to 120, with and without row_active) and
+    batched up to 64 x 40 x 40 and 8 x 120 x 120
   3 K2 against its plain PyTorch version, on the card, also at h_cap = 120
     (the JV's limit) on scaled-layout frames
   4 the online slice: Pipeline.step over the two golden demo scenes (16
     cameras x 6 people, 64 frames each) against the JAX reference's outputs
     stored in tests/data/torch_golden_demo16.npz, with the launch counts
-  5 online times: Pipeline.step, and K1/K2 against their plain versions
+  5 online times: Pipeline.step, K1/K2 against their plain versions, and
+    K1's device time at the tracker's shape (torch.profiler)
   6 the offline slice: Pipeline.run_offline (fusion_batch=32) over the same
     scenes, with the launch counts (K1 = 0, K2 = 2, K3 = 1 per scene); its
     fusion and its tracker stage (K3 + reprojection on the reference's own
@@ -42,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +71,10 @@ EDGE_FRAMES = 10
 ODD_SHAPE = (7, 9)
 # Scaled-layout frames K2 is held to its plain version on at h_cap = EDGE_SLOTS.
 EDGE_FOLD_FRAMES = 2
+# Batch sizes K1 is launched at here and in kernel_ab.py (phase 1 checks
+# every plan of K1's domain at each), and phase 2's batched launches.
+K1_PLAN_BATCHES = (1, 7, 8, 64)
+K1_BATCHED = ((1, 16, 24), (7, 16, 24), (64, 16, 24), (64, 40, 40), (8, 120, 120))
 # Fused and predicted joints must agree with the JAX float32 reference within
 # this, outside each track's first published frame (the prediction there
 # rides on unpublished warm-up velocities; ROADMAP hazard C3).
@@ -120,16 +129,43 @@ def sync_time(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_durations(fn, kernel: str, reps: int) -> list:
+    """Durations in µs of every launch of `kernel` in a torch.profiler
+    trace of `reps` calls of `fn`, in launch order."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if kernel in e.name and e.device_type == DeviceType.CUDA]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() for e in evs]
+
+
 def check_plans() -> int:
-    """The wrappers' shared-memory plans (ops/tracker.py::scan_plan,
-    ops/association.py::fold_plan) against the byte counts of the kernels'
-    own sources, across K3's domain (P <= T <= 120, W = 3) and K2's shapes
-    up to the scaled layout and the JV's limit. Returns the plans checked."""
+    """The wrappers' shared-memory plans (ops/hungarian.py::jv_plan,
+    ops/tracker.py::scan_plan, ops/association.py::fold_plan) against the
+    byte counts of the kernels' own sources, across K1's domain (R, C <= 120
+    at the batch sizes this script launches), K3's domain (P <= T <= 120,
+    W = 3) and K2's shapes up to the scaled layout and the JV's limit.
+    Returns the plans checked."""
     from smartedgesensor3dhumanpose_tpu_torch import _kernels
-    from smartedgesensor3dhumanpose_tpu_torch.ops import association, tracker
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, tracker
 
     lib = _kernels.library()
     checked = 0
+    for rows in range(1, hungarian.MAX_N + 1):
+        for cols in range(1, hungarian.MAX_N + 1):
+            for b in K1_PLAN_BATCHES:
+                plan = hungarian.jv_plan(b, rows, cols)
+                c_bytes = lib.ses3d_jv_assign_smem_bytes(rows, cols, plan.per_block)
+                if c_bytes != plan.smem_bytes or plan.smem_bytes > hungarian.SMEM_LIMIT:
+                    raise AssertionError(f"K1 plan B={b} {rows}x{cols}: wrapper {plan}, kernel {c_bytes}")
+                checked += 1
     for t_slots in range(1, tracker.MAX_TRACKS + 1):
         for p in range(1, t_slots + 1):
             plan = tracker.scan_plan(p, t_slots, 3)
@@ -149,6 +185,30 @@ def check_plans() -> int:
                     raise AssertionError(f"K2 plan C={c} D={d} H={h}: wrapper {plan}, kernel {c_bytes}")
                 checked += 1
     return checked
+
+
+def check_k1_ptxas(build_log) -> str:
+    """K1's instances (one per register slot count) keep their state in
+    registers: no stack frame and no spill in `nvcc -Xptxas -v`. Returns
+    their register counts, or why nothing was checked."""
+    if build_log is None:
+        return "'not checked: the library was already built'"
+    found = {}
+    name = None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if "jv_assign_kernel" in m.group(1) else None
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            if any(int(x) for x in m.groups()):
+                raise AssertionError(f"K1 {name} uses local memory: {line.strip()}")
+            found.setdefault(name, "")
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name] = m.group(1)
+    if len(found) != 4:
+        raise AssertionError(f"K1: expected 4 jv_assign_kernel instances in ptxas output, got {found}")
+    return ",".join(v for _, v in sorted(found.items()))
 
 
 # ---------------------------------------------------------------- phase 2 --
@@ -176,19 +236,42 @@ def k1_cases(rng):
         tiered[bad_rows] = association.INVALID_DET_COST
         cases.append((f"tier{d}x{h}", tiered, ~bad_rows if h >= d else None))
     # The tracker's problems: persons x track slots, invalid persons' rows
-    # on the clipped max_dist tier and skipped through row_active.
-    for valid_count in (0, 3, 6, 16):
-        cost = rng.uniform(0.0, 8.0, size=(16, 24))
-        act = np.zeros(16, bool)
-        act[rng.permutation(16)[:valid_count]] = True
-        cost[~act] = 1.0e3
-        cases.append((f"track{valid_count}", cost, act))
+    # on the clipped max_dist tier and skipped through row_active; the demo
+    # shape, the scaled layout's and the domain's edge (S = 1, 3, 4 slots).
+    for (p, t_slots), valid_counts in (((16, 24), (0, 3, 6, 16)), ((40, 64), (9, 40)),
+                                       ((120, 120), (60, 120))):
+        for valid_count in valid_counts:
+            cost = rng.uniform(0.0, 8.0, size=(p, t_slots))
+            act = np.zeros(p, bool)
+            act[rng.permutation(p)[:valid_count]] = True
+            cost[~act] = 1.0e3
+            cases.append((f"track{p}x{t_slots}v{valid_count}", cost, act))
+    # Many exact ties at every slot count: small integer costs.
+    for n in (24, 40, 64, 120):
+        cases.append((f"ties{n}", rng.integers(0, 3, size=(n, n)).astype(np.float64), None))
     return [(nm, c.astype(np.float32), a) for nm, c, a in cases]
 
 
-def phase_k1(dev, rng):
+def check_k1_total(name, cost, act, got):
+    """A full assignment of the active rows whose total equals scipy's
+    float64 optimum within TOTAL_RTOL."""
     from scipy.optimize import linear_sum_assignment as scipy_lsa
 
+    rows = np.arange(cost.shape[0]) if act is None else np.nonzero(act)[0]
+    sub = cost[rows].astype(np.float64)
+    if not sub.size:
+        return
+    r, c = scipy_lsa(sub)
+    total = sub[r, c].sum()
+    ok = got[rows] >= 0
+    if ok.sum() != min(sub.shape) or len(set(got[rows][ok])) != ok.sum():
+        raise AssertionError(f"K1 {name}: not a full assignment {got}")
+    mine = sub[np.nonzero(ok)[0], got[rows][ok]].sum()
+    if abs(mine - total) > TOTAL_RTOL * max(1.0, abs(total)):
+        raise AssertionError(f"K1 {name}: total {mine} vs scipy {total}")
+
+
+def phase_k1(dev, rng):
     from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian
 
     worst = 0
@@ -203,27 +286,22 @@ def phase_k1(dev, rng):
         worst = max(worst, int(np.abs(got.astype(np.int64) - want).max(initial=0)))
         if not np.array_equal(got, want):
             raise AssertionError(f"K1 {name}: kernel {got} != plain {want}")
-        rows = np.arange(cost.shape[0]) if act is None else np.nonzero(act)[0]
-        sub = cost[rows].astype(np.float64)
-        if sub.size:
-            r, c = scipy_lsa(sub)
-            total = sub[r, c].sum()
-            ok = got[rows] >= 0
-            if ok.sum() != min(sub.shape) or len(set(got[rows][ok])) != ok.sum():
-                raise AssertionError(f"K1 {name}: not a full assignment {got}")
-            mine = sub[np.nonzero(ok)[0], got[rows][ok]].sum()
-            if abs(mine - total) > TOTAL_RTOL * max(1.0, abs(total)):
-                raise AssertionError(f"K1 {name}: total {mine} vs scipy {total}")
+        check_k1_total(name, cost, act, got)
         checked += 1
-    for b in (1, 7, 64):
-        cost = rng.uniform(size=(b, 16, 24)).astype(np.float32)
+    for b, r, c in K1_BATCHED:
+        cost = rng.uniform(size=(b, r, c)).astype(np.float32)
+        if r == 40:  # the clip tier over several problems per block
+            cost[rng.uniform(size=cost.shape) < 0.4] = 1.0e3
         c_dev = torch.from_numpy(cost).to(dev)
         got = hungarian.linear_sum_assignment_batched(c_dev).cpu().numpy()
         want = hungarian.linear_sum_assignment_batched_reference(c_dev).cpu().numpy()
         if not np.array_equal(got, want):
-            raise AssertionError(f"K1 batched B={b}: kernel != plain")
+            raise AssertionError(f"K1 batched {b}x{r}x{c}: kernel != plain")
+        for i in range(b):
+            check_k1_total(f"batched {b}x{r}x{c}[{i}]", cost[i], None, got[i])
         checked += b
-    log("2 K1 vs plain", problems=checked, max_abs_err=worst, scipy_totals="equal")
+    log("2 K1 vs plain", problems=checked, max_abs_err=worst, scipy_totals="equal",
+        batched="'" + " ".join(f"{b}x{r}x{c}:{hungarian.jv_plan(b, r, c)}" for b, r, c in K1_BATCHED) + "'")
     return worst
 
 
@@ -520,6 +598,9 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
     a_dev = torch.from_numpy(act).to(dev)
     reset_counts()
     k1_ms = sync_time(lambda: hungarian.linear_sum_assignment(c_dev, a_dev), 200)
+    k1_durs = kernel_durations(lambda: hungarian.linear_sum_assignment(c_dev, a_dev),
+                               "jv_assign_kernel", 50)
+    k1_device_ms = statistics.mean(k1_durs) / 1e3 if k1_durs else "not_measured"
     k1_plain = sync_time(lambda: hungarian.linear_sum_assignment_reference(c_dev, a_dev), 10)
     # K2 at the demo shapes on a real frame (with ambiguous cameras).
     ctab, conf, dok = fold_case(frames[40], rig, cfg.fusion)
@@ -527,15 +608,10 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
     k2_ms = sync_time(lambda: association.associate_fold(ctab, conf, dok, *args), 200)
     k2_plain = sync_time(lambda: association.associate_fold_reference(ctab, conf, dok, *args), 5)
     quart = statistics.quantiles(step_ms, n=10)
-    # Bounds: JV reads the cost and flags and writes one column per row; its
-    # searches take at most n + 1 steps of n lanes (~4 operations each) per
-    # active row. The fold reads its pair-cost table, flags and writes
-    # det_slot; per camera it sums up to c earlier costs for every
-    # (hypothesis, detection) and runs one JV over hypotheses.
-    rows = int(act.sum())
-    n = cost.shape[1]
-    k1_bound = bound_of(cost.nbytes + act.nbytes + cost.shape[0] * 4,
-                        rows * (n + 1) * n * 4 + cost.size)
+    # Bounds: K1 as k1_bound counts it. The fold reads its pair-cost table,
+    # flags and writes det_slot; per camera it sums up to c earlier costs
+    # for every (hypothesis, detection) and runs one JV over hypotheses.
+    k1_b = k1_bound(cost[None], act[None])
     c_cams, _, d = ctab.shape
     h = args[0]
     k2_bound = bound_of(
@@ -545,9 +621,9 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
     log("5 times", steps=len(step_ms), step_ms_median=statistics.median(step_ms),
         step_ms_p10=quart[0], step_ms_p90=quart[-1], step_ms_min=min(step_ms),
         step_ms_max=max(step_ms), host_syncs_per_step=syncs,
-        k1_ms=k1_ms, k1_plain_ms=k1_plain, k1_bound_ms=k1_bound[0],
+        k1_ms=k1_ms, k1_device_ms=k1_device_ms, k1_plain_ms=k1_plain, k1_bound_ms=k1_b[0],
         k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_bound_ms=k2_bound[0])
-    return {"jv_assign": (k1_ms, k1_plain) + k1_bound,
+    return {"jv_assign": (k1_ms, k1_plain) + k1_b,
             "association_fold": (k2_ms, k2_plain) + k2_bound}
 
 
@@ -964,6 +1040,23 @@ def k3_bound(persons, state0, has_dets) -> tuple:
     return bound_of(nbytes, ops)
 
 
+def k1_bound(cost: np.ndarray, act=None) -> tuple:
+    """(bound ms, what bounds it) of K1 on cost [B, R, C] float32 and act
+    [B, R] bool or None: the cost and mask read once and col_of_row written
+    once; the row reduction (R x n compares) and, per search step the plain
+    version takes on these inputs, n relaxations of ~4 operations."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian
+
+    b, r, c = cost.shape
+    n = max(r, c)
+    before = hungarian.PLAIN_SEARCH_STEPS
+    hungarian.linear_sum_assignment_batched_reference(
+        torch.from_numpy(cost), None if act is None else torch.from_numpy(act))
+    steps = hungarian.PLAIN_SEARCH_STEPS - before
+    nbytes = cost.nbytes + (0 if act is None else act.nbytes) + b * r * 4
+    return bound_of(nbytes, b * r * n + steps * n * 4)
+
+
 def bound_of(nbytes: float, ops: float) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
@@ -1074,7 +1167,7 @@ def main() -> int:
     _kernels.library()
     log("1 build", seconds=round(time.perf_counter() - t0, 2),
         fresh_build_seconds=_kernels.build_seconds, flags=" ".join(_kernels.NVCC_FLAGS),
-        plans_checked=check_plans())
+        plans_checked=check_plans(), k1_registers_no_local_memory=check_k1_ptxas(_kernels.build_log))
 
     rng = np.random.default_rng(0)
     golden = np.load(GOLDEN)
@@ -1102,6 +1195,9 @@ def main() -> int:
                              "run_offline": off_launches["association_fold"]},
         "tracker_scan": {"step": 0, "run_offline": off_launches["tracker_scan"]},
     }
+    # K1 replaces both JV sites: the single problem (:238) and the batched
+    # launch (:516).
+    also = {"jv_assign": [f"{tpu}/hungarian_pallas.py:516"]}
     specs = (
         ("jv_assign", "jv_assign.cu", f"{tpu}/hungarian_pallas.py:238", k1_err),
         ("association_fold", "association_fold.cu", f"{tpu}/association_pallas.py:419", k2_err),
@@ -1112,6 +1208,7 @@ def main() -> int:
         ms, plain_ms, bound_ms, bound_by = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{pkg}/{src}", "replaces": replaces,
+            **({"also_replaces": also[name]} if name in also else {}),
             "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

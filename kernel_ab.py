@@ -1,11 +1,11 @@
-"""Time the port's kernels K2 (association fold), K3 (tracker scan) and the
-batched K1 on one NVIDIA GPU, optionally beside another checkout's kernels.
+"""Time the port's kernels K1 (JV assignment), K2 (association fold) and K3
+(tracker scan) on one NVIDIA GPU, optionally beside another checkout's kernels.
 
-Each version runs in its own process (the two packages share a name), in
-turns: other, this, this, other. Every process builds its checkout's kernels
-from source (`nvcc -Xptxas -v`, whose register, spill and shared-memory lines
-it reports), makes the same inputs from the same seeds and golden scene
-descriptions (chip_smoke.py's helpers), and times:
+Each version runs in its own process (the packages share a name), in turns:
+the others, this, this, the others in reverse. Every process builds its
+checkout's kernels from source (`nvcc -Xptxas -v`, whose register, spill and
+shared-memory lines it reports), makes the same inputs from the same seeds
+and golden scene descriptions (chip_smoke.py's helpers), and times:
 
   k3_demo           K3 on the benign demo scene's tracker inputs (64 frames,
                     P 16, T 24); k3_demo_no_persons, the same frames with
@@ -19,17 +19,24 @@ descriptions (chip_smoke.py's helpers), and times:
   k2_scaled_chunk   K2 on the scaled chunk (B = 4, C 64, D 32, H 40)
   k2_per_frame      K2 on each frame of both demo scenes, with the camera
                     steps that needed a JV solve (counted on the plain fold)
+  k1_online         K1 on the online step's tracker problem: 16 x 24, 6
+                    active rows, row_active
   k1b               the batched K1 at B = 64 problems of 16 x 24, and its
                     plain version on the same card tensors (`plain_ms`)
+  k1_64x40x40       the batched K1 at B = 64 problems of 40 x 40
+  k1_8x120x120      the batched K1 at B = 8 problems of 120 x 120
+  k1_120            K1 on one 120 x 120 problem
 
 Per case: `ms`, CUDA events over back-to-back wrapper calls (the wrapper's
 host work shows where it is longer than the device's), and `device_ms`, the
 kernel's own mean duration in a torch.profiler trace; `bound_ms` as
 chip_smoke.py computes it.
 
-Usage:  python3 kernel_ab.py [--other DIR] [--out FILE]
+Usage:  python3 kernel_ab.py [--other DIR ...] [--cases PREFIXES] [--out FILE]
   --other DIR  a checkout holding smartedgesensor3dhumanpose_tpu_torch/ to
-               time beside this one (other, this, this, other)
+               time beside this one (repeatable)
+  --cases P    only the cases whose names start with one of these
+               comma-separated prefixes (e.g. k3,k2_frame)
   --out FILE   also write every process's results there as JSON
 """
 
@@ -60,25 +67,8 @@ def _smoke():
     return mod
 
 
-def kernel_durations(fn, kernel: str, reps: int) -> list:
-    """Durations in µs of every launch of `kernel` in a profiler trace of
-    `reps` calls of `fn`, in launch order."""
-    from torch.autograd import DeviceType
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if kernel in e.name and e.device_type == DeviceType.CUDA]
-    evs.sort(key=lambda e: e.time_range.start)
-    return [e.time_range.elapsed_us() for e in evs]
-
-
 def measure(cs, fn, kernel: str, reps: int, bound=None) -> dict:
-    durs = kernel_durations(fn, kernel, reps)
+    durs = cs.kernel_durations(fn, kernel, reps)
     out = {
         "ms": cs.sync_time(fn, reps),
         "device_ms": statistics.mean(durs) / 1e3 if durs else None,
@@ -119,7 +109,7 @@ def fold_bound(cs, ctab, conf, dok, h_cap):
     )
 
 
-def worker(pkg_root: str, label: str) -> dict:
+def worker(pkg_root: str, label: str, only=None) -> dict:
     sys.path.insert(0, pkg_root)
     import smartedgesensor3dhumanpose_tpu_torch as pkg
 
@@ -129,6 +119,9 @@ def worker(pkg_root: str, label: str) -> dict:
     from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig, PriorConfig
     from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, tracker
     from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    def want(name: str) -> bool:
+        return not only or any(name.startswith(c) for c in only)
 
     cs = _smoke()
     log = io.StringIO()
@@ -155,16 +148,17 @@ def worker(pkg_root: str, label: str) -> dict:
     def k3(p=persons):
         return tracker.tracker_scan(state0, p, pivots, fb, pre, cfg.prior, cfg.tracker)
 
-    bound = cs.k3_bound(persons, state0, persons.valid.any(dim=1))
-    res["k3_demo"] = measure(cs, k3, "tracker_scan_kernel", 20, bound)
-    nobody = persons._replace(valid=torch.zeros_like(persons.valid))
-    res["k3_demo_no_persons"] = measure(cs, lambda: k3(nobody), "tracker_scan_kernel", 20)
-    pack = tracker._pack
-    tracker._pack = lambda *a: pack(*a[:-1], torch.zeros_like(a[-1]))
-    try:
-        res["k3_demo_no_dets"] = measure(cs, k3, "tracker_scan_kernel", 20)
-    finally:
-        tracker._pack = pack
+    if want("k3_demo"):
+        bound = cs.k3_bound(persons, state0, persons.valid.any(dim=1))
+        res["k3_demo"] = measure(cs, k3, "tracker_scan_kernel", 20, bound)
+        nobody = persons._replace(valid=torch.zeros_like(persons.valid))
+        res["k3_demo_no_persons"] = measure(cs, lambda: k3(nobody), "tracker_scan_kernel", 20)
+        pack = tracker._pack
+        tracker._pack = lambda *a: pack(*a[:-1], torch.zeros_like(a[-1]))
+        try:
+            res["k3_demo_no_dets"] = measure(cs, k3, "tracker_scan_kernel", 20)
+        finally:
+            tracker._pack = pack
 
     # K2 on one demo frame and on the offline chunks.
     args = (cfg.fusion.max_hypotheses, cfg.fusion.max_epipolar_error, cfg.fusion.max_cost)
@@ -172,16 +166,20 @@ def worker(pkg_root: str, label: str) -> dict:
     for s in cs.SCENES:
         cases = [cs.fold_case(cs.frame_at(scenes[s], f, dev), rig, cfg.fusion) for f in range(64)]
         ctab, conf, dok = cases[40]
-        res[f"k2_frame_{s}"] = measure(
-            cs, lambda: association.associate_fold(ctab, conf, dok, *args),
-            "association_fold_kernel", 50, fold_bound(cs, ctab, conf, dok, args[0]))
-        res[f"k2_frame_{s}"]["need_solves"] = need_solves(ctab, conf, dok, args)
+        if want(f"k2_frame_{s}"):
+            res[f"k2_frame_{s}"] = measure(
+                cs, lambda: association.associate_fold(ctab, conf, dok, *args),
+                "association_fold_kernel", 50, fold_bound(cs, ctab, conf, dok, args[0]))
+            res[f"k2_frame_{s}"]["need_solves"] = need_solves(ctab, conf, dok, args)
         bt = [torch.stack([c[i] for c in cases[:32]]) for i in range(3)]
-        res[f"k2_chunk32_{s}"] = measure(
-            cs, lambda: association.associate_fold_batched(*bt, *args),
-            "association_fold_kernel", 50, fold_bound(cs, *bt, args[0]))
+        if want(f"k2_chunk32_{s}"):
+            res[f"k2_chunk32_{s}"] = measure(
+                cs, lambda: association.associate_fold_batched(*bt, *args),
+                "association_fold_kernel", 50, fold_bound(cs, *bt, args[0]))
+        if not want("k2_per_frame"):
+            continue
         reps = 10
-        durs = kernel_durations(
+        durs = cs.kernel_durations(
             lambda: [association.associate_fold(*c, *args) for c in cases for _ in range(reps)],
             "association_fold_kernel", 1)
         needs = [need_solves(*c, args) for c in cases]
@@ -190,7 +188,8 @@ def worker(pkg_root: str, label: str) -> dict:
             "device_us": ([statistics.mean(durs[i * reps:(i + 1) * reps]) for i in range(len(cases))]
                           if len(durs) == reps * len(cases) else None),
         }
-    res["k2_per_frame"] = per_frame
+    if per_frame:
+        res["k2_per_frame"] = per_frame
 
     # The scaled layout: K3 on its tracker inputs, K2 on its first chunk.
     cfg_s = PipelineConfig.scaled_64cam()
@@ -199,64 +198,90 @@ def worker(pkg_root: str, label: str) -> dict:
     pipe_s = pipeline.Pipeline(rig_s, cfg_s, device=dev, fusion_batch=cs.SCALED_FUSION_BATCH)
     persons_s, pivots_s, fb_s, pre_s = cs.tracker_inputs(pipe_s, frames_s)
     state_s = pipe_s.init_state()
-    res["k3_scaled"] = measure(
-        cs, lambda: tracker.tracker_scan(state_s, persons_s, pivots_s, fb_s, pre_s,
-                                         cfg_s.prior, cfg_s.tracker),
-        "tracker_scan_kernel", 10, cs.k3_bound(persons_s, state_s, persons_s.valid.any(dim=1)))
+    if want("k3_scaled"):
+        res["k3_scaled"] = measure(
+            cs, lambda: tracker.tracker_scan(state_s, persons_s, pivots_s, fb_s, pre_s,
+                                             cfg_s.prior, cfg_s.tracker),
+            "tracker_scan_kernel", 10, cs.k3_bound(persons_s, state_s, persons_s.valid.any(dim=1)))
     chunk, _ = pipeline.mask_stale_cameras(
         Frame(*(x[:cs.SCALED_FUSION_BATCH] for x in frames_s)), cfg_s.fusion.max_sync_diff)
     kp_n, _, det_ok = fusion.normalize_frame(chunk, rig_s, cfg_s.fusion)
     ctab_s, conf_s = fusion.fold_inputs(kp_n, chunk.det_score, rig_s, cfg_s.fusion)
     args_s = (cfg_s.fusion.max_hypotheses, cfg_s.fusion.max_epipolar_error, cfg_s.fusion.max_cost)
-    res["k2_scaled_chunk"] = measure(
-        cs, lambda: association.associate_fold_batched(ctab_s, conf_s, det_ok, *args_s),
-        "association_fold_kernel", 10, fold_bound(cs, ctab_s, conf_s, det_ok, args_s[0]))
+    if want("k2_scaled_chunk"):
+        res["k2_scaled_chunk"] = measure(
+            cs, lambda: association.associate_fold_batched(ctab_s, conf_s, det_ok, *args_s),
+            "association_fold_kernel", 10, fold_bound(cs, ctab_s, conf_s, det_ok, args_s[0]))
 
     # K3 at the edge of its domain.
-    e_state, e_persons, e_pivots, e_fb, e_pre, e_cfg = cs.edge_inputs(dev)
-    res["k3_edge"] = measure(
-        cs, lambda: tracker.tracker_scan(e_state, e_persons, e_pivots, e_fb, e_pre,
-                                         PriorConfig(), e_cfg),
-        "tracker_scan_kernel", 5, cs.k3_bound(e_persons, e_state, e_persons.valid.any(dim=1)))
+    if want("k3_edge"):
+        e_state, e_persons, e_pivots, e_fb, e_pre, e_cfg = cs.edge_inputs(dev)
+        res["k3_edge"] = measure(
+            cs, lambda: tracker.tracker_scan(e_state, e_persons, e_pivots, e_fb, e_pre,
+                                             PriorConfig(), e_cfg),
+            "tracker_scan_kernel", 5, cs.k3_bound(e_persons, e_state, e_persons.valid.any(dim=1)))
 
-    # The batched K1 at phase 2's largest batch.
-    cost = np.random.default_rng(0).uniform(size=(64, 16, 24)).astype(np.float32)
-    c_dev = torch.from_numpy(cost).to(dev)
-    b, r, n = cost.shape
-    res["k1b"] = measure(
-        cs, lambda: hungarian.linear_sum_assignment_batched(c_dev), "jv_assign_kernel", 50,
-        cs.bound_of(cost.nbytes + b * r * 4, b * (r * (n + 1) * n * 4 + r * n)))
-    res["k1b"]["plain_ms"] = cs.sync_time(
-        lambda: hungarian.linear_sum_assignment_batched_reference(c_dev), 2)
+    # K1: the tracker's problem of the online step (16 x 24, 6 active rows,
+    # row_active), the batched launch at phase 2's shapes, and one problem
+    # at the domain's edge. The bound counts the plain version's search
+    # steps on these inputs where the package has that counter.
+    cases = (("k1_online", 1, 16, 24, 1), ("k1b", 64, 16, 24, 0), ("k1_64x40x40", 64, 40, 40, 2),
+             ("k1_8x120x120", 8, 120, 120, 3), ("k1_120", 1, 120, 120, 4))
+    for name, b, r, c, seed in cases:
+        if not want(name):
+            continue
+        rng = np.random.default_rng(seed)
+        act = None
+        if name == "k1_online":
+            cost = rng.uniform(0.0, 8.0, size=(b, r, c)).astype(np.float32)
+            act = np.zeros((b, r), bool)
+            act[:, :6] = True
+            cost[~act] = 1.0e3
+        else:
+            cost = rng.uniform(size=(b, r, c)).astype(np.float32)
+        c_dev = torch.from_numpy(cost).to(dev)
+        if b == 1:
+            a_dev = None if act is None else torch.from_numpy(act[0]).to(dev)
+            fn = lambda c_dev=c_dev, a_dev=a_dev: hungarian.linear_sum_assignment(c_dev[0], a_dev)
+        else:
+            fn = lambda c_dev=c_dev: hungarian.linear_sum_assignment_batched(c_dev)
+        bound = cs.k1_bound(cost, act) if hasattr(hungarian, "PLAIN_SEARCH_STEPS") else None
+        res[name] = measure(cs, fn, "jv_assign_kernel", 20 if max(r, c) > 64 else 50, bound)
+        if name == "k1b":
+            res[name]["plain_ms"] = cs.sync_time(
+                lambda: hungarian.linear_sum_assignment_batched_reference(c_dev), 2)
     return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", default=None, help="another checkout to time beside this one")
+    ap.add_argument("--other", action="append", default=[],
+                    help="another checkout to time beside this one (repeatable)")
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated case-name prefixes to time (default: all)")
     ap.add_argument("--out", default=None, help="write the results here as JSON")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--label", default="this", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = args.cases.split(",") if args.cases else None
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device visible; nothing was run", file=sys.stderr)
         return 2
     if args.worker:
-        print(_TAG + json.dumps(worker(args.worker, args.label)), flush=True)
+        print(_TAG + json.dumps(worker(args.worker, args.label, only)), flush=True)
         return 0
 
     smi = _smoke().smi_line()
-    order = [("this", _ROOT), ("this", _ROOT)]
-    if args.other:
-        other = os.path.abspath(args.other)
-        order = [("other", other), ("this", _ROOT), ("this", _ROOT), ("other", other)]
+    others = [(f"other{i}" if len(args.other) > 1 else "other", os.path.abspath(o))
+              for i, o in enumerate(args.other)]
+    order = others + [("this", _ROOT), ("this", _ROOT)] + others[::-1]
     runs = []
     for label, root in order:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", root, "--label", label],
-            capture_output=True, text=True, timeout=900,
-        )
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root, "--label", label]
+        if args.cases:
+            cmd += ["--cases", args.cases]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(_TAG)]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
@@ -265,13 +290,16 @@ def main() -> int:
 
     cases = [k for k, v in runs[0].items() if isinstance(v, dict) and "ms" in v]
     print(f"card: {smi}")
+    for label, root in others:
+        print(f"{label}: {root}")
     print(f"{'case':24s} " + " ".join(f"{r['label'] + ' ms/dev':>22s}" for r in runs) + f" {'bound_ms':>10s}")
     for case in cases:
         cells = " ".join(f"{r[case]['ms']:10.4f}/{r[case]['device_ms'] or float('nan'):<10.4f}"
                          for r in runs)
-        print(f"{case:24s} {cells} {runs[0][case].get('bound_ms', float('nan')):10.3g}")
+        bound = next((r[case]["bound_ms"] for r in runs if "bound_ms" in r[case]), float("nan"))
+        print(f"{case:24s} {cells} {bound:10.3g}")
     for r in runs:
-        for s, pf in r["k2_per_frame"].items():
+        for s, pf in r.get("k2_per_frame", {}).items():
             if pf["device_us"] is None:
                 continue
             by_need = {}
@@ -280,14 +308,15 @@ def main() -> int:
             print(f"k2 per frame {r['label']} {s}: mean {statistics.mean(pf['device_us']):.2f} us; "
                   + ", ".join(f"{k} solves: {statistics.mean(v):.2f} us x{len(v)}"
                               for k, v in sorted(by_need.items())))
-    print("k1b plain ms: " + " ".join(f"{r['label']} {r['k1b']['plain_ms']:.4f}" for r in runs))
-    for r in runs[:len(order) // 2 + 1]:
+    if "k1b" in runs[0]:
+        print("k1b plain ms: " + " ".join(f"{r['label']} {r['k1b']['plain_ms']:.4f}" for r in runs))
+    for r in runs[:len(others) + 1]:
         if r["ptxas"]:
             print(f"ptxas ({r['label']}):\n  " + "\n  ".join(r["ptxas"]))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": smi, "runs": runs}, fh, indent=1)
+            json.dump({"card": smi, "others": dict(others), "runs": runs}, fh, indent=1)
     return 0
 
 

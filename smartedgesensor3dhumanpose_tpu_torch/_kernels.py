@@ -34,6 +34,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
+build_log = None  # nvcc's output of a verbose build this process ran, if any
 
 
 def _nvcc() -> str:
@@ -59,7 +60,7 @@ def _digest() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if this source state has no library yet; return
     the library path."""
-    global build_seconds
+    global build_seconds, build_log
     out = BUILD_DIR / f"libses3d_kernels_{_digest()}.so"
     if out.exists():
         return out
@@ -91,7 +92,8 @@ def build(verbose: bool = False) -> Path:
     for obj in objs:
         obj.unlink()
     if verbose:
-        print("\n".join(logs))
+        build_log = "\n".join(logs)
+        print(build_log)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
@@ -103,8 +105,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ses3d_jv_assign.argtypes = [p, p, p, i, i, i, p]
+        lib.ses3d_jv_assign.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.ses3d_jv_assign.restype = i
+        lib.ses3d_jv_assign_smem_bytes.argtypes = [i, i, i]
+        lib.ses3d_jv_assign_smem_bytes.restype = i
         lib.ses3d_association_fold.argtypes = [
             p, p, p, p, p, i, i, i, i, i, i, f, f, p
         ]

@@ -102,6 +102,8 @@ struct SharedCost {
   __device__ float operator()(int i, int j) const { return base[i * ld + j]; }
 };
 
+// kWide: the JV instance for n_jv >= 32 columns (jv.cuh::jv_solve_block).
+template <bool kWide>
 __global__ void __launch_bounds__(ses3d::kLanes)
 association_fold_kernel(const float* __restrict__ ctab,
                         const float* __restrict__ conf,
@@ -241,8 +243,8 @@ association_fold_kernel(const float* __restrict__ ctab,
     const bool need = __syncthreads_or(per_hyp > 1 || per_det > 1);
     int a = -1;  // detection assigned to hypothesis h
     if (need) {
-      ses3d::jv_solve_block(SharedCost{jvc, n_jv}, n_jv, dp,
-                            h_cap >= dp ? dok_c : nullptr, s);
+      ses3d::jv_solve_block<kWide>(SharedCost{jvc, n_jv}, n_jv, dp,
+                                   h_cap >= dp ? dok_c : nullptr, s);
       const int r = s.roc[h];
       if (live && r >= 0 && r < D) a = r;
     } else if (live) {
@@ -329,8 +331,10 @@ extern "C" int ses3d_association_fold(const float* ctab, const float* conf,
                       reinterpret_cast<uintptr_t>(ctab) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto kernel =
+      p.n_jv >= 32 ? association_fold_kernel<true> : association_fold_kernel<false>;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, association_fold_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0;
   int optin = 0;
@@ -342,13 +346,11 @@ extern "C" int ses3d_association_fold(const float* ctab, const float* conf,
   if (static_cast<size_t>(smem_bytes) + attr.sharedSizeBytes > static_cast<size_t>(optin)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = cudaFuncSetAttribute(
-      association_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch > 0) {
-    association_fold_kernel<<<batch, ses3d::kLanes, smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<batch, ses3d::kLanes, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
         ctab, conf, dok, det_slot, counts, p);
   }
   return static_cast<int>(cudaGetLastError());

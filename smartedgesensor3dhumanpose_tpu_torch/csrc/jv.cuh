@@ -1,4 +1,4 @@
-// Jonker-Volgenant min-cost assignment as a block-wide __device__ routine.
+// Jonker-Volgenant min-cost assignment as a one-warp __device__ routine.
 //
 // Replaces the solve core of the TPU kernels in
 // smartedgesensor3dhumanpose_tpu/ops/hungarian_pallas.py (_jv_kernel and
@@ -9,31 +9,48 @@
 // What bounds it on an H100: nothing the card is rated for. A solve of
 // n <= 120 columns is a sequential walk: the row reduction, then for each
 // row left free a Dijkstra search of at most n + 1 steps, each a relaxation
-// of n lanes followed by one block-wide argmin, then an augmenting walk of
-// at most n + 1 steps. The bytes (one cost row per step) and the flops are
+// of n columns followed by one argmin, then an augmenting walk of at most
+// n + 1 steps. The bytes (one cost row per step) and the flops are
 // thousands of times below the card's bandwidth and arithmetic rate; the
 // time is the latency of the dependent steps.
 //
-// Design: one thread block of 128 threads per problem, one thread per
-// column lane (and per row lane for the row potentials). The whole solver
-// state (u, v, roc, minv, way, used, tree) lives in shared memory; a step is
-// one relaxation per thread, a warp-shuffle argmin plus one shared-memory
-// pass across the four warps, and one barrier. Both data-dependent loops run
-// inside the block, with the n + 1 step backstop of the TPU kernel, so no
-// step goes back to the host. The TPU kernel's 8-sublane problem packing and
-// scalar-only loop carries were Mosaic limits and are not carried over.
+// Design: one warp per problem, at every n. Lane t holds columns t + 32 k
+// and rows t + 32 k for k < S = n / 32 + 1 slots (the n + 1 columns, the
+// virtual one included, in groups of 32; 1 <= S <= 4), and the whole solver
+// state lives in its registers: v, minv, way, used, roc and uc (the
+// potential of the row matched to the column) per column, the row minima
+// per row. One template per S with every slot loop unrolled; a slot is
+// picked by comparison (pick), never by a runtime index into a register
+// array, which would go to local memory. The loops are written without
+// branches (selects, clamped indices), so their loads issue together. A
+// search step is: two shuffles from one lane for roc[j0] and its row's
+// potential; S cost loads; S relaxations and a lane-local argmin in
+// ascending column order; the warp's lexicographic (value, column) argmin
+// as two __reduce_min_sync (value as an order-preserving key, then the
+// least column holding it) and one shuffle for the value. No block barrier,
+// and no solver state in shared memory (only the row reduction's claims
+// pass through it). The augment walks the predecessor chain by
+// shuffles. Both data-dependent loops keep the n + 1 step backstop of the
+// TPU kernel, so no step goes back to the host. The TPU kernel's 8-sublane
+// problem packing and scalar-only loop carries were Mosaic limits and are
+// not carried over.
 //
 // Semantics (reproduced exactly, including every tie rule):
 //  * row reduction: u[i] = min_j cost(i, j); each active row i < n_rows is
 //    pre-assigned to its first argmin column, the lowest claiming row
-//    winning a contested column;
-//  * the augmenting search runs only for rows still free, skipping rows
-//    with row_active == 0; delta ties go to the lowest column;
-//  * roc[j] = row matched to column j (-1 = free) is left in shared memory.
+//    winning a contested column (one shared-memory atomicMin pass);
+//  * the augmenting search runs only for rows still free, in ascending
+//    order, skipping rows with row_active == 0; delta ties go to the lowest
+//    column;
+//  * roc[j] = row matched to column j (-1 = free).
 //
 // Arithmetic is float32 with every operation rounded on its own (the build
 // passes --fmad=false), in the order of the plain PyTorch version
-// (ops/hungarian.py::_jv_plain), so the two agree bit for bit.
+// (ops/hungarian.py::_jv_plain: cost - u[i0] - v, then minv - delta,
+// u + delta, v - delta), so the two agree bit for bit. The argmin is a
+// lexicographic minimum, which does not depend on how the columns are cut
+// into slots; its key orders floats as the comparisons do (+0 = -0) and
+// delta is the winning column's own value.
 
 #pragma once
 
@@ -41,57 +58,255 @@
 
 namespace ses3d {
 
-constexpr int kLanes = 128;   // threads per block: one per column lane
-constexpr int kMaxN = 120;    // columns + the virtual column must fit the lanes
+constexpr int kLanes = 128;   // threads per block of K2 and K3
+constexpr int kMaxN = 120;    // columns + the virtual column fit 4 slots of 32
 constexpr float kInf = 3.0e38f;
 
+// Register slots per lane for n columns: the n + 1 columns in groups of 32.
+__host__ __device__ constexpr int jv_slots(int n) { return n / 32 + 1; }
+
+// a[k] for a warp-uniform runtime k < S, by comparison (no local memory).
+template <int S, class T>
+__device__ __forceinline__ T pick(const T (&a)[S], int k) {
+  T x = a[0];
+#pragma unroll
+  for (int kk = 1; kk < S; ++kk) {
+    if (kk == k) x = a[kk];
+  }
+  return x;
+}
+
+// An unsigned key whose order is the float order (+0 and -0 equal).
+__device__ __forceinline__ unsigned ordered_key(float x) {
+  const unsigned b = __float_as_uint(x == 0.0f ? 0.0f : x);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Solve the assignment of rows [0, n_rows) to columns [0, n) in one warp,
+// 1 <= n_rows <= n <= kMaxN, jv_slots(n) <= S. `cost(i, j)` returns the
+// float cost of row i, column j, for any i < n_rows and j < n; `row_active`
+// (may be null) is read as row_active[i] != 0. `claim` is shared memory of
+// at least n ints that the warp may overwrite. On return lane t holds in
+// roc[k] the row matched to column t + 32 k, or -1 (the virtual column n
+// holds the last row placed). All 32 lanes of the warp must call it.
+//
+// Column lanes also keep uc, a copy of the potential of the row matched to
+// their column, updated with the same float operations as the row's own
+// (a row is on the search tree exactly when its column is used), so a
+// search step fetches roc[j0] and u[roc[j0]] from one lane together.
+template <int S, class Cost, class Mask>
+__device__ __forceinline__ void jv_solve_warp(const Cost& cost, int n,
+                                              int n_rows, const Mask* row_active,
+                                              int* claim, int (&roc)[S]) {
+  const unsigned full = 0xffffffffu;
+  const int t = threadIdx.x & 31;
+  bool active[S];  // row t + 32 k exists and is not skipped
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = t + 32 * k;
+    const bool skip = row_active != nullptr && row_active[i < n_rows ? i : 0] == 0;
+    active[k] = i < n_rows && !skip;
+  }
+
+  // Row reduction: lane t scans rows t + 32 k for their minimum and first
+  // argmin, the S rows side by side. No branch (a lane past the last row
+  // scans row 0 and drops the result), so the loads go out together.
+  float u[S];  // row minimum, the potential of row t + 32 k until it is placed
+  int amin[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    u[k] = kInf;
+    amin[k] = n;
+  }
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const float c = cost(t + 32 * k < n_rows ? t + 32 * k : 0, j);
+      const bool lower = c < u[k];
+      u[k] = lower ? c : u[k];
+      amin[k] = lower ? j : amin[k];
+    }
+  }
+  // Column j goes to the lowest active row whose first argmin it is.
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (t + 32 * k < n) claim[t + 32 * k] = n_rows;  // no claim yet
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (active[k] && amin[k] < n) atomicMin(&claim[amin[k]], t + 32 * k);
+  }
+  __syncwarp();
+  unsigned pending[S];  // rows left free by the reduction, group k's
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int j = t + 32 * k;  // column j and row i = j of this slot
+    const int w = j < n ? claim[j] : n_rows;
+    roc[k] = w < n_rows ? w : -1;
+    const bool won = amin[k] < n && claim[amin[k]] == j;
+    pending[k] = __ballot_sync(full, active[k] && !won);
+  }
+  __syncwarp();
+  float uc[S];  // potential of the row matched to column t + 32 k
+#pragma unroll
+  for (int k = 0; k < S; ++k) uc[k] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int w = roc[k] < 0 ? 0 : roc[k];
+      const float x = __shfl_sync(full, u[s], w & 31);
+      if (roc[k] >= 0 && (w >> 5) == s) uc[k] = x;
+    }
+  }
+
+  float v[S];  // potential of column t + 32 k
+#pragma unroll
+  for (int k = 0; k < S; ++k) v[k] = 0.0f;
+
+  // Rows left free by the reduction, in ascending order. An augmenting path
+  // only moves matched rows between columns, so a row matched now is still
+  // matched when the loop reaches it, and a free row is still free (its
+  // potential still its row minimum).
+#pragma unroll 1
+  for (int g = 0; g < S; ++g) {
+    for (unsigned todo = pick(pending, g); todo; todo &= todo - 1u) {
+      const int r = 32 * g + __ffs(todo) - 1;
+      const float u_r = __shfl_sync(full, pick(u, g), r & 31);
+      float minv[S];
+      int way[S];
+      unsigned used = 0u;  // bit k: column t + 32 k is on the search tree
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        minv[k] = kInf;
+        way[k] = n;
+        if (t + 32 * k == n) {  // the virtual column holds row r
+          roc[k] = r;
+          uc[k] = u_r;
+        }
+      }
+      // Dijkstra search from the virtual column n.
+      int j0 = n;
+      for (int step = 0; step <= n + 1; ++step) {
+        const int i0 = __shfl_sync(full, pick(roc, j0 >> 5), j0 & 31);
+        const float u_i0 = __shfl_sync(full, pick(uc, j0 >> 5), j0 & 31);
+        if (i0 < 0) break;
+        if ((j0 & 31) == t) used |= 1u << (j0 >> 5);
+        float c[S];
+#pragma unroll
+        for (int k = 0; k < S; ++k) c[k] = cost(i0, t + 32 * k < n ? t + 32 * k : 0);
+        float best = kInf;
+        int best_j = t;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int j = t + 32 * k;
+          const bool live = j < n && !((used >> k) & 1u);
+          const float cur = c[k] - u_i0 - v[k];
+          const bool better = live && cur < minv[k];
+          minv[k] = better ? cur : minv[k];
+          way[k] = better ? j0 : way[k];
+          const float masked = live ? minv[k] : kInf;
+          const bool take = k == 0 || masked < best;
+          best = take ? masked : best;
+          best_j = take ? j : best_j;
+        }
+        // The lexicographic (value, column) argmin over the warp: the
+        // least value, then the least column holding it, and that column's
+        // own value as delta.
+        const unsigned key = ordered_key(best);
+        const unsigned least = __reduce_min_sync(full, key);
+        const int j1 = static_cast<int>(
+            __reduce_min_sync(full, key == least ? static_cast<unsigned>(best_j) : ~0u));
+        const float delta = __shfl_sync(full, best, j1 & 31);
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          if ((used >> k) & 1u) {
+            uc[k] = uc[k] + delta;
+            v[k] = v[k] - delta;
+          } else if (t + 32 * k < n) {
+            minv[k] = minv[k] - delta;
+          }
+        }
+        j0 = j1;
+      }
+      // Augment along the predecessor chain back to the virtual column.
+      int j = j0;
+      for (int step = 0; j != n && step <= n + 1; ++step) {
+        const int jp = __shfl_sync(full, pick(way, j >> 5), j & 31);
+        const int from = __shfl_sync(full, pick(roc, jp >> 5), jp & 31);
+        const float u_from = __shfl_sync(full, pick(uc, jp >> 5), jp & 31);
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          if (t + 32 * k == j) {
+            roc[k] = from;
+            uc[k] = u_from;
+          }
+        }
+        j = jp;
+      }
+    }
+  }
+}
+
+// The solve's result for a block of kLanes threads; also the claim scratch.
 struct JvShared {
-  float u[kLanes];     // row potentials, row i at lane i
-  float v[kLanes];     // column potentials (+ the virtual column n)
-  float minv[kLanes];  // best reduced cost reaching each column
-  int roc[kLanes];     // row matched to each column; roc[n] = row being placed
-  int way[kLanes];     // predecessor column on the search tree
-  int used[kLanes];    // column on the search tree
-  int tree[kLanes];    // row on the search tree
-  int aux[kLanes];     // scratch of the caller (K1: the inverse map)
-  unsigned assigned[kLanes / 32];  // rows matched by the row reduction
-  float red_val[2][kLanes / 32];   // argmin partials, double-buffered
-  int red_idx[2][kLanes / 32];
+  int roc[kLanes];  // row matched to each column, -1 if free
 };
 
-// Block-wide lexicographic min of (val, idx): the lowest idx among the
-// minimal values. All 128 threads must call it. One barrier: partials go
-// to buffer `buf`, so a caller that alternates buffers needs one barrier of
-// its own between two calls, not one inside.
-__device__ inline void block_argmin(float val, int idx, JvShared& s, int buf,
-                                    float& out_val, int& out_idx) {
-  const unsigned full = 0xffffffffu;
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(full, val, off);
-    const int oi = __shfl_down_sync(full, idx, off);
-    if (ov < val || (ov == val && oi < idx)) {
-      val = ov;
-      idx = oi;
-    }
+// jv_solve_warp with its result written to s.roc, -1 past the S slots.
+template <int S, class Cost, class Mask>
+__device__ __forceinline__ void jv_solve_to_shared(const Cost& cost, int n,
+                                                   int n_rows,
+                                                   const Mask* row_active,
+                                                   JvShared& s) {
+  int roc[S];
+  jv_solve_warp<S>(cost, n, n_rows, row_active, s.roc, roc);
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < S; ++k) s.roc[t + 32 * k] = roc[k];
+#pragma unroll
+  for (int k = S; k < kLanes / 32; ++k) s.roc[t + 32 * k] = -1;
+}
+
+// jv_solve_to_shared for n >= 32, out of line (see jv_solve_block).
+template <class Cost, class Mask>
+__device__ __noinline__ void jv_solve_wide(const Cost cost, int n, int n_rows,
+                                           const Mask* row_active, JvShared& s) {
+  switch (jv_slots(n)) {
+    case 2:
+      jv_solve_to_shared<2>(cost, n, n_rows, row_active, s);
+      break;
+    case 3:
+      jv_solve_to_shared<3>(cost, n, n_rows, row_active, s);
+      break;
+    default:
+      jv_solve_to_shared<4>(cost, n, n_rows, row_active, s);
+      break;
   }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s.red_val[buf][warp] = val;
-    s.red_idx[buf][warp] = idx;
+}
+
+// The solve for a block of kLanes threads (K2, K3): warp 0 runs
+// jv_solve_warp while the other warps wait at one barrier. On return
+// s.roc[j] holds the row matched to column j, or -1. All threads of the
+// block must call it. A kernel that embeds it is built twice and launches
+// the instance its n needs: kWide = false (n < 32 only) inlines the
+// one-slot routine; kWide = true calls the 2-4 slot routines out of line.
+// One instance for both cost the kernels' other phases on every frame:
+// inlined, the wide routines took their registers; called, the call alone
+// slowed the one-slot frames.
+template <bool kWide, class Cost, class Mask>
+__device__ void jv_solve_block(const Cost& cost, int n, int n_rows,
+                               const Mask* row_active, JvShared& s) {
+  if (threadIdx.x < 32) {
+    if constexpr (kWide) {
+      jv_solve_wide(cost, n, n_rows, row_active, s);
+    } else {
+      jv_solve_to_shared<1>(cost, n, n_rows, row_active, s);
+    }
   }
   __syncthreads();
-  float bv = s.red_val[buf][0];
-  int bi = s.red_idx[buf][0];
-  for (int w = 1; w < kLanes / 32; ++w) {
-    const float wv = s.red_val[buf][w];
-    const int wi = s.red_idx[buf][w];
-    if (wv < bv || (wv == bv && wi < bi)) {
-      bv = wv;
-      bi = wi;
-    }
-  }
-  out_val = bv;
-  out_idx = bi;
 }
 
 // Inclusive prefix sum of `x` over the block's 128 threads; `total` gets
@@ -115,199 +330,6 @@ __device__ inline int block_inclusive_scan(int x, int* warp_sums, int& total) {
   total = sum;
   __syncthreads();
   return x + prefix;
-}
-
-// jv_solve_block for n < 32 columns, run by warp 0 alone: lane j holds
-// column j (the virtual column n included) and row j, the solver state
-// lives in registers, and a search step is warp shuffles with no block
-// barrier. The same operations in the same order as the block routine, so
-// the same result.
-template <class Cost>
-__device__ void jv_solve_warp(const Cost& cost, int n, int n_rows,
-                              const int* row_active, JvShared& s) {
-  const int t = threadIdx.x;
-  if (t < 32) {
-    const unsigned full = 0xffffffffu;
-    // Row reduction: lane i scans row i for its minimum and first argmin.
-    float u = 0.0f;  // potential of row t
-    int amin = -1;
-    if (t < n_rows) {
-      u = kInf;
-      amin = n;
-#pragma unroll 8
-      for (int j = 0; j < n; ++j) {
-        const float c = cost(t, j);
-        if (c < u) {
-          u = c;
-          amin = j;
-        }
-      }
-      if (row_active != nullptr && row_active[t] == 0) amin = -1;
-    }
-    // Column j goes to the lowest active row whose first argmin it is: the
-    // lowest lane of each group of lanes with the same claim.
-    s.roc[t] = -1;
-    __syncwarp();
-    const bool claims = amin >= 0 && amin < n;
-    const unsigned group = __match_any_sync(full, claims ? amin : -1 - t);
-    if (claims && (group & ((1u << t) - 1u)) == 0u) s.roc[amin] = t;
-    __syncwarp();
-    int roc = s.roc[t];  // row matched to column t
-    const unsigned assigned = __reduce_or_sync(full, roc >= 0 ? 1u << roc : 0u);
-    const bool active = t < n_rows && (row_active == nullptr || row_active[t] != 0);
-    float v = 0.0f;  // potential of column t
-
-    // Rows left free by the reduction, in order (see jv_solve_block).
-    for (unsigned pending = __ballot_sync(full, active) & ~assigned; pending;
-         pending &= pending - 1u) {
-      const int r = __ffs(pending) - 1;
-      float minv = kInf;
-      int way = n;
-      bool used = false;
-      bool tree = false;
-      if (t == n) roc = r;
-      int j0 = n;
-      for (int step = 0; step <= n + 1; ++step) {
-        const int i0 = __shfl_sync(full, roc, j0);
-        if (i0 < 0) break;
-        used = used || t == j0;
-        tree = tree || t == i0;
-        const float u_i0 = __shfl_sync(full, u, i0);
-        float masked = kInf;
-        if (t < n) {
-          const float cur = cost(i0, t) - u_i0 - v;
-          if (cur < minv && !used) {
-            minv = cur;
-            way = j0;
-          }
-          if (!used) masked = minv;
-        }
-        float val = masked;
-        int idx = t;
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_down_sync(full, val, off);
-          const int oi = __shfl_down_sync(full, idx, off);
-          if (ov < val || (ov == val && oi < idx)) {
-            val = ov;
-            idx = oi;
-          }
-        }
-        const float delta = __shfl_sync(full, val, 0);
-        if (tree) u = u + delta;
-        if (used) v = v - delta;
-        if (!used && t < n) minv = minv - delta;
-        j0 = __shfl_sync(full, idx, 0);
-      }
-      // Augment along the predecessor chain back to the virtual column.
-      int j = j0;
-      for (int step = 0; j != n && step <= n + 1; ++step) {
-        const int jp = __shfl_sync(full, way, j);
-        const int from = __shfl_sync(full, roc, jp);
-        if (t == j) roc = from;
-        j = jp;
-      }
-    }
-    s.roc[t] = roc;
-  } else {
-    s.roc[t] = -1;
-  }
-  __syncthreads();
-}
-
-// Solve the assignment of rows [0, n_rows) to columns [0, n), n <= kMaxN,
-// n_rows <= n. `cost(i, j)` returns the float cost of row i, column j.
-// `row_active` (may be null) is read as row_active[i] != 0. On return
-// s.roc[j] holds the row matched to column j, or -1. All threads of the
-// block must call it; blockDim.x == kLanes. Below 32 columns the solve
-// runs in one warp (jv_solve_warp).
-template <class Cost>
-__device__ void jv_solve_block(const Cost& cost, int n, int n_rows,
-                               const int* row_active, JvShared& s) {
-  if (n < 32) {
-    jv_solve_warp(cost, n, n_rows, row_active, s);
-    return;
-  }
-  const int t = threadIdx.x;
-
-  // Row reduction: thread t scans row t for its minimum and first argmin.
-  float rowmin = 0.0f;
-  int amin = -1;
-  if (t < n_rows) {
-    rowmin = kInf;
-    amin = n;
-    for (int j = 0; j < n; ++j) {
-      const float c = cost(t, j);
-      if (c < rowmin) {
-        rowmin = c;
-        amin = j;
-      }
-    }
-    if (row_active != nullptr && row_active[t] == 0) amin = -1;
-  }
-  s.u[t] = rowmin;
-  s.v[t] = 0.0f;
-  s.roc[t] = n_rows;  // no claim yet
-  if (t < kLanes / 32) s.assigned[t] = 0u;
-  __syncthreads();
-  // Column j goes to the lowest active row whose first argmin it is.
-  if (amin >= 0 && amin < n) atomicMin(&s.roc[amin], t);
-  __syncthreads();
-  if (s.roc[t] == n_rows) s.roc[t] = -1;
-  if (s.roc[t] >= 0) atomicOr(&s.assigned[s.roc[t] >> 5], 1u << (s.roc[t] & 31));
-  __syncthreads();
-
-  // Rows left free by the reduction, in order. An augmenting path only
-  // moves matched rows between columns, so a row matched now is still
-  // matched when the loop reaches it, and a free row is still free.
-  for (int r = 0; r < n_rows; ++r) {
-    if (row_active != nullptr && row_active[r] == 0) continue;
-    if ((s.assigned[r >> 5] >> (r & 31)) & 1u) continue;
-
-    // Dijkstra search from the virtual column n, which holds row r.
-    s.minv[t] = kInf;
-    s.way[t] = n;
-    s.used[t] = 0;
-    s.tree[t] = 0;
-    if (t == n) s.roc[t] = r;
-    __syncthreads();
-    int j0 = n;
-    for (int step = 0; s.roc[j0] >= 0 && step <= n + 1; ++step) {
-      const int i0 = s.roc[j0];
-      const int used_t = s.used[t] | (t == j0);
-      const int tree_t = s.tree[t] | (t == i0);
-      float minv_t = s.minv[t];
-      float masked = kInf;
-      if (t < n) {
-        const float cur = cost(i0, t) - s.u[i0] - s.v[t];
-        if (cur < minv_t && !used_t) {
-          minv_t = cur;
-          s.way[t] = j0;
-        }
-        if (!used_t) masked = minv_t;
-      }
-      float delta;
-      int j1;
-      block_argmin(masked, t, s, step & 1, delta, j1);
-      if (tree_t) s.u[t] = s.u[t] + delta;
-      if (used_t) s.v[t] = s.v[t] - delta;
-      s.minv[t] = (!used_t && t < n) ? minv_t - delta : minv_t;
-      s.used[t] = used_t;
-      s.tree[t] = tree_t;
-      j0 = j1;
-      __syncthreads();
-    }
-
-    // Augment along the predecessor chain back to the virtual column.
-    if (t == 0) {
-      int j = j0;
-      for (int step = 0; j != n && step <= n + 1; ++step) {
-        const int jp = s.way[j];
-        s.roc[j] = s.roc[jp];
-        j = jp;
-      }
-    }
-    __syncthreads();
-  }
 }
 
 }  // namespace ses3d

@@ -1,23 +1,35 @@
-// K1: batched rectangular linear-sum assignment, one problem per block.
+// K1: batched rectangular linear-sum assignment, one warp per problem.
 //
 // Replaces the TPU kernels of smartedgesensor3dhumanpose_tpu/ops/
 // hungarian_pallas.py: _jv_kernel (launched by _solve_padded, the single
 // problem with a row_active mask that tracking.step solves every frame) and
 // _jv_kernel_batched (_solve_padded_batched, the batched launch). Both are
-// this one kernel with grid = batch.
+// this one kernel, one warp per problem, several problems per block.
 //
 // What bounds it on the card: the latency of the solver's dependent steps
 // (see jv.cuh); a 16 x 24 tracker problem moves about 2 KB. The design
-// answers that by keeping every step on chip: the cost rows are read from
-// global memory (L1/L2-resident at these sizes), the solver state sits in
-// shared memory, and the whole solve is one launch with no host round trip.
+// answers that by keeping every step on chip and every lane busy:
+//  * the warp first copies its problem's R x C cost into shared memory with
+//    coalesced loads (16-byte vectors where the pointer and C allow), at an
+//    odd row stride, so the lanes that scan 32 different rows in the row
+//    reduction hit 32 different banks; dummy columns (R > C) read as zero by
+//    predicate and take no space;
+//  * the solve (jv.cuh::jv_solve_warp) keeps its state in registers and
+//    synchronises within the warp only (shuffles, warp reductions,
+//    __syncwarp): there is no block barrier in K1;
+//  * the inversion to col_of_row goes through the warp's own shared memory.
+// A block holds up to kMaxPerBlock problems, one per warp (one per SM
+// sub-partition), as far as their tiles fit the block's shared memory.
 //
 // Contract (hungarian.py:179-205): cost [B, R, C] float32, row-major; the
 // problem is square-padded to n = max(R, C) <= 120 with zero-cost dummy
 // columns (R > C); rows [0, R) are matched, skipping rows whose row_active
-// entry is 0 (row_active [B, R] int32, or null for all rows). Output
+// byte is 0 (row_active [B, R] bool, or null for all rows). Output
 // col_of_row [B, R] int32, -1 for unassigned rows and for rows matched to a
-// dummy column.
+// dummy column. The shared-memory plan (problems per block, bytes) comes
+// from the wrapper (ops/hungarian.py::jv_plan) and is checked here.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -25,48 +37,140 @@
 
 namespace {
 
-struct GlobalCost {
-  const float* base;
-  int cols;
+constexpr int kMaxPerBlock = 4;          // warps (problems) per block
+constexpr int kDefaultSmem = 48 * 1024;  // above this, the opt-in is needed
+
+// Words of one staged cost row: the smallest odd count >= cols.
+__host__ __device__ inline int tile_stride(int cols) { return cols | 1; }
+
+// Shared memory of one problem: its staged cost tile, then one int per
+// column slot for the claims and the inverse map.
+__host__ __device__ inline int problem_bytes(int rows, int cols) {
+  const int n = rows > cols ? rows : cols;
+  return 4 * (rows * tile_stride(cols) + 32 * ses3d::jv_slots(n));
+}
+
+struct TileCost {
+  const float* tile;
+  int stride, cols;
   __device__ float operator()(int i, int j) const {
-    return j < cols ? base[i * cols + j] : 0.0f;
+    return j < cols ? tile[i * stride + j] : 0.0f;
   }
 };
 
-__global__ void __launch_bounds__(ses3d::kLanes)
+template <int S>
+__global__ void __launch_bounds__(32 * kMaxPerBlock)
 jv_assign_kernel(const float* __restrict__ cost,
-                 const int* __restrict__ row_active,
-                 int* __restrict__ col_of_row, int rows, int cols) {
-  __shared__ ses3d::JvShared s;
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
+                 const unsigned char* __restrict__ row_active,
+                 int* __restrict__ col_of_row, int batch, int rows, int cols,
+                 int per_block) {
+  extern __shared__ float4 dyn[];
+  const int w = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int b = blockIdx.x * per_block + w;
+  if (b >= batch) return;  // a whole warp; no block barrier follows
   const int n = rows > cols ? rows : cols;
-  const GlobalCost c{cost + static_cast<size_t>(b) * rows * cols, cols};
-  const int* act =
-      row_active ? row_active + static_cast<size_t>(b) * rows : nullptr;
+  const int stride = tile_stride(cols);
+  float* tile = reinterpret_cast<float*>(dyn) + w * (problem_bytes(rows, cols) / 4);
+  int* scratch = reinterpret_cast<int*>(tile + rows * stride);
 
-  ses3d::jv_solve_block(c, n, rows, act, s);
-
-  // Invert roc (row of column) into col_of_row through shared memory.
-  s.aux[t] = -1;
-  __syncthreads();
-  if (t < n) {
-    const int i = s.roc[t];
-    if (i >= 0 && i < rows) s.aux[i] = t < cols ? t : -1;
+  // Stage the problem's cost rows, coalesced.
+  const float* src = cost + static_cast<size_t>(b) * rows * cols;
+  const int count = rows * cols;
+  if (cols % 4 == 0 && reinterpret_cast<uintptr_t>(cost) % 16 == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int q = t; q < count / 4; q += 32) {
+      const float4 x = src4[q];
+      const int i = 4 * q / cols;
+      float* dst = tile + i * stride + (4 * q - i * cols);
+      dst[0] = x.x;
+      dst[1] = x.y;
+      dst[2] = x.z;
+      dst[3] = x.w;
+    }
+  } else {
+    for (int e = t; e < count; e += 32) {
+      const int i = e / cols;
+      tile[i * stride + (e - i * cols)] = src[e];
+    }
   }
-  __syncthreads();
-  if (t < rows) col_of_row[static_cast<size_t>(b) * rows + t] = s.aux[t];
+  __syncwarp();
+
+  int roc[S];
+  ses3d::jv_solve_warp<S>(
+      TileCost{tile, stride, cols}, n, rows,
+      row_active ? row_active + static_cast<size_t>(b) * rows : nullptr,
+      scratch, roc);
+
+  // Invert roc (row of column) into col_of_row through the scratch.
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (t + 32 * k < rows) scratch[t + 32 * k] = -1;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int j = t + 32 * k;
+    if (j < n && roc[k] >= 0 && roc[k] < rows) scratch[roc[k]] = j < cols ? j : -1;
+  }
+  __syncwarp();
+  int* out = col_of_row + static_cast<size_t>(b) * rows;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (t + 32 * k < rows) out[t + 32 * k] = scratch[t + 32 * k];
+  }
+}
+
+template <int S>
+cudaError_t launch(const float* cost, const unsigned char* row_active,
+                   int* col_of_row, int batch, int rows, int cols,
+                   int per_block, int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jv_assign_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (batch + per_block - 1) / per_block;
+  jv_assign_kernel<S><<<blocks, 32 * per_block, smem_bytes, stream>>>(
+      cost, row_active, col_of_row, batch, rows, cols, per_block);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ses3d_jv_assign(const float* cost, const int* row_active,
+// The dynamic shared memory of a plan, as the wrapper must compute it.
+extern "C" int ses3d_jv_assign_smem_bytes(int rows, int cols, int per_block) {
+  return per_block * problem_bytes(rows, cols);
+}
+
+// Returns cudaErrorInvalidValue, and launches nothing, for a shape outside
+// the contract or a plan whose byte count is not this file's.
+extern "C" int ses3d_jv_assign(const float* cost,
+                               const unsigned char* row_active,
                                int* col_of_row, int batch, int rows, int cols,
-                               void* stream) {
-  if (batch > 0) {
-    jv_assign_kernel<<<batch, ses3d::kLanes, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        cost, row_active, col_of_row, rows, cols);
+                               int per_block, int smem_bytes, void* stream) {
+  const int n = rows > cols ? rows : cols;
+  if (batch < 1 || rows < 1 || cols < 0 || n > ses3d::kMaxN ||
+      per_block < 1 || per_block > kMaxPerBlock ||
+      smem_bytes != per_block * problem_bytes(rows, cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (ses3d::jv_slots(n)) {
+    case 1:
+      err = launch<1>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
+      break;
+    case 2:
+      err = launch<2>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
+      break;
+    case 3:
+      err = launch<3>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
+      break;
+    default:
+      err = launch<4>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
+      break;
+  }
+  return static_cast<int>(err);
 }

@@ -18,15 +18,49 @@ ceiling (callers clip at 1e3) so reduced costs stay accurate.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import _kernels
 
-MAX_N = 120  # columns + the virtual column fit one 128-thread block
+MAX_N = 120  # columns + the virtual column fit 4 register slots of 32 lanes
 _INF = 3.0e38
+# The kernel's layout: one warp per problem, up to WARPS_PER_BLOCK problems
+# per block (one per SM sub-partition), within the H100's shared memory per
+# block.
+WARPS_PER_BLOCK = 4
+SMEM_LIMIT = 232_448
 
 # Launches of the CUDA kernel; the wrapper adds one per launch.
 KERNEL_LAUNCHES = 0
+# Search steps the plain version has taken (the data-dependent part of the
+# work, which a kernel's bound counts).
+PLAIN_SEARCH_STEPS = 0
+
+
+class JvPlan(NamedTuple):
+    """K1's launch layout for B problems of [R, C] (csrc/jv_assign.cu)."""
+
+    slots: int       # register slots per lane: the n + 1 columns in groups of 32
+    stride: int      # words of one staged cost row (odd: no bank conflicts)
+    per_block: int   # problems per block, one warp each
+    smem_bytes: int  # dynamic shared memory per block
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def jv_plan(batch: int, rows: int, cols: int) -> JvPlan:
+    """Every problem's cost tile [R, stride] float32 and one int per column
+    slot (the claims, then the inverse map) in shared memory; as many
+    problems per block as WARPS_PER_BLOCK and SMEM_LIMIT allow."""
+    n = _check_shape(rows, cols)
+    slots = n // 32 + 1
+    stride = cols | 1
+    problem = 4 * (rows * stride + 32 * slots)
+    per_block = max(1, min(WARPS_PER_BLOCK, batch, SMEM_LIMIT // problem))
+    return JvPlan(slots, stride, per_block, per_block * problem, -(-batch // per_block))
 
 
 def _jv_plain(cost: torch.Tensor, n: int, n_rows: int, row_active=None):
@@ -35,6 +69,7 @@ def _jv_plain(cost: torch.Tensor, n: int, n_rows: int, row_active=None):
     Returns roc [n] int64: the row matched to each column, -1 if free.
     `row_active` [n_rows] bool skips rows (see `linear_sum_assignment`).
     """
+    global PLAIN_SEARCH_STEPS
     dev, dt = cost.device, cost.dtype
     inf = torch.tensor(_INF, dtype=dt, device=dev)
     cols = torch.arange(n, device=dev)
@@ -81,6 +116,7 @@ def _jv_plain(cost: torch.Tensor, n: int, n_rows: int, row_active=None):
             minv = torch.where(~used[:n], minv - delta, minv)
             j0 = j1
             step += 1
+        PLAIN_SEARCH_STEPS += step
         j = j0
         step = 0
         while j != n and step <= n + 1:
@@ -125,14 +161,15 @@ def linear_sum_assignment_batched_reference(cost: torch.Tensor, row_active=None)
 
 
 def _launch(cost: torch.Tensor, row_active) -> torch.Tensor:
-    """K1 on the card: cost [B, R, C] float32 contiguous CUDA tensor."""
+    """K1 on the card: cost [B, R, C] float32 contiguous CUDA tensor, one
+    device launch (a bool row_active goes to the kernel as its bytes)."""
     global KERNEL_LAUNCHES
     if cost.dtype != torch.float32:
         raise TypeError(f"the CUDA assignment kernel takes float32, got {cost.dtype}")
     if not cost.is_contiguous():
         raise ValueError("cost must be contiguous")
     b, r, c = cost.shape
-    _check_shape(r, c)
+    plan = jv_plan(max(b, 1), r, c)
     act = None
     if row_active is not None:
         if row_active.shape != (b, r) or row_active.device != cost.device:
@@ -140,13 +177,16 @@ def _launch(cost: torch.Tensor, row_active) -> torch.Tensor:
                 f"row_active must be [{b}, {r}] on {cost.device}, got "
                 f"{tuple(row_active.shape)} on {row_active.device}"
             )
-        act = row_active.to(torch.int32).contiguous()
+        act = row_active if row_active.dtype == torch.bool else row_active != 0
+        act = act.contiguous()
     out = torch.empty((b, r), dtype=torch.int32, device=cost.device)
+    if b == 0 or r == 0:
+        return out
     lib = _kernels.library()
     stream = torch.cuda.current_stream(cost.device).cuda_stream
     err = lib.ses3d_jv_assign(
         cost.data_ptr(), None if act is None else act.data_ptr(),
-        out.data_ptr(), b, r, c, stream,
+        out.data_ptr(), b, r, c, plan.per_block, plan.smem_bytes, stream,
     )
     _kernels.check(err, "jv_assign launch")
     KERNEL_LAUNCHES += 1
@@ -180,7 +220,7 @@ def linear_sum_assignment(cost: torch.Tensor, row_active=None) -> torch.Tensor:
 
 def linear_sum_assignment_batched(cost: torch.Tensor, row_active=None) -> torch.Tensor:
     """`linear_sum_assignment` over a batch: cost [B, R, C] -> [B, R] int32;
-    one thread block per problem on the card."""
+    one warp per problem on the card (`jv_plan`)."""
     if cost.dim() != 3:
         raise ValueError(f"cost must be [B, R, C], got {tuple(cost.shape)}")
     if cost.device.type == "cpu":

@@ -101,7 +101,26 @@ def test_matches_tpu_kernel_single_with_row_active(rng):
         assert (got[~act] == -1).all()
 
 
-@pytest.mark.parametrize("shape", [(5, 8, 12), (3, 12, 8), (2, 16, 16)])
+@pytest.mark.parametrize("shape", [(40, 64), (64, 64)])
+def test_matches_tpu_kernel_single_wide(rng, shape):
+    """As above at n >= 32, where the CUDA kernel holds 2 or 3 register
+    slots per lane: tracker-style rows, the invalid ones on the 1e3 tier
+    and skipped, against _lsa_pallas_single with the same row_active."""
+    r, c = shape
+    cost = rng.uniform(0.0, 8.0, size=shape).astype(np.float32)
+    act = rng.uniform(size=r) < 0.7
+    cost[~act] = 1e3
+    want = np.asarray(
+        hungarian_pallas._lsa_pallas_single(jnp.asarray(cost), jnp.asarray(act))
+    )
+    got = hungarian.linear_sum_assignment(
+        torch.from_numpy(cost), torch.from_numpy(act)
+    ).numpy()
+    np.testing.assert_array_equal(got[act], want[act])
+    assert (got[~act] == -1).all()
+
+
+@pytest.mark.parametrize("shape", [(5, 8, 12), (3, 12, 8), (2, 16, 16), (2, 40, 40)])
 def test_batched_matches_tpu_kernel(rng, shape):
     """Against linear_sum_assignment_pallas_batched (interpret mode):
     random continuous costs have unique optima, so col_of_row is equal."""
@@ -113,6 +132,39 @@ def test_batched_matches_tpu_kernel(rng, shape):
     )
     got = hungarian.linear_sum_assignment_batched(torch.from_numpy(cost)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 7, 8, 64])
+def test_jv_plan_every_shape(batch):
+    """K1's launch layout across its domain: one warp per problem, an odd
+    row stride, one int per column slot, every block within the H100's
+    232,448 bytes; chip_smoke.py holds the byte count to the kernel's."""
+    for rows in range(1, hungarian.MAX_N + 1):
+        for cols in range(1, hungarian.MAX_N + 1):
+            plan = hungarian.jv_plan(batch, rows, cols)
+            n = max(rows, cols)
+            assert 32 * plan.slots > n >= 32 * (plan.slots - 1)
+            assert plan.stride % 2 == 1 and cols <= plan.stride <= cols + 1
+            problem = 4 * (rows * plan.stride + 32 * plan.slots)
+            assert plan.smem_bytes == plan.per_block * problem <= hungarian.SMEM_LIMIT
+            assert 1 <= plan.per_block <= min(hungarian.WARPS_PER_BLOCK, batch)
+            assert (plan.per_block + 1) * problem > hungarian.SMEM_LIMIT or plan.per_block == min(
+                hungarian.WARPS_PER_BLOCK, batch)
+            assert plan.blocks == -(-batch // plan.per_block)
+    # The online tracker problem is one warp; a 120 x 120 tile needs the
+    # opt-in above 48 KB, and three fit a block.
+    assert hungarian.jv_plan(1, 16, 24) == hungarian.JvPlan(1, 25, 1, 1728, 1)
+    assert hungarian.jv_plan(batch, 120, 120).per_block == min(3, batch)
+
+
+def test_plain_counts_search_steps():
+    """The plain version counts its search steps (K1's bound counts the
+    work these inputs need): none when the row reduction places every row."""
+    before = hungarian.PLAIN_SEARCH_STEPS
+    hungarian.linear_sum_assignment(torch.eye(4) * -1.0 + 1.0)
+    assert hungarian.PLAIN_SEARCH_STEPS == before
+    hungarian.linear_sum_assignment(torch.tensor([[1.0, 2.0], [1.0, 3.0]]))
+    assert hungarian.PLAIN_SEARCH_STEPS > before
 
 
 def test_wrapper_contract():

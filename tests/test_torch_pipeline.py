@@ -140,6 +140,25 @@ def test_generate_scene_identical(knobs):
         assert got[k].dtype == want[k].dtype
 
 
+def test_epoch_stamps_collapse_alike():
+    """ROADMAP C4: both packages cast cam_stamp to float32 with no origin
+    rebase. At unix-epoch stamps (~1.7e9 s) the float32 step is 128 s, so
+    a scene's frame and camera offsets (under a second here) all collapse
+    onto one grid value, on both sides alike. This pins that the port
+    mirrors the reference's hazard bit for bit; a fix (an origin rebase)
+    belongs to both packages at once."""
+    frames = _frames64()
+    arrays = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    arrays["cam_stamp"] = arrays["cam_stamp"] + 1.7e9 + 0.25
+    assert len(np.unique(arrays["cam_stamp"])) > 1
+    got = Frame.from_arrays(arrays, "cpu").cam_stamp.numpy()
+    want = np.asarray(JaxFrame.from_arrays(arrays).cam_stamp)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.all(np.mod(got.astype(np.float64), 128.0) == 0.0)
+    np.testing.assert_array_equal(np.unique(got), np.float32([1.7e9]))
+
+
 def test_skeleton_tables_identical():
     for name in dir(jax_skeleton):
         val = getattr(jax_skeleton, name)
