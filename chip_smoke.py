@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's online and offline pipelines on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's online and offline pipelines and its demo CLI on one NVIDIA GPU and check them.
 
 Phases (each prints one line; any failure exits non-zero):
   0 environment: card name and power limit, torch/CUDA versions, TF32 flags
@@ -31,6 +31,17 @@ Phases (each prints one line; any failure exits non-zero):
     against their plain versions on its inputs
   9 offline times: run_offline frames/s, its stage split and host syncs,
     and K3 against its plain version
+ 10 the demo CLI (demo.main) at the JAX demo's configuration, 16 cameras x
+    6 people (D 6, H 12, T 12), in every mode with its launch counts: the
+    offline replay with --eval --vis-cov --save --checkpoint --record-jsonl
+    (128 frames); K2 and K3 against their plain versions at this shape;
+    --jsonl (the replayed frames against the scene's, run_offline's
+    decisions on both equal); the native synchronizer against its Python
+    mirror on the recorded messages; --online at 30 Hz over 64 frames
+    (accounting, and the loop's state against stepping its frames again);
+    --online --jsonl (accounting); --closed-loop over 64 frames (and the
+    horizon's exact convergence on jitter-free stamps); a checkpoint resume;
+    profile_stages against a direct timing of run_offline
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -1140,6 +1151,331 @@ def phase_offline_times(dev, pipe, inputs, profile_dir):
     return {"tracker_scan": (k3_ms, k3_plain, bound_ms, bound_by)}
 
 
+# --------------------------------------------------------------- phase 10 --
+
+# The JAX demo's own configuration (demo.build_demo, the CLI's defaults):
+# 16 cameras x 6 people, 128 frames, seed 42; D 6, H 12, T 12.
+DEMO_CAMS, DEMO_PEOPLE, DEMO_SEED = 16, 6, 42
+DEMO_DEVICE = "cuda"
+DEMO_FRAMES = 128
+DEMO_LOOP_FRAMES = 64
+# The closed loop's injected latencies (the CLI's defaults), s.
+LOOP_PROC_S, LOOP_NET_S = 0.05, 0.03
+# Measured delays and horizons are float64 host sums of float32 stamps, the
+# horizon a float32 mean of three of them.
+LOOP_TOL_S = 1.0e-5
+# Floats after a checkpoint round trip, and of the online loop's state
+# against stepping its frames again.
+RESUME_TOL = 1.0e-5
+# Replayed keypoints against the scene's (the JSONL rounds them to 1e-4 px):
+# the atol of the JAX package's test_replay.py.
+REPLAY_TOL = 1.0e-3
+# profile_stages' `full` against a direct timing of run_offline: the
+# run-to-run spread PERF.md records for run_offline, medians 396-777 ms
+# across calls on one tree (PR 4), a factor of 2.
+PROFILE_FULL_RATIO = 2.0
+
+
+def demo_main(argv):
+    """demo.main on the card with the counts set to 0 just before; returns
+    (DemoRun, (K1, K2, K3) launches of that run, wall seconds)."""
+    from smartedgesensor3dhumanpose_tpu_torch import demo
+
+    reset_counts()
+    t0 = time.perf_counter()
+    run = demo.main(["--cameras", str(DEMO_CAMS), "--people", str(DEMO_PEOPLE),
+                     "--seed", str(DEMO_SEED), "--device", DEMO_DEVICE] + argv)
+    torch.cuda.synchronize()
+    return run, read_counts(), time.perf_counter() - t0
+
+
+def compact(data: dict) -> dict:
+    """Frames as a JSONL recording carries them: each camera's valid
+    detections moved to the front slots in order, the rest zero."""
+    out = {k: np.array(v) for k, v in data.items()}
+    for k in ("kp2d", "cov2d", "det_score", "det_valid"):
+        out[k] = np.zeros_like(out[k])
+    t_n, c_n = data["det_valid"].shape[:2]
+    for t in range(t_n):
+        for c in range(c_n):
+            ok = data["det_valid"][t, c]
+            m = int(ok.sum())
+            for k in ("kp2d", "cov2d", "det_score", "det_valid"):
+                out[k][t, c, :m] = data[k][t, c][ok]
+    return out
+
+
+def decisions(out) -> dict:
+    """The integer decisions of a run_offline StepOutput, on the host."""
+    return {
+        "raw_valid": out.persons_raw.valid, "fused_valid": out.fused.valid,
+        "person_id": out.fused.person_id, "pred_valid": out.fused_pred.valid,
+        "fb_kp_valid": out.feedback.kp_valid,
+        "n_dropped_hyp": out.n_dropped_hypotheses,
+        "n_dropped_spawns": out.n_dropped_track_spawns,
+    }
+
+
+def same_state(got, want, what: str) -> None:
+    """Integers and masks equal, floats within RESUME_TOL (infinities equal)."""
+    for name, a, b in zip(got._fields, got, want):
+        if a.dtype.is_floating_point:
+            both_inf = torch.isinf(a) & torch.isinf(b) & (torch.sign(a) == torch.sign(b))
+            diff = torch.where(both_inf, 0.0, (a.double() - b.double()).abs())
+            if torch.isnan(diff).any() or float(diff.max()) > RESUME_TOL:
+                raise AssertionError(f"{what} {name}: off by {float(diff.max())} > {RESUME_TOL}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what} {name}: differs")
+
+
+def sync_sets(messages, stamps_ns, prefer_native: bool):
+    from smartedgesensor3dhumanpose_tpu_torch import sync
+
+    s = sync.make_synchronizer(DEMO_CAMS, prefer_native=prefer_native)
+    sets = []
+    for i, (camera, _, _, _) in enumerate(messages):
+        s.push(camera, stamps_ns[i], i + 1)
+        while (got := s.pop()) is not None:
+            sets.append(got)
+    return sets
+
+
+def phase_demo(dev):
+    """The demo CLI on the card in every mode at build_demo(16, 6, ...), with
+    the launch counts of each mode and the nine checks of the demo phase."""
+    import tempfile
+
+    from smartedgesensor3dhumanpose_tpu_torch import checkpoint, profiling, viz
+    from smartedgesensor3dhumanpose_tpu_torch.io import replay, sensors, synthetic
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    from smartedgesensor3dhumanpose_tpu_torch import sync
+
+    t0 = time.perf_counter()
+    runtime = sync.build()  # g++ on this machine, unless this source state was built here
+    log("10.0 native runtime", library=runtime.name, seconds=time.perf_counter() - t0,
+        compiler=repr(subprocess.run([sync.compiler(), "--version"], capture_output=True, text=True,
+                                     check=True).stdout.splitlines()[0]))
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "demo.jsonl")
+        f_n = ["--frames", str(DEMO_FRAMES)]
+
+        # 1. The offline demo with every output.
+        run, counts, wall = demo_main(f_n + [
+            "--eval", "--vis-cov", "--save", os.path.join(tmp, "out.npz"),
+            "--checkpoint", os.path.join(tmp, "state.npz"), "--record-jsonl", rec])
+        pipe, cfg, frames, outs = run.pipe, run.config, run.frames, run.outs
+        chunks = -(-DEMO_FRAMES // pipe.fusion_batch)
+        if counts != (0, 2 * chunks, 2):
+            raise AssertionError(f"demo offline: launch counts {counts}, expected (0, {2 * chunks}, 2)")
+        launches["demo_offline"] = counts
+        if tuple(outs.fused.xyz.shape) != (DEMO_FRAMES, 2 * DEMO_PEOPLE, 21, 3):
+            raise AssertionError(f"demo offline: fused shape {tuple(outs.fused.xyz.shape)}")
+        pub = outs.fused.valid
+        if not (torch.isfinite(outs.fused.xyz[pub]).all() and pub[-1].sum() == DEMO_PEOPLE):
+            raise AssertionError("demo offline: non-finite joints or not everyone published")
+        if not (run.mpjpe_m < 0.05 and run.pck_015 >= 0.95):
+            raise AssertionError(f"demo offline: MPJPE {run.mpjpe_m} m, PCK@0.15 {run.pck_015}")
+        saved = checkpoint.load_tracker_state(os.path.join(tmp, "state.npz"), device=dev)
+        same_state(saved, run.final_state, "demo --checkpoint")
+        log("10.1 demo offline", frames=DEMO_FRAMES, fusion_batch=pipe.fusion_batch,
+            fused_fps=DEMO_FRAMES / run.seconds, run_ms=run.seconds * 1e3, wall_s=wall,
+            mpjpe_mm=run.mpjpe_m * 1e3, pck_015=run.pck_015, launches=list(counts))
+
+        # 2. K2 and K3 at the demo's shape (D 6, H 12, P = T = 12).
+        f_cfg = cfg.fusion
+        args = (f_cfg.max_hypotheses, f_cfg.max_epipolar_error, f_cfg.max_cost)
+        for f in range(0, DEMO_FRAMES, 16):
+            ctab, conf, dok = fold_case(at_frame(frames, f), pipe.rig, f_cfg)
+            got = association.associate_fold(ctab, conf, dok, *args)
+            torch.cuda.synchronize()
+            want = association.associate_fold_reference(ctab, conf, dok, *args)
+            for g, w, what in zip(got, want, ("det_slot", "n_hyp", "n_dropped")):
+                if not torch.equal(g.cpu(), w.cpu()):
+                    raise AssertionError(f"K2 demo shape frame {f} {what}: kernel != plain")
+        persons, pivots, fb, pre = tracker_inputs(pipe, frames)
+        k3_err, k3_drops, k3_merges, _ = check_k3("demo_build", pipe.init_state(), persons, pivots,
+                                                 fb, pre, cfg.prior, cfg.tracker)
+        log("10.2 demo shape K2 K3 vs plain", k2_frames=DEMO_FRAMES // 16, k2_max_abs_err=0,
+            k2_plan=repr(association.fold_plan(DEMO_CAMS, f_cfg.max_dets_per_cam, f_cfg.max_hypotheses)),
+            k3_frames=DEMO_FRAMES, k3_decisions="exact", k3_max_abs_err=k3_err,
+            k3_dropped=k3_drops, k3_merged=k3_merges)
+
+        # 3. --jsonl: the recording replayed through the native synchronizer.
+        run_j, counts_j, _ = demo_main(f_n + ["--jsonl", rec])
+        m = run_j.frames.kp2d.shape[0]
+        scene_data = compact(synthetic.frames_from_scene(run.scene))
+        want_frames = Frame.from_arrays({k: v[:m] for k, v in scene_data.items()}, dev)
+        if m < DEMO_FRAMES - 3:
+            raise AssertionError(f"--jsonl: {m} of {DEMO_FRAMES} frames replayed")
+        for name, g, w in zip(Frame._fields, run_j.frames, want_frames):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"--jsonl {name}: {g.shape} {g.dtype} != {w.shape} {w.dtype}")
+            if g.dtype == torch.bool:
+                if not torch.equal(g, w):
+                    raise AssertionError(f"--jsonl {name}: differs from the scene's")
+            elif float((g - w).abs().max()) > REPLAY_TOL:
+                raise AssertionError(f"--jsonl {name}: off by {float((g - w).abs().max())}")
+        _, want_outs = pipe.run_offline(pipe.init_state(), want_frames)
+        got_d, want_d = decisions(run_j.outs), decisions(want_outs)
+        bad = [k for k in got_d if not torch.equal(got_d[k], want_d[k])]
+        if bad:
+            raise AssertionError(f"--jsonl: run_offline decisions differ from the scene's: {bad}")
+        log("10.3 demo jsonl", frames_replayed=m, frames_recorded=DEMO_FRAMES,
+            floats_within=REPLAY_TOL, decisions="exact", launches=list(counts_j))
+
+        # 4. The native synchronizer against its Python mirror on the
+        # recorded messages, and with camera 0 silent for the second
+        # quarter of the frames (its queues overflow).
+        messages = list(replay.load_jsonl_messages(rec))
+        cases = {"recorded": messages}
+        t_lo, t_hi = DEMO_FRAMES / 4 / 30.0, DEMO_FRAMES / 2 / 30.0
+        cases["stalled"] = [mg for mg in messages if not (mg[0] == 0 and t_lo <= mg[1] <= t_hi)]
+        n_sets = {}
+        for name, msgs in cases.items():
+            ns = [int(round(mg[1] * 1e9)) for mg in msgs]
+            native, mirror = sync_sets(msgs, ns, True), sync_sets(msgs, ns, False)
+            if native != mirror:
+                raise AssertionError(f"native sync != Python mirror on the {name} messages")
+            n_sets[name] = len(native)
+        if not n_sets["recorded"] >= DEMO_FRAMES - 3 or n_sets["stalled"] >= n_sets["recorded"]:
+            raise AssertionError(f"sync sets {n_sets}")
+        log("10.4 native sync vs mirror", messages=len(messages), sets="'" + json.dumps(n_sets) + "'",
+            equal=True)
+
+        # 5. --online at 30 Hz over 64 frames; then the processed frames
+        # stepped again from the same initial state (a plain step loop).
+        loop_n = ["--frames", str(DEMO_LOOP_FRAMES)]
+        run_o, counts_o, _ = demo_main(loop_n + ["--online", "--feed-hz", "30"])
+        rep = run_o.report
+        h = rep.processed_handles
+        if rep.dropped + len(h) != rep.produced or rep.produced != DEMO_LOOP_FRAMES:
+            raise AssertionError(f"--online accounting: {rep.dropped} + {len(h)} != {rep.produced}")
+        if not all(a < b for a, b in zip(h, h[1:])) or h[-1] != DEMO_LOOP_FRAMES - 1:
+            raise AssertionError(f"--online handles {h}")
+        if counts_o != (len(h) + 1, len(h) + 1, 0):
+            raise AssertionError(f"--online launch counts {counts_o} for {len(h)} steps + warm-up")
+        launches["demo_online"] = counts_o
+        state = run_o.pipe.init_state()
+        plain_ms = []
+        for i in h:
+            t0 = time.perf_counter()
+            state, _ = run_o.pipe.step(state, at_frame(run_o.frames, i))
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        same_state(state, run_o.final_state, "--online replayed")
+        plain_p50 = statistics.median(plain_ms)
+        log("10.5 demo online", frames=DEMO_LOOP_FRAMES, feed_hz=30, processed=len(h),
+            dropped=rep.dropped, dropped_share=rep.dropped / rep.produced,
+            step_ms_p50=rep.step_ms_p50, step_ms_p90=float(np.percentile(rep.step_ms, 90)), plain_step_ms_p50=plain_p50,
+            replay_state="equal", launches=list(counts_o))
+
+        # 6. --online --jsonl: messages -> native sync -> native slot -> step.
+        run_s, counts_s, _ = demo_main(loop_n + ["--online", "--jsonl", rec])
+        rep = run_s.report
+        if rep.processed_frames + rep.slot_dropped != rep.frames_synced:
+            raise AssertionError(f"--online --jsonl accounting: {rep}")
+        if rep.messages_unconsumed != rep.produced_messages - rep.frames_synced * DEMO_CAMS:
+            raise AssertionError(f"--online --jsonl unconsumed: {rep.messages_unconsumed}")
+        if counts_s != (rep.processed_frames + 1, rep.processed_frames + 1, 0):
+            raise AssertionError(f"--online --jsonl launch counts {counts_s}")
+        launches["demo_online_synced"] = counts_s
+        log("10.6 demo online synced", messages=rep.produced_messages, synced=rep.frames_synced,
+            unconsumed=rep.messages_unconsumed, processed=rep.processed_frames,
+            slot_dropped=rep.slot_dropped, step_ms_p50=rep.step_ms_p50, e2e_ms_p50=rep.e2e_ms_p50,
+            plain_step_ms_p50=plain_p50, step_over_plain=rep.step_ms_p50 / plain_p50,
+            launches=list(counts_s))
+
+        # 7. --closed-loop over 64 frames; the exact convergence on the same
+        # shape with jitter-free stamps (with jitter every camera measures
+        # the latency plus its lag behind the pivot).
+        run_c, counts_c, _ = demo_main(loop_n + ["--closed-loop"])
+        rep = run_c.report
+        if counts_c != (DEMO_LOOP_FRAMES + 1, DEMO_LOOP_FRAMES + 1, 0):
+            raise AssertionError(f"--closed-loop launch counts {counts_c}")
+        launches["demo_closed_loop"] = counts_c
+        loop_s = LOOP_PROC_S + LOOP_NET_S
+        if rep.n_feedback_received != DEMO_LOOP_FRAMES or not (
+                rep.fb_delay_measured[-1] >= loop_s - LOOP_TOL_S).all():
+            raise AssertionError(f"--closed-loop: {rep.n_feedback_received} deliveries, "
+                                 f"last delays {rep.fb_delay_measured[-1]}")
+        exact = synthetic.generate_scene(synthetic.SceneConfig(
+            num_cameras=DEMO_CAMS, num_people=DEMO_PEOPLE, num_frames=DEMO_LOOP_FRAMES,
+            seed=DEMO_SEED, stamp_jitter=0.0))
+        ex_frames = Frame.from_arrays(synthetic.frames_from_scene(exact), dev)
+        sens = sensors.VirtualSensorArray(DEMO_CAMS, network_latency=LOOP_NET_S)
+        _, _, ex = sensors.run_closed_loop(run_c.pipe.step, run_c.pipe.init_state(), ex_frames,
+                                           sens, processing_latency=LOOP_PROC_S)
+        first = int(np.argmax(ex.fb_delay_measured[:, 0] > 0))
+        settle = first + cfg.tracker.n_mov_avg
+        last_err = float(np.abs(ex.fb_delay_measured[-1] - loop_s).max())
+        pred_err = float(np.abs(ex.pred_delta_t[settle:] - loop_s).max())
+        if ex.n_feedback_received != DEMO_LOOP_FRAMES or last_err > LOOP_TOL_S or pred_err > LOOP_TOL_S:
+            raise AssertionError(f"closed loop: deliveries {ex.n_feedback_received}, last delay "
+                                 f"off by {last_err}, horizon off by {pred_err} after frame {settle}")
+        log("10.7 demo closed loop", frames=DEMO_LOOP_FRAMES, ms_per_frame=run_c.seconds * 1e3 / DEMO_LOOP_FRAMES,
+            pred_delta_t_last_ms=rep.pred_delta_t[-1] * 1e3, exact_settled_from=settle,
+            exact_last_delay_err_s=last_err, exact_horizon_err_s=pred_err, launches=list(counts_c))
+
+        # 8. Checkpoint resume: run_offline over the first half, save, load,
+        # the second half from the loaded state against from the kept one.
+        half = DEMO_FRAMES // 2
+        first_half = Frame(*(x[:half] for x in frames))
+        second_half = Frame(*(x[half:] for x in frames))
+        mid, _ = pipe.run_offline(pipe.init_state(), first_half)
+        path = os.path.join(tmp, "mid.npz")
+        checkpoint.save_tracker_state(path, mid)
+        loaded = checkpoint.load_tracker_state(path, device=dev)
+        same_state(loaded, mid, "checkpoint round trip")
+        end_a, out_a = pipe.run_offline(loaded, second_half)
+        end_b, out_b = pipe.run_offline(mid, second_half)
+        same_state(end_a, end_b, "resumed final state")
+        da, db = decisions(out_a), decisions(out_b)
+        bad = [k for k in da if not torch.equal(da[k], db[k])]
+        diff = float((out_a.fused.xyz - out_b.fused.xyz).abs().max())
+        if bad or diff > RESUME_TOL:
+            raise AssertionError(f"resumed second half: decisions {bad}, joints off by {diff}")
+        log("10.8 checkpoint resume", frames=f"{half}+{DEMO_FRAMES - half}", decisions="exact",
+            max_abs_err=diff, published_after=int(out_a.fused.valid[-1].sum()))
+
+        # 9. profile_stages on the demo scene against run_offline timed directly.
+        stages = profiling.profile_stages(pipe, frames, reps=3)
+        direct = []
+        for _ in range(3):
+            state0 = pipe.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run_offline(state0, frames)
+            torch.cuda.synchronize()
+            direct.append((time.perf_counter() - t0) * 1e3 / DEMO_FRAMES)
+        direct_ms = statistics.median(direct)
+        ratio = stages["full"] / direct_ms
+        if not 1 / PROFILE_FULL_RATIO <= ratio <= PROFILE_FULL_RATIO:
+            raise AssertionError(f"profile_stages full {stages['full']} ms/frame vs direct {direct_ms}")
+        log("10.9 profile_stages", unit="ms/frame", **stages, direct_run_offline=direct_ms,
+            full_over_direct=ratio)
+
+        # --viz / --live on this machine: matplotlib or a clear ImportError.
+        try:
+            viz.require_matplotlib()
+            viz_state = "matplotlib present"
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise
+            try:
+                demo_main(["--frames", "2", "--viz", os.path.join(tmp, "x.png")])
+            except ImportError as e2:
+                if "matplotlib" not in str(e2):
+                    raise
+                viz_state = "ImportError names matplotlib"
+            else:
+                raise AssertionError("--viz ran without matplotlib")
+        log("10 demo", viz=repr(viz_state))
+    return launches, k3_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="write a profiler table here")
@@ -1183,18 +1519,24 @@ def main() -> int:
     k3_err = phase_k3(dev, off_pipe, inputs)
     k3_err = max(k3_err, phase_scaled(dev, scaled))
     times.update(phase_offline_times(dev, off_pipe, inputs, args.profile))
+    demo_launches, demo_k3_err = phase_demo(dev)
+    k3_err = max(k3_err, demo_k3_err)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"
-    # launches: the online path's (phase 4) plus the offline path's (phase
-    # 6) counts; no single PyTorch call computes JV, the fold or the scan,
-    # so there is no library time.
+    # launches: the online path's (phase 4), the offline path's (phase 6)
+    # and the demo modes' (phase 10) counts; no single PyTorch call computes
+    # JV, the fold or the scan, so there is no library time.
     by_path = {
         "jv_assign": {"step": launches["jv_assign"], "run_offline": 0},
         "association_fold": {"step": launches["association_fold"],
                              "run_offline": off_launches["association_fold"]},
         "tracker_scan": {"step": 0, "run_offline": off_launches["tracker_scan"]},
     }
+    # The demo CLI's modes (phase 10), each counted over its own run.
+    for i, name in enumerate(("jv_assign", "association_fold", "tracker_scan")):
+        for mode, counts in demo_launches.items():
+            by_path[name][mode] = counts[i]
     # K1 replaces both JV sites: the single problem (:238) and the batched
     # launch (:516).
     also = {"jv_assign": [f"{tpu}/hungarian_pallas.py:516"]}

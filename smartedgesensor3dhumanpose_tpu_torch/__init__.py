@@ -8,6 +8,13 @@ sequential solvers on those paths run as hand-written CUDA kernels on the
 card (`ops.hungarian`, `ops.association`, `ops.tracker`, sources in
 `csrc/`) and as their plain PyTorch versions on the CPU.
 
+Around them, as in the JAX package: the demo CLI (`demo`, every mode, on
+the card unless `--device cpu`), the live loops (`online`: latest-wins, and
+per-camera messages through the native approximate-time synchronizer of
+`sync` + `native/runtime.cpp`), record and replay (`io.replay`), the closed
+feedback loop through virtual sensors (`io.sensors`), tracker checkpoints,
+the stage profiler, MPJPE/PCK evaluation, health events and dashboards.
+
 This package imports torch and numpy only; the JAX package
 `smartedgesensor3dhumanpose_tpu` is the reference it is tested against.
 """

@@ -104,6 +104,53 @@ def build_rig(
     return CameraRig(K=t(K), P=t(P), F=t(fundamental_matrices(P)), image_size=t(size))
 
 
+def save_rig(rig: CameraRig, path: str, P=None, K=None) -> None:
+    """Persist a calibration to JSON (P, K, image_size; F is derived), in
+    the JAX package's format: a file written by either package loads in the
+    other.
+
+    The reference distributes calibration as launch-file static transforms +
+    CameraInfo topics (cameras_extrinsics.launch:2-18,
+    skeleton_3d_triang_mult_node.cpp:199-228); the rig file is the
+    deployment equivalent, and `load_rig` rebuilds the rig (including the
+    fundamental matrices) from it.
+
+    A CameraRig holds its compute dtype (float32 by default), so saving
+    from `rig` alone serializes the quantized calibration. To keep a float64
+    calibration lossless, pass the original `P`/`K` given to `build_rig`;
+    they are written instead of the rig's copies.
+    """
+    import json
+
+    def f64(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, np.float64).tolist()
+
+    data = {
+        "P": f64(rig.P if P is None else P),
+        "K": f64(rig.K if K is None else K),
+        "image_size": f64(rig.image_size),
+    }
+    with open(path, "w") as f:
+        json.dump(data, f)
+
+
+def load_rig(path: str, dtype=torch.float32, device="cuda") -> CameraRig:
+    """Rebuild a CameraRig saved by `save_rig` (F recomputed in float64)."""
+    import json
+
+    with open(path) as f:
+        data = json.load(f)
+    return build_rig(
+        np.asarray(data["P"], np.float64),
+        np.asarray(data["K"], np.float64),
+        image_size=np.asarray(data["image_size"], np.float64),
+        dtype=dtype,
+        device=device,
+    )
+
+
 def normalize_keypoints(
     kp2d: torch.Tensor,
     cov2d: torch.Tensor,

@@ -51,6 +51,21 @@ def tracker_state_from_numpy(arrays: dict, device="cuda", dtype=None) -> Tracker
     return TrackerState(**fields)
 
 
+def host(x) -> np.ndarray:
+    """A numpy array of a tensor on any device, or of an array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def tree_to(tree, device):
+    """A tensor, or a (named) tuple of them nested, moved to `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    values = [tree_to(x, device) for x in tree]
+    return type(tree)(*values) if hasattr(tree, "_fields") else type(tree)(values)
+
+
 def tracker_state_to_numpy(state: TrackerState) -> dict:
     """Dict of numpy arrays, one per TrackerState field."""
     return {

@@ -57,6 +57,13 @@ class StepOutput(NamedTuple):
     n_dropped_track_spawns: torch.Tensor  # [] int32
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device` (nothing to wait for on the
+    CPU); a host clock stopped after it counts the device's work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def mask_stale_cameras(frame: Frame, max_sync_diff: float):
     """Drop cameras lagging the pivot (newest) stamp (:1029-1057). Leading
     axes (frames) pass through; returns (frame, pivot [...])."""

@@ -27,10 +27,14 @@ from smartedgesensor3dhumanpose_tpu.io import synthetic as jax_synthetic
 from smartedgesensor3dhumanpose_tpu.types import Frame as JaxFrame
 from smartedgesensor3dhumanpose_tpu_torch import (
     cameras,
+    checkpoint,
     config,
     convert,
+    demo,
     fusion,
+    online,
     pipeline,
+    profiling,
     skeleton,
 )
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
@@ -373,9 +377,14 @@ def test_entry_points_default_to_the_card():
         (pipeline.Pipeline.__init__, "device"), (cameras.hall_rig, "device"),
         (cameras.build_rig, "device"), (TrackerState.initial, "device"),
         (convert.rig_from_numpy, "device"), (convert.frame_from_arrays, "device"),
-        (convert.tracker_state_from_numpy, "device"),
+        (convert.tracker_state_from_numpy, "device"), (cameras.load_rig, "device"),
+        (checkpoint.load_tracker_state, "device"), (demo.build_demo, "device"),
+        (online.default_frame_builder, "device"),
     ):
         assert inspect.signature(fn).parameters[name].default == "cuda", fn.__qualname__
+    # The CLIs' --device flag defaults to the card too.
+    for mod in (demo, profiling):
+        assert re.search(r'"--device", default="cuda"', inspect.getsource(mod.main)), mod.__name__
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the defaults run there")
     _, tcfg = _config_pair()
@@ -385,6 +394,8 @@ def test_entry_points_default_to_the_card():
         pipeline.Pipeline(cameras.hall_rig(CAMS, device="cpu"), tcfg)
     with pytest.raises((RuntimeError, AssertionError)):
         TrackerState.initial(4)
+    with pytest.raises((RuntimeError, AssertionError)):
+        demo.build_demo(4, 2, 2, 0)
 
 
 # ---------------------------------------------------------- offline replay --
@@ -545,14 +556,31 @@ def test_convert_rig_and_state_round_trip():
 
 def test_port_imports_no_jax():
     """The port and chip_smoke.py import torch and numpy, never jax or the
-    JAX package (the card's machine has no JAX)."""
+    JAX package (the card's machine has no JAX), and name no path into the
+    JAX package's directory (to build or load anything there, such as its
+    native runtime): a path string through it, or its bare name quoted as
+    a path component. chip_smoke.py may name the TPU kernels' files in its
+    report (`replaces`), and nothing else there."""
     pattern = re.compile(r"^\s*(import|from) (jax|smartedgesensor3dhumanpose_tpu)\b")
+    jax_dir = re.compile(
+        r"smartedgesensor3dhumanpose_tpu[/\\]|[\"']smartedgesensor3dhumanpose_tpu[\"']"
+    )
+    report_label = 'tpu = "smartedgesensor3dhumanpose_tpu/ops"'
     files = [os.path.join(_REPO, "chip_smoke.py")]
     pkg = os.path.join(_REPO, "smartedgesensor3dhumanpose_tpu_torch")
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 25
     for path in files:
         with open(path) as fh:
             for i, line in enumerate(fh, 1):
                 assert not pattern.match(line), f"{path}:{i}: {line.strip()}"
+                if path.endswith("chip_smoke.py") and line.strip() == report_label:
+                    continue
+                assert not jax_dir.search(line), f"{path}:{i}: {line.strip()}"
+    # The pattern catches the ways a path into the package is spelt.
+    for spelt in ('os.path.join(root, "smartedgesensor3dhumanpose_tpu", "native")',
+                  "Path('smartedgesensor3dhumanpose_tpu') / 'native'",
+                  '"../smartedgesensor3dhumanpose_tpu/native/libses3d_runtime.so"'):
+        assert jax_dir.search(spelt), spelt
+    assert not jax_dir.search("smartedgesensor3dhumanpose_tpu_torch/native/runtime.cpp")
