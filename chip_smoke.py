@@ -42,6 +42,16 @@ Phases (each prints one line; any failure exits non-zero):
     --online --jsonl (accounting); --closed-loop over 64 frames (and the
     horizon's exact convergence on jitter-free stamps); a checkpoint resume;
     profile_stages against a direct timing of run_offline
+ 11 the end-to-end slice (images -> keypoint CNN -> decode -> Pipeline.step):
+    the full-width detector (DetectorConfig(): 480x640, width 128, stride 8,
+    bfloat16) on the demo's 16 cameras, 30 steps from seeded random
+    weights (finite outputs, K1 and K2 once per step), its heatmaps in
+    float32 and bfloat16 compute against the CPU port's and a float64
+    evaluation on the same weights and images, its decoding against the
+    CPU's on identical heatmaps (integers exact), the detector's, decoder's
+    and step's times against Pipeline.step on the same detections;
+    then the detector trained on the card (300 Adam steps) on the JAX
+    package's test scene: every person recovered within 5 cm mean, 8 cm max
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -55,6 +65,7 @@ Usage:  python3 chip_smoke.py [--profile DIR]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -88,7 +99,7 @@ K1_PLAN_BATCHES = (1, 7, 8, 64)
 K1_BATCHED = ((1, 16, 24), (7, 16, 24), (64, 16, 24), (64, 40, 40), (8, 120, 120))
 # Fused and predicted joints must agree with the JAX float32 reference within
 # this, outside each track's first published frame (the prediction there
-# rides on unpublished warm-up velocities; ROADMAP hazard C3).
+# rides on unpublished warm-up velocities; ROADMAP C5, hazards closed).
 JOINT_TOL_M = 1.0e-3
 # The prediction horizon is a mean of three float32 delays on both sides.
 DELTA_T_TOL_S = 1.0e-6
@@ -731,7 +742,7 @@ def phase_offline(dev, golden, rig, cfg, inputs):
         on the card: every decision exact.
     End to end against the golden it is reported, not gated: the float32
     cold-start LM of the reference does not converge on some ghost persons,
-    where its output depends on the summation order (PERF.md, ROADMAP C6)."""
+    where its output depends on the summation order (PERF.md, ROADMAP C2)."""
     from smartedgesensor3dhumanpose_tpu_torch import pipeline
     from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
     from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
@@ -1476,6 +1487,294 @@ def phase_demo(dev):
     return launches, k3_err
 
 
+# --------------------------------------------------------------- phase 11 --
+
+# The end-to-end slice at full width: DetectorConfig()'s defaults (480x640,
+# width 128, stride 8, 17 joints, D 6, bfloat16 compute) on the demo's rig and
+# config (build_demo(16, 6, ...): D 6, H 12, T 12), random weights from this
+# seed; 5 warm-up steps, then E2E_TIMED timed ones.
+E2E_SEED = 0
+E2E_WARM, E2E_TIMED = 5, 25
+# Images the card's heatmaps are held to the CPU port's on.
+E2E_COMPARE_IMAGES = 2
+# Heatmaps of the same weights and images, card against CPU, in float32
+# (IEEE, TF32 off) and in bfloat16 compute. This random full-width network
+# is sensitive to rounding: the CPU port's float32 heatmaps lie up to
+# 4.1e-4 (mean 5.0e-6) from a float64 evaluation of the same weights and
+# images, its bfloat16 ones up to 1.6e-2 (mean 2.9e-4), since a bfloat16
+# rounding that lands the other way in one stage grows through the next
+# three (this phase prints them). Card and CPU round at other places, so
+# each may be that far from float64 in another direction: on an H100 they
+# came out 4.1e-4 (float32) and 9.4e-3 (bfloat16) apart.
+# Besides, the card's mean distance from float64 must stay within
+# E2E_HEAT_MEAN_RATIO of the CPU's: the card computes the detector as
+# accurately as the CPU port does.
+E2E_HEAT_TOL = {"float32": 1.0e-3, "bfloat16": 4.0e-2}
+E2E_HEAT_MEAN_RATIO = 2.0
+# Decoded floats on identical heatmaps (same code, sums in another order):
+# positions in px, covariances relative (px^2).
+E2E_POS_TOL_PX = 1.0e-4
+E2E_COV_RTOL = 1.0e-5
+# The accuracy check of the JAX package's tests/test_models.py: its
+# detector, its scene and its thresholds.
+E2E_TRAIN_DETECTOR = dict(image_size=(96, 128), heatmap_stride=4, width=32, max_detections=3,
+                          nms_radius=4, joint_radius=9, window=7, min_peak_score=0.15,
+                          seed_joints=(11, 12))
+E2E_TRAIN_STEPS = 300
+E2E_TRAIN_FRAMES = 4
+E2E_MAX_LOSS, E2E_MEAN_M, E2E_MAX_M = 5.0e-3, 0.05, 0.08
+
+
+def match_to_gt(xyz, score, valid, gt, to_fusion, max_dist=0.5):
+    """Greedy-match fused persons to ground truth (the JAX package's
+    tests/test_fusion.py helper): per GT person the mean joint error of its
+    best unused match, inf when none lies within max_dist."""
+    errs, used = [], set()
+    for g in range(gt.shape[0]):
+        best, best_p = np.inf, None
+        for p in np.nonzero(valid)[0]:
+            ok = score[p][to_fusion] > 0
+            if p in used or ok.sum() < 5:
+                continue
+            e = np.linalg.norm(xyz[p][to_fusion][ok] - gt[g][ok], axis=-1).mean()
+            if e < best:
+                best, best_p = e, p
+        if best_p is not None and best < max_dist:
+            used.add(best_p)
+            errs.append(best)
+        else:
+            errs.append(np.inf)
+    return np.array(errs)
+
+
+def rendered(frames, t: int, image_size):
+    """The scene's frame t drawn as the synthetic camera images."""
+    from smartedgesensor3dhumanpose_tpu_torch.models import train
+
+    kp = frames.kp2d[t]
+    ok = frames.det_valid[t][..., None] & (kp[..., 2] > 0)
+    return train.render_images(kp[..., :2], ok, image_size)
+
+
+def timed_steps(step_fn, state, inputs):
+    """Wall ms of each call of step_fn(state, *inputs[t]), a device sync
+    after each; returns (state, outputs, ms)."""
+    outs, ms = [], []
+    for args in inputs:
+        t0 = time.perf_counter()
+        state, out = step_fn(state, *args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    return state, outs, ms
+
+
+def compare_decode(heat, det_cfg) -> float:
+    """decode_heatmaps on the card against the CPU on the same heatmaps:
+    seeds, claimed cells, scores and validity equal, floats within the
+    E2E tolerances; returns the largest position difference (px)."""
+    from smartedgesensor3dhumanpose_tpu_torch.models import keypoint_cnn
+
+    peaks = [keypoint_cnn.find_peaks(h, det_cfg) for h in (heat, heat.cpu())]
+    for name, g, w in zip(keypoint_cnn.Peaks._fields, *peaks):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"decode {name}: card != CPU on identical heatmaps")
+    got = [x.cpu() for x in keypoint_cnn.decode_heatmaps(heat, det_cfg)]
+    want = keypoint_cnn.decode_heatmaps(heat.cpu(), det_cfg)
+    for name, g, w in zip(("kp2d", "cov2d", "det_score", "det_valid"), got, want):
+        if g.dtype == torch.bool or name == "det_score":
+            same = torch.equal(g, w)
+        elif name == "kp2d":
+            same = torch.equal(g[..., 2], w[..., 2]) and bool(
+                (g[..., :2] - w[..., :2]).abs().max() <= E2E_POS_TOL_PX)
+        else:
+            same = bool(((g - w).abs() <= E2E_COV_RTOL * w.abs() + E2E_POS_TOL_PX).all())
+        if not same:
+            raise AssertionError(f"decode {name}: card != CPU on identical heatmaps")
+    return float((got[0][..., :2] - want[0][..., :2]).abs().max())
+
+
+def phase_end_to_end(dev, smi: str):
+    """The end-to-end slice (images -> detector -> Pipeline.step): the
+    full-width detector on the demo's 16 cameras with its launch counts,
+    its heatmaps and decoding against the CPU port, its times; then the
+    trained detector's accuracy on the JAX test's scene."""
+    from smartedgesensor3dhumanpose_tpu_torch import cameras, demo, skeleton
+    from smartedgesensor3dhumanpose_tpu_torch.config import (
+        FusionConfig,
+        PipelineConfig,
+        TrackerConfig,
+    )
+    from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+    from smartedgesensor3dhumanpose_tpu_torch.models import end_to_end, keypoint_cnn, train
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    # 1. Full width on the demo's 16 cameras, random weights.
+    det_cfg = keypoint_cnn.DetectorConfig()
+    n_frames = E2E_WARM + E2E_TIMED
+    _, cfg, frames, pipe = demo.build_demo(DEMO_CAMS, DEMO_PEOPLE, n_frames, DEMO_SEED, device=dev)
+    step, model, state = end_to_end.make_end_to_end(
+        pipe.rig, cfg, det_cfg, torch.Generator().manual_seed(E2E_SEED), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    images = [rendered(frames, t, det_cfg.image_size) for t in range(n_frames)]
+    inputs = [(images[t], frames.cam_stamp[t]) for t in range(n_frames)]
+    reset_counts()
+    state, outs, e2e_ms = timed_steps(step, state, inputs)
+    counts = read_counts()
+    if counts != (n_frames, n_frames, 0):
+        raise AssertionError(f"end to end: launch counts {counts}, expected ({n_frames}, {n_frames}, 0)")
+    for t, out in enumerate(outs):
+        if not all(bool(torch.isfinite(x).all()) for x in (
+                out.persons_raw.xyz, out.fused.xyz, out.fused_pred.xyz, out.feedback.kp2d)):
+            raise AssertionError(f"end to end: non-finite output at step {t}")
+    raw_persons = [int(out.persons_raw.valid.sum()) for out in outs]
+    # Pipeline.step alone on the very detections the end-to-end steps
+    # decoded (their step without the detector), and on the scene's frames.
+    det_frames = [(end_to_end.detection_frame(*inputs[t], model, det_cfg),) for t in range(n_frames)]
+    _, _, det_pipe_ms = timed_steps(pipe.step, pipe.init_state(), det_frames)
+    scene_frames = [(at_frame(frames, t),) for t in range(n_frames)]
+    _, _, scene_pipe_ms = timed_steps(pipe.step, pipe.init_state(), scene_frames)
+    e2e_q = statistics.quantiles(e2e_ms[E2E_WARM:], n=10)
+    log("11.1 end to end full width", gpu=repr(smi), cams=DEMO_CAMS,
+        image="x".join(map(str, det_cfg.image_size)), width=det_cfg.width,
+        stride=det_cfg.heatmap_stride, params=n_params, steps=n_frames, finite=True,
+        launches=list(counts), raw_persons_per_step=statistics.mean(raw_persons),
+        step_ms_p50=statistics.median(e2e_ms[E2E_WARM:]), step_ms_p90=e2e_q[-1],
+        pipeline_step_same_detections_ms_p50=statistics.median(det_pipe_ms[E2E_WARM:]),
+        pipeline_step_scene_frames_ms_p50=statistics.median(scene_pipe_ms[E2E_WARM:]))
+
+    # 2. The card's heatmaps against the CPU port's and a float64 evaluation
+    # of the same weights and images; its decoding against the CPU's.
+    few = images[0][:E2E_COMPARE_IMAGES]
+
+    def heatmaps(compute, device):
+        m = keypoint_cnn.init_detector(dataclasses.replace(det_cfg, compute_dtype=compute),
+                                       device=device)
+        m.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            return m(few.to(device)).cpu().double()
+
+    def dist(a, b):
+        d = (a - b).abs()
+        return float(d.max()), float(d.mean())
+
+    exact = heatmaps(torch.float64, "cpu")
+    heat_err = {}
+    for name, compute in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        card, cpu = heatmaps(compute, dev), heatmaps(compute, "cpu")
+        heat_err[name] = {"card_vs_cpu": dist(card, cpu), "card_vs_f64": dist(card, exact),
+                          "cpu_vs_f64": dist(cpu, exact)}
+        e = heat_err[name]
+        if not (e["card_vs_cpu"][0] <= E2E_HEAT_TOL[name]
+                and e["card_vs_f64"][1] <= E2E_HEAT_MEAN_RATIO * e["cpu_vs_f64"][1]):
+            raise AssertionError(f"{name} heatmaps (max, mean): {e}")
+    with torch.no_grad():
+        heat = model(images[0])
+    pos_err = compare_decode(heat, det_cfg)
+    valid = keypoint_cnn.decode_heatmaps(heat, det_cfg)[3]
+    log("11.2 detector card vs CPU", images=E2E_COMPARE_IMAGES,
+        heat_max_mean_abs_err="'" + json.dumps(heat_err) + "'",
+        heat_tol="'" + json.dumps(E2E_HEAT_TOL) + "'", mean_ratio_tol=E2E_HEAT_MEAN_RATIO,
+        decode_images=DEMO_CAMS,
+        decode_integers="exact", decode_pos_max_abs_err_px=pos_err,
+        valid_detections=int(valid.sum()))
+
+    # 3. Detector and decode times at full width (16 x 480 x 640), and the
+    # forward's device time by kernel.
+    with torch.no_grad():
+        fwd_ms = sync_time(lambda: model(images[0]), 20)
+        dec_ms = sync_time(lambda: keypoint_cnn.decode_heatmaps(heat, det_cfg), 20)
+        det_ms = sync_time(lambda: keypoint_cnn.detect(model, images[0], det_cfg), 20)
+        by_kernel = device_ms_by_kernel(lambda: model(images[0]), 5)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log("11.3 detector times", gpu=repr(smi), images=DEMO_CAMS, forward_ms=fwd_ms,
+        decode_ms=dec_ms, detect_ms=det_ms, forward_gflop=2 * conv_macs(det_cfg) * DEMO_CAMS / 1e9,
+        forward_device_ms=sum(by_kernel.values()),
+        top_kernels_ms="'" + json.dumps({k[:60]: round(v, 4) for k, v in top}) + "'")
+    del images, inputs, outs, heat, det_frames
+
+    # 4. The trained detector's accuracy (tests/test_models.py's scene).
+    t_cfg = keypoint_cnn.DetectorConfig(**E2E_TRAIN_DETECTOR)
+    cams, people = 6, 2
+    P = cameras.ring_extrinsics(cams, radius=2.2, heights=(3.4, 4.0, 4.6), look_at_z=0.8)
+    K = np.tile(np.asarray((100.0, 100.0, 64.0, 48.0)), (cams, 1))
+    scene = synthetic.generate_scene(
+        synthetic.SceneConfig(num_cameras=cams, num_people=people, num_frames=10,
+                              pixel_noise=0.0, keypoint_dropout=0.0, detection_dropout=0.0,
+                              area=(3.4, 3.4), seed=19),
+        rig=cameras.build_rig(P, K, (128, 96), dtype=torch.float64, device="cpu"),
+    )
+    data = synthetic.frames_from_scene(scene)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, loss = train.train_detector(t_cfg, data, steps=E2E_TRAIN_STEPS, batch_cams=3,
+                                         lr=2e-3, seed=0, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t_pipe_cfg = PipelineConfig(
+        fusion=FusionConfig(num_cameras=cams, max_dets_per_cam=3, max_hypotheses=6),
+        tracker=TrackerConfig(max_tracks=6),
+    )
+    step2, model2, state = end_to_end.make_end_to_end(
+        cameras.build_rig(P, K, (128, 96), device=dev), t_pipe_cfg, t_cfg, device=dev)
+    model2.load_state_dict(trained.state_dict())
+    t_frames = Frame.from_arrays(data, dev)
+    to_fusion = np.asarray(skeleton.SIMPLE_MODEL.to_fusion)
+    reset_counts()
+    errs = []
+    for t in range(E2E_TRAIN_FRAMES):
+        state, out = step2(state, rendered(t_frames, t, t_cfg.image_size), t_frames.cam_stamp[t])
+        raw = out.persons_raw
+        errs.append(match_to_gt(raw.xyz.cpu().numpy(), raw.score.cpu().numpy(),
+                                raw.valid.cpu().numpy(), scene["gt_xyz"][t], to_fusion))
+    counts = read_counts()
+    errs = np.concatenate(errs)
+    if counts != (E2E_TRAIN_FRAMES, E2E_TRAIN_FRAMES, 0):
+        raise AssertionError(f"trained end to end: launch counts {counts}")
+    if not loss < E2E_MAX_LOSS:
+        raise AssertionError(f"trained detector: final loss {loss} >= {E2E_MAX_LOSS}")
+    if not (np.isfinite(errs).all() and errs.shape[0] == E2E_TRAIN_FRAMES * people):
+        raise AssertionError(f"trained end to end: not every person recovered: {errs}")
+    if not (errs.mean() < E2E_MEAN_M and errs.max() < E2E_MAX_M):
+        raise AssertionError(f"trained end to end: joint errors {errs} m")
+    log("11.4 trained end to end", gpu=repr(smi), train_steps=E2E_TRAIN_STEPS,
+        train_s=train_s, train_ms_per_step=train_s / E2E_TRAIN_STEPS * 1e3, final_loss=loss,
+        frames=E2E_TRAIN_FRAMES, persons_recovered=f"{int(np.isfinite(errs).sum())}/{errs.shape[0]}",
+        mean_err_mm=errs.mean() * 1e3, max_err_mm=errs.max() * 1e3, launches=list(counts))
+    return {"jv_assign": n_frames, "association_fold": n_frames, "tracker_scan": 0}
+
+
+def device_ms_by_kernel(fn, reps: int) -> dict:
+    """Device ms per call of `fn` by kernel name, from a torch.profiler
+    trace of `reps` calls."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def conv_macs(det_cfg) -> int:
+    """Multiply-adds of one image through the detector's convolutions."""
+    from smartedgesensor3dhumanpose_tpu_torch.models import keypoint_cnn
+
+    h, w = det_cfg.image_size
+    macs = 0
+    for c_in, c_out, stride in keypoint_cnn.stage_plan(det_cfg):
+        h, w = -(-h // stride), -(-w // stride)
+        macs += h * w * c_out * c_in * 9
+    return macs + h * w * c_out * det_cfg.num_joints
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="write a profiler table here")
@@ -1521,11 +1820,13 @@ def main() -> int:
     times.update(phase_offline_times(dev, off_pipe, inputs, args.profile))
     demo_launches, demo_k3_err = phase_demo(dev)
     k3_err = max(k3_err, demo_k3_err)
+    e2e_launches = phase_end_to_end(dev, smi)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"
-    # launches: the online path's (phase 4), the offline path's (phase 6)
-    # and the demo modes' (phase 10) counts; no single PyTorch call computes
+    # launches: the online path's (phase 4), the offline path's (phase 6),
+    # the demo modes' (phase 10) and the end-to-end step's (phase 11,
+    # full width) counts; no single PyTorch call computes
     # JV, the fold or the scan, so there is no library time.
     by_path = {
         "jv_assign": {"step": launches["jv_assign"], "run_offline": 0},
@@ -1537,6 +1838,7 @@ def main() -> int:
     for i, name in enumerate(("jv_assign", "association_fold", "tracker_scan")):
         for mode, counts in demo_launches.items():
             by_path[name][mode] = counts[i]
+        by_path[name]["end_to_end"] = e2e_launches[name]
     # K1 replaces both JV sites: the single problem (:238) and the batched
     # launch (:516).
     also = {"jv_assign": [f"{tpu}/hungarian_pallas.py:516"]}

@@ -301,3 +301,18 @@ def hall_rig(
         )
     K = np.tile(np.asarray(intrinsics, dtype=np.float64), (num_cameras, 1))
     return build_rig(P, K, image_size, dtype=dtype, device=device)
+
+
+def project_to_pixels(xyz_cam: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Pinhole projection of camera-frame points to pixels.
+
+    Args:
+      xyz_cam: [..., 3] points in a camera frame.
+      K: [4] (fx, fy, cx, cy) for that camera.
+    Returns:
+      [..., 2] pixel coordinates.
+    """
+    z = xyz_cam[..., 2]
+    px = K[0] * xyz_cam[..., 0] / z + K[2]
+    py = K[1] * xyz_cam[..., 1] / z + K[3]
+    return torch.stack([px, py], dim=-1)

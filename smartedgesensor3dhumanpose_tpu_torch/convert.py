@@ -1,9 +1,10 @@
 """Conversions between host arrays and the port's types.
 
-The online path carries no learned weights: what crosses between the JAX
-package and the port is the calibration, the frames and the carried
-TrackerState. Field names and layouts match the JAX package's types, so a
-state taken from a JAX run mid-sequence (as numpy) continues in the port.
+What crosses between the JAX package and the port: the calibration, the
+frames, the carried TrackerState and the keypoint detector's weights. Field
+names and layouts match the JAX package's types, so a state taken from a JAX
+run mid-sequence (as numpy) continues in the port, and a flax parameter
+tree of the detector loads into `models.keypoint_cnn.KeypointCNN`.
 Like every entry point of the port, these place their tensors on the card
 unless the caller asks for the CPU (`device="cpu"`).
 """
@@ -72,3 +73,40 @@ def tracker_state_to_numpy(state: TrackerState) -> dict:
         name: getattr(state, name).detach().cpu().numpy()
         for name in TrackerState._fields
     }
+
+
+def detector_params_from_flax(params) -> dict:
+    """A `KeypointCNN` state_dict (CPU tensors) from the JAX package's flax
+    parameter tree of the same DetectorConfig (`{"params": {...}}` or its
+    inner dict), as numpy or any array type: conv kernels HWIO -> OIHW,
+    GroupNorm `scale` -> `weight`, biases as they are."""
+    tree = params.get("params", params)
+    state = {}
+    for name, leaves in tree.items():
+        for leaf, value in leaves.items():
+            a = np.array(value)  # a writable copy
+            if leaf == "kernel":
+                state[f"{name}.weight"] = torch.from_numpy(a.transpose(3, 2, 0, 1).copy())
+            elif leaf == "scale":
+                state[f"{name}.weight"] = torch.from_numpy(a)
+            elif leaf == "bias":
+                state[f"{name}.bias"] = torch.from_numpy(a)
+            else:
+                raise KeyError(f"unknown detector parameter {name}/{leaf}")
+    return state
+
+
+def detector_params_to_flax(state_dict: dict) -> dict:
+    """The inverse of `detector_params_from_flax`: `{"params": {...}}` of
+    numpy arrays (OIHW -> HWIO; a GroupNorm's `weight` -> `scale`)."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        name, leaf = key.split(".")
+        a = value.detach().cpu().numpy()
+        if leaf == "weight" and a.ndim == 4:
+            tree.setdefault(name, {})["kernel"] = a.transpose(2, 3, 1, 0).copy()
+        elif leaf == "weight":
+            tree.setdefault(name, {})["scale"] = a.copy()
+        else:
+            tree.setdefault(name, {})["bias"] = a.copy()
+    return {"params": tree}

@@ -38,6 +38,7 @@ from smartedgesensor3dhumanpose_tpu_torch import (
     skeleton,
 )
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
+from smartedgesensor3dhumanpose_tpu_torch.models import end_to_end, keypoint_cnn, train
 from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame, TrackerState
 
@@ -379,7 +380,9 @@ def test_entry_points_default_to_the_card():
         (convert.rig_from_numpy, "device"), (convert.frame_from_arrays, "device"),
         (convert.tracker_state_from_numpy, "device"), (cameras.load_rig, "device"),
         (checkpoint.load_tracker_state, "device"), (demo.build_demo, "device"),
-        (online.default_frame_builder, "device"),
+        (online.default_frame_builder, "device"), (keypoint_cnn.init_detector, "device"),
+        (end_to_end.make_end_to_end, "device"), (train.train_detector, "device"),
+        (train.make_training_batch, "device"),
     ):
         assert inspect.signature(fn).parameters[name].default == "cuda", fn.__qualname__
     # The CLIs' --device flag defaults to the card too.
@@ -396,6 +399,8 @@ def test_entry_points_default_to_the_card():
         TrackerState.initial(4)
     with pytest.raises((RuntimeError, AssertionError)):
         demo.build_demo(4, 2, 2, 0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        keypoint_cnn.init_detector(keypoint_cnn.DetectorConfig(width=8, depth=1))
 
 
 # ---------------------------------------------------------- offline replay --
