@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's online and offline pipelines and its demo CLI on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's online and offline pipelines, its demo CLI and its sharded paths on NVIDIA GPUs and check them.
 
 Phases (each prints one line; any failure exits non-zero):
   0 environment: card name and power limit, torch/CUDA versions, TF32 flags
@@ -52,6 +52,18 @@ Phases (each prints one line; any failure exits non-zero):
     and step's times against Pipeline.step on the same detections;
     then the detector trained on the card (300 Adam steps) on the JAX
     package's test scene: every person recovered within 5 cm mean, 8 cm max
+ 12 the sharded paths (parallel/sharding.py): run_offline_sharded
+    (fusion_batch=32) over both golden scenes on make_mesh() (every visible
+    card) and on virtual meshes of cuda:0 (data 2 x model 2, 4 x 1), with
+    the launch counts (K1 = 0, K2 = one per chunk of each data shard,
+    K3 = 1): fusion decisions against run_offline and the golden, its
+    tracker stage on the golden's inputs against the golden's, the whole
+    run against run_offline and the golden (gated on the benign scene);
+    fuse_frame_sharded on phase 8's 64-camera frame over 4 entries of
+    cuda:0 against fusion.fuse_frame (one K2 launch); sharding.dryrun on
+    4 entries; with several cards the same across them, and K1-K3 on
+    cuda:1 tensors while cuda:0 is current; wall times of each mesh
+    against run_offline
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -709,26 +721,33 @@ def plain_offline(pipe, state0, frames):
     return pipeline.offline_outputs(frames, persons, pivots, n_drop, track, pipe.rig, cfg)
 
 
+def offline_diff(got, want) -> tuple:
+    """How one offline StepOutput departs from another: (integer fields
+    that differ, {path: largest joint difference in m})."""
+    bad, worst = [], {}
+    for path, a, b in zip(("persons_raw", "fused", "fused_pred"), got[:3], want[:3]):
+        bad += [f"{path}.{field}" for field in ("valid", "person_id")
+                if not torch.equal(getattr(a, field), getattr(b, field))]
+        worst[path] = float((a.xyz - b.xyz).abs().max())
+    bad += [field for field in ("n_dropped_hypotheses", "n_dropped_track_spawns")
+            if not torch.equal(getattr(got, field), getattr(want, field))]
+    if not torch.equal(got.feedback.kp_valid, want.feedback.kp_valid):
+        bad.append("feedback.kp_valid")
+    return bad, worst
+
+
 def compare_outputs(got, want, name: str) -> float:
     """The main path against the plain path on the card: every integer
     field equal, floats within K3's tolerances (fusion and the LM run the
     same ops on both sides). Returns the largest float difference."""
-    worst = 0.0
-    for path, a, b in zip(("persons_raw", "fused", "fused_pred"), got[:3], want[:3]):
-        for field in ("valid", "person_id"):
-            if not torch.equal(getattr(a, field), getattr(b, field)):
-                raise AssertionError(f"{name} {path}.{field}: kernels != plain")
+    bad, worst = offline_diff(got, want)
+    if bad:
+        raise AssertionError(f"{name}: {bad} differ")
+    for path, diff in worst.items():
         tol = K3_FLOAT_TOL["fused_pred.xyz"] if path == "fused_pred" else K3_FLOAT_TOL["fused.xyz"]
-        diff = float((a.xyz - b.xyz).abs().max())
         if not diff <= tol:
-            raise AssertionError(f"{name} {path}.xyz: kernels vs plain off by {diff} > {tol}")
-        worst = max(worst, diff)
-    for field in ("n_dropped_hypotheses", "n_dropped_track_spawns"):
-        if not torch.equal(getattr(got, field), getattr(want, field)):
-            raise AssertionError(f"{name} {field}: kernels != plain")
-    if not torch.equal(got.feedback.kp_valid, want.feedback.kp_valid):
-        raise AssertionError(f"{name} feedback.kp_valid: kernels != plain")
-    return worst
+            raise AssertionError(f"{name} {path}.xyz: off by {diff} > {tol}")
+    return max(worst.values())
 
 
 def phase_offline(dev, golden, rig, cfg, inputs):
@@ -1775,6 +1794,290 @@ def conv_macs(det_cfg) -> int:
     return macs + h * w * c_out * det_cfg.num_joints
 
 
+# --------------------------------------------------------------- phase 12 --
+
+# The sharded replay's meshes of virtual entries on one card: (data, model).
+VIRTUAL_MESHES = ((2, 2), (4, 1))
+# Entries of the sharded fusion's model axis on one card (phase 8's frame).
+FUSION_ENTRIES = 4
+# Warm calls timed, in turns, for each mesh and for run_offline.
+SHARDED_TIMED = 5
+
+
+def to_device(tree, dev):
+    """A tensor, or a (named) tuple of them nested, on `dev`; other leaves
+    (PriorResult.iters) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, tuple):
+        values = [to_device(x, dev) for x in tree]
+        return type(tree)(*values) if hasattr(tree, "_fields") else tuple(values)
+    return tree
+
+
+def sharded_k2_launches(n: int, data: int) -> int:
+    """K2 launches of run_offline_sharded over n frames: one per fusion
+    chunk of each data shard (torch.tensor_split's shard sizes)."""
+    sizes = [len(s) for s in torch.tensor_split(torch.arange(n), data)]
+    return sum(-(-size // OFFLINE_FUSION_BATCH) for size in sizes)
+
+
+def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
+    """run_offline_sharded over both golden scenes on `mesh`, with the
+    launch counts of each call (K1 = 0, K2 per shard chunk, K3 = 1), checked:
+      - its fusion stage against run_offline's in the same call and
+        against the offline golden: every decision exact, joints within
+        JOINT_TOL_M of run_offline's;
+      - its tracker stage (track_sharded: K3 on the home device, the
+        reprojection split over the data rows) on the golden's own tracker
+        inputs against the golden's tracker stage, as phase 6 checks
+        run_offline's;
+      - the whole run against run_offline in the same call (every
+        decision exact, joints within K3's tolerances) and against the
+        golden (every decision exact, joints reported as phase 6 reports
+        run_offline's): gated on the benign scene, reported on the
+        adversarial one (ROADMAP C2).
+    Returns ((K1, K2, K3) summed over both scenes, report)."""
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+    from smartedgesensor3dhumanpose_tpu_torch.types import TrackerState
+
+    launches = [0, 0, 0]
+    report = {}
+    for scene in SCENES:
+        frames = stacked_frames(inputs[scene], rig.P.device)
+        n = frames.kp2d.shape[0]
+        state0 = TrackerState.initial(cfg.tracker.max_tracks, cfg.tracker.n_mov_avg,
+                                      cfg.tracker.avg_delay, device=rig.P.device)
+        before = [t.clone() for t in state0]
+        reset_counts()
+        _, out = sharding.run_offline_sharded(rig, cfg, mesh, frames, state0,
+                                              fusion_batch=OFFLINE_FUSION_BATCH)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = (0, sharded_k2_launches(n, mesh.shape["data"]), 1)
+        if counts != want_counts:
+            raise AssertionError(f"sharded {label} {scene}: launch counts (K1, K2, K3) = "
+                                 f"{counts}, expected {want_counts}")
+        launches = [a + b for a, b in zip(launches, counts)]
+        if not all(torch.equal(a, b) for a, b in zip(before, state0)):
+            raise AssertionError(f"sharded {label} {scene}: the input state was written")
+
+        # Fusion stage.
+        want = unsharded[scene]
+        raw, raw_w = out.persons_raw, want.persons_raw
+        if not (torch.equal(raw.valid, raw_w.valid) and torch.equal(raw.score > 0, raw_w.score > 0)
+                and torch.equal(out.n_dropped_hypotheses, want.n_dropped_hypotheses)):
+            raise AssertionError(f"sharded {label} {scene}: fusion decisions != run_offline's")
+        fusion_mm = float((raw.xyz - raw_w.xyz).abs().max()) * 1e3
+        if not fusion_mm <= JOINT_TOL_M * 1e3:
+            raise AssertionError(f"sharded {label} {scene}: fused joints {fusion_mm} mm off")
+        golden_frames = 0
+        golden_fused = golden_pred = 0.0
+        for f in range(n):
+            bad, d_fused, d_pred, _, finite = step_mismatch(at_frame(out, f), golden, scene, f)
+            fusion_bad = [k for k in bad if k in ("raw_valid", "raw_joint_on", "n_dropped_hyp")]
+            if fusion_bad or not finite:
+                raise AssertionError(f"sharded {label} {scene} frame {f}: fusion decisions "
+                                     f"differ from the golden {fusion_bad}")
+            if bad and scene == "benign":
+                raise AssertionError(f"sharded {label} {scene} frame {f}: decisions differ "
+                                     f"from the golden {bad}")
+            if not bad:
+                golden_frames += 1
+                golden_fused, golden_pred = max(golden_fused, d_fused), max(golden_pred, d_pred)
+
+        # Tracker stage on the golden's own inputs.
+        persons, pivots, n_drop, pre = golden_stage(golden, scene, rig.P.device)
+        _, stage = sharding.track_sharded(rig, cfg, mesh, frames, state0, persons, pivots,
+                                          n_drop, pre)
+        stage_mm = 0.0
+        for f in range(n):
+            stage_mm = max(stage_mm, *compare_step(at_frame(stage, f), golden,
+                                                   f"{scene}/stage", f))
+        # The whole run against run_offline (its joints against the golden
+        # are reported: phase 6 reports run_offline's, which exceed
+        # JOINT_TOL_M on some benign frames of the card).
+        bad, worst = offline_diff(out, want)
+        if scene == "benign":
+            compare_outputs(out, want, f"sharded {label} {scene} vs run_offline")
+        report[scene] = dict(
+            fusion_vs_run_offline_mm=fusion_mm, stage_worst_mm=stage_mm * 1e3,
+            run_offline_differs=bad, run_offline_worst_mm={k: v * 1e3 for k, v in worst.items()},
+            golden_frames_exact=f"{golden_frames}/{n}", golden_worst_fused_mm=golden_fused * 1e3,
+            golden_worst_pred_mm=golden_pred * 1e3,
+        )
+    return launches, report
+
+
+def scaled_frame(scaled, dev):
+    """The first frame of phase 8's scaled scene on `dev`, stale cameras
+    masked: (config, rig, frame)."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    cfg, rig, frames = scaled
+    frame, _ = pipeline.mask_stale_cameras(Frame(*(x[0].to(dev) for x in frames)),
+                                           cfg.fusion.max_sync_diff)
+    return cfg, to_device(rig, dev), frame
+
+
+def check_sharded_fusion(label, mesh, scaled):
+    """fuse_frame_sharded on the first frame of phase 8's scaled scene on
+    `mesh`'s model axis against fusion.fuse_frame on the home device: valid
+    and the drop count equal, published joints within JOINT_TOL_M, one K2
+    launch. Returns ((K1, K2, K3), worst m, joints compared)."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+
+    home = mesh.home
+    cfg, rig, frame = scaled_frame(scaled, home)
+    want, want_drop = fusion.fuse_frame(frame, rig, cfg.fusion, with_stats=True)
+    torch.cuda.synchronize(home)
+    reset_counts()
+    got, got_drop = sharding.fuse_frame_sharded(frame, rig, cfg, mesh, with_stats=True)
+    torch.cuda.synchronize(home)
+    counts = read_counts()
+    if counts != (0, 1, 0):
+        raise AssertionError(f"sharded fusion {label}: launch counts (K1, K2, K3) = {counts}, "
+                             "expected (0, 1, 0)")
+    if not (torch.equal(got.valid, want.valid) and torch.equal(got_drop, want_drop)):
+        raise AssertionError(f"sharded fusion {label}: valid or drops differ from fuse_frame")
+    on = want.valid[:, None] & (want.score > 0)
+    diff = (got.xyz - want.xyz).abs()[on]
+    if diff.numel() == 0:
+        raise AssertionError(f"sharded fusion {label}: no published joint to compare")
+    worst = float(diff.max())
+    if not worst < JOINT_TOL_M:
+        raise AssertionError(f"sharded fusion {label}: worst joint {worst} m > {JOINT_TOL_M}")
+    return counts, worst, int(diff.numel())
+
+
+def check_cross_device(home, other, rig, cfg, inputs) -> dict:
+    """K1, K2 and K3 launched on tensors of `other` while `home` is the
+    current device, each against its plain version on the same tensors."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian
+
+    rig = to_device(rig, other)
+    pipe = pipeline.Pipeline(rig, cfg, device=other, fusion_batch=OFFLINE_FUSION_BATCH)
+    frames = stacked_frames(inputs["adversarial"], other)
+    rng = np.random.default_rng(12)
+    with torch.cuda.device(home):
+        cost = torch.as_tensor(rng.random((16, 24), dtype=np.float32), device=other)
+        got = hungarian.linear_sum_assignment(cost)
+        if not torch.equal(got, hungarian.linear_sum_assignment_reference(cost)):
+            raise AssertionError(f"K1 on {other} with {home} current != plain")
+        ctab, conf, det_ok = chunk_fold_inputs(frames, rig, cfg.fusion, 4)
+        args = (cfg.fusion.max_hypotheses, cfg.fusion.max_epipolar_error, cfg.fusion.max_cost)
+        got = association.associate_fold_batched(ctab, conf, det_ok, *args)
+        ref = association.associate_fold_batched_reference(ctab, conf, det_ok, *args)
+        if not all(torch.equal(g, w.to(g.dtype)) for g, w in zip(got, ref)):
+            raise AssertionError(f"K2 on {other} with {home} current != plain")
+        persons, pivots, fb, pre = tracker_inputs(pipe, frames)
+        k3_err, _, _, _ = check_k3(f"on {other}", pipe.init_state(), persons, pivots, fb, pre,
+                                   cfg.prior, cfg.tracker)
+        if torch.cuda.current_device() != home.index:
+            raise AssertionError("a kernel wrapper left another device current")
+    torch.cuda.synchronize(other)
+    return {"home": str(home), "tensors_on": str(other), "k1": "exact", "k2": "exact",
+            "k3_max_abs_err": k3_err}
+
+
+def wall_ms(fn, dev) -> float:
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_sharded(dev, smi, golden, rig, cfg, inputs, scaled):
+    """parallel/sharding.py on the card: run_offline_sharded over every
+    visible card (make_mesh()) and on virtual meshes of `dev`, the sharded
+    fusion of phase 8's frame, the dry run, the same across real cards where
+    there are several (with launches on another card's tensors), and the
+    wall times of each mesh against run_offline on the benign scene and
+    of the sharded fusion against fuse_frame. Returns {path: (K1, K2, K3)} of the sharded paths' runs."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+
+    pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=OFFLINE_FUSION_BATCH)
+    unsharded = {scene: pipe.run_offline(pipe.init_state(), stacked_frames(inputs[scene], dev))[1]
+                 for scene in SCENES}
+    torch.cuda.synchronize()
+    n_cards = torch.cuda.device_count()
+    meshes = {"cards": sharding.make_mesh()}
+    for d, m in VIRTUAL_MESHES:
+        meshes[f"virtual{d}x{m}"] = sharding.make_mesh(d * m, model=m, devices=[dev] * (d * m))
+    fusion_meshes = {f"virtual1x{FUSION_ENTRIES}": sharding.make_mesh(
+        FUSION_ENTRIES, data=1, model=FUSION_ENTRIES, devices=[dev] * FUSION_ENTRIES)}
+    if n_cards >= 2:
+        if n_cards % 2 == 0:
+            meshes[f"cards{n_cards // 2}x2"] = sharding.make_mesh(model=2)
+        fusion_meshes[f"cards1x{n_cards}"] = sharding.make_mesh(data=1, model=n_cards)
+
+    launches = {"run_offline_sharded": [0, 0, 0], "fuse_frame_sharded": [0, 0, 0]}
+    replay = {}
+    for label, mesh in meshes.items():
+        counts, replay[label] = check_sharded_replay(label, mesh, rig, cfg, golden, inputs,
+                                                     unsharded)
+        launches["run_offline_sharded"] = [a + b for a, b in
+                                           zip(launches["run_offline_sharded"], counts)]
+        log("12 sharded replay", mesh=label, shape=repr(mesh.shape).replace(" ", ""),
+            devices=len({d for row in mesh.devices for d in row}), k1_launches=counts[0],
+            k2_launches=counts[1], k3_launches=counts[2],
+            scenes="'" + json.dumps(replay[label]) + "'")
+    for label, mesh in fusion_meshes.items():
+        counts, worst, joints = check_sharded_fusion(label, mesh, scaled)
+        launches["fuse_frame_sharded"] = [a + b for a, b in
+                                          zip(launches["fuse_frame_sharded"], counts)]
+        log("12 sharded fusion", mesh=label, cams=SCALED_SCENE["num_cameras"],
+            people=SCALED_SCENE["num_people"], valid="exact", joints_compared=joints,
+            worst_mm=worst * 1e3, k2_launches=counts[1])
+    dry = sharding.dryrun(4, [dev] * 4)
+    log("12 dryrun", entries=4, device=str(dev), report="'" + json.dumps(dry) + "'")
+    if n_cards >= 2:
+        cross = check_cross_device(torch.device("cuda", 0), torch.device("cuda", 1), rig, cfg,
+                                   inputs)
+        log("12 multi card", multi_card="checked", count=n_cards,
+            cross_device="'" + json.dumps(cross) + "'")
+    else:
+        log("12 multi card", multi_card="not_run", count=n_cards)
+
+    # Wall times on the benign scene, warm, in turns.
+    frames = stacked_frames(inputs["benign"], dev)
+    calls = {"run_offline": lambda: pipe.run_offline(pipe.init_state(), frames)}
+    for label, mesh in meshes.items():
+        calls[label] = (lambda m=mesh: sharding.run_offline_sharded(
+            rig, cfg, m, frames, pipe.init_state(), fusion_batch=OFFLINE_FUSION_BATCH))
+    for fn in calls.values():
+        fn()
+    times = {label: [] for label in calls}
+    for _ in range(SHARDED_TIMED):
+        for label, fn in calls.items():
+            times[label].append(wall_ms(fn, dev))
+    medians = {label: statistics.median(v) for label, v in times.items()}
+    # One scaled frame's fusion, unsharded and over each fusion mesh.
+    s_cfg, s_rig, s_frame = scaled_frame(scaled, dev)
+    fuse = {"fuse_frame": lambda: fusion.fuse_frame(s_frame, s_rig, s_cfg.fusion)}
+    for label, mesh in fusion_meshes.items():
+        fuse[label] = (lambda m=mesh: sharding.fuse_frame_sharded(s_frame, s_rig, s_cfg, m))
+    for fn in fuse.values():
+        fn()
+    fuse_times = {label: [] for label in fuse}
+    for _ in range(SHARDED_TIMED):
+        for label, fn in fuse.items():
+            fuse_times[label].append(wall_ms(fn, dev))
+    fuse_medians = {label: statistics.median(v) for label, v in fuse_times.items()}
+    log("12 sharded times", gpu=repr(smi), frames=frames.kp2d.shape[0], calls=SHARDED_TIMED,
+        fusion_batch=OFFLINE_FUSION_BATCH,
+        replay_median_ms="'" + json.dumps(medians) + "'",
+        replay_over_run_offline="'" + json.dumps({k: v / medians["run_offline"]
+                                                  for k, v in medians.items()}) + "'",
+        fusion_median_ms="'" + json.dumps(fuse_medians) + "'")
+    return {path: tuple(c) for path, c in launches.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="write a profiler table here")
@@ -1821,12 +2124,14 @@ def main() -> int:
     demo_launches, demo_k3_err = phase_demo(dev)
     k3_err = max(k3_err, demo_k3_err)
     e2e_launches = phase_end_to_end(dev, smi)
+    sharded_launches = phase_sharded(dev, smi, golden_offline, rig, cfg, inputs, scaled)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"
     # launches: the online path's (phase 4), the offline path's (phase 6),
-    # the demo modes' (phase 10) and the end-to-end step's (phase 11,
-    # full width) counts; no single PyTorch call computes
+    # the demo modes' (phase 10), the end-to-end step's (phase 11, full
+    # width) and the sharded paths' (phase 12) counts; no single PyTorch
+    # call computes
     # JV, the fold or the scan, so there is no library time.
     by_path = {
         "jv_assign": {"step": launches["jv_assign"], "run_offline": 0},
@@ -1839,6 +2144,9 @@ def main() -> int:
         for mode, counts in demo_launches.items():
             by_path[name][mode] = counts[i]
         by_path[name]["end_to_end"] = e2e_launches[name]
+        # The sharded replay and fusion (phase 12), summed over their meshes.
+        for path, counts in sharded_launches.items():
+            by_path[name][path] = counts[i]
     # K1 replaces both JV sites: the single problem (:238) and the batched
     # launch (:516).
     also = {"jv_assign": [f"{tpu}/hungarian_pallas.py:516"]}

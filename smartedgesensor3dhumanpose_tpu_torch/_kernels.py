@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -33,6 +34,11 @@ NVCC_FLAGS = ARCH_FLAGS + (
 )
 
 _lib = None
+# Held while the library is built and loaded: callers in several threads
+# may reach their first kernel at once.
+_LOAD_LOCK = threading.Lock()
+# Held while a wrapper adds one to its module's KERNEL_LAUNCHES.
+LAUNCH_LOCK = threading.Lock()
 build_seconds = None  # wall time of the build this process ran, if any
 build_log = None  # nvcc's output of a verbose build this process ran, if any
 
@@ -102,24 +108,25 @@ def build(verbose: bool = False) -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ses3d_jv_assign.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.ses3d_jv_assign.restype = i
-        lib.ses3d_jv_assign_smem_bytes.argtypes = [i, i, i]
-        lib.ses3d_jv_assign_smem_bytes.restype = i
-        lib.ses3d_association_fold.argtypes = [
-            p, p, p, p, p, i, i, i, i, i, i, f, f, p
-        ]
-        lib.ses3d_association_fold.restype = i
-        lib.ses3d_association_fold_smem_bytes.argtypes = [i, i, i, i]
-        lib.ses3d_association_fold_smem_bytes.restype = i
-        lib.ses3d_tracker_scan.argtypes = [p] * 16 + [i] * 8 + [f, f, i, f, f, p]
-        lib.ses3d_tracker_scan.restype = i
-        lib.ses3d_tracker_scan_smem_bytes.argtypes = [i] * 5
-        lib.ses3d_tracker_scan_smem_bytes.restype = i
-        _lib = lib
+    with _LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.ses3d_jv_assign.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.ses3d_jv_assign.restype = i
+            lib.ses3d_jv_assign_smem_bytes.argtypes = [i, i, i]
+            lib.ses3d_jv_assign_smem_bytes.restype = i
+            lib.ses3d_association_fold.argtypes = [
+                p, p, p, p, p, i, i, i, i, i, i, f, f, p
+            ]
+            lib.ses3d_association_fold.restype = i
+            lib.ses3d_association_fold_smem_bytes.argtypes = [i, i, i, i]
+            lib.ses3d_association_fold_smem_bytes.restype = i
+            lib.ses3d_tracker_scan.argtypes = [p] * 16 + [i] * 8 + [f, f, i, f, f, p]
+            lib.ses3d_tracker_scan.restype = i
+            lib.ses3d_tracker_scan_smem_bytes.argtypes = [i] * 5
+            lib.ses3d_tracker_scan_smem_bytes.restype = i
+            _lib = lib
     return _lib
 
 

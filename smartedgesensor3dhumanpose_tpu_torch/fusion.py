@@ -404,11 +404,18 @@ def fuse_frames(frames: Frame, rig: CameraRig, config: FusionConfig):
     )
     persons = triangulate_hypotheses(flat, rig, config)
     persons = Persons3D(*(x.reshape((b, h) + x.shape[1:]) for x in persons))
-    # Hypotheses need >= 2 observations to triangulate (:684).
-    active = torch.arange(h, device=kp_n.device) < hyps.n_hyp[:, None]
+    return gate_and_merge(persons, hyps, config), hyps.n_dropped
+
+
+def gate_and_merge(persons: Persons3D, hyps: HypothesisSet, config: FusionConfig) -> Persons3D:
+    """The fused persons of triangulated hypotheses: only live hypotheses
+    with >= 2 observations stay valid (:684), then the pairwise merge.
+    Leading axes (frames) pass through."""
+    h = hyps.cam_mask.shape[-2]
+    active = torch.arange(h, device=hyps.cam_mask.device) < hyps.n_hyp[..., None]
     n_obs = torch.sum(hyps.cam_mask, dim=-1)
     persons = persons._replace(valid=persons.valid & active & (n_obs >= 2))
-    return merge_close_persons(persons, config), hyps.n_dropped
+    return merge_close_persons(persons, config)
 
 
 def fuse_frame(frame: Frame, rig: CameraRig, config: FusionConfig,

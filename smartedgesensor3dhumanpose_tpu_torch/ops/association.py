@@ -35,7 +35,8 @@ SOLVER_TIE_EPS = 1.0e-3
 # infeasible pairings.
 INVALID_DET_COST = 2.0 * ASSIGN_COST_CLIP
 
-# Launches of the CUDA kernel; the wrapper adds one per launch.
+# Launches of the CUDA kernel; the wrapper adds one per launch, under
+# _kernels.LAUNCH_LOCK (callers may launch from several threads).
 KERNEL_LAUNCHES = 0
 
 # Shared memory one thread block may hold on an H100 (static + dynamic,
@@ -231,14 +232,18 @@ def _launch(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     det_slot = torch.empty((b, h_cap, c), dtype=torch.int32, device=ctab.device)
     counts = torch.empty((b, 2), dtype=torch.int32, device=ctab.device)
     lib = _kernels.library()
-    stream = torch.cuda.current_stream(ctab.device).cuda_stream
-    err = lib.ses3d_association_fold(
-        ctab.data_ptr(), conf.data_ptr(), dok.data_ptr(), det_slot.data_ptr(),
-        counts.data_ptr(), b, c, d, h_cap, int(prefetch), smem,
-        float(gate), float(max_cost), stream,
-    )
+    # The C entry queries and sets attributes of the current device: make
+    # it the tensor's.
+    with torch.cuda.device(ctab.device):
+        stream = torch.cuda.current_stream(ctab.device).cuda_stream
+        err = lib.ses3d_association_fold(
+            ctab.data_ptr(), conf.data_ptr(), dok.data_ptr(), det_slot.data_ptr(),
+            counts.data_ptr(), b, c, d, h_cap, int(prefetch), smem,
+            float(gate), float(max_cost), stream,
+        )
     _kernels.check(err, f"association_fold launch (prefetch={prefetch}, smem={smem})")
-    KERNEL_LAUNCHES += 1
+    with _kernels.LAUNCH_LOCK:
+        KERNEL_LAUNCHES += 1
     return det_slot, counts[:, 0], counts[:, 1]
 
 

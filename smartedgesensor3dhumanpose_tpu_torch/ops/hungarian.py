@@ -33,7 +33,8 @@ _INF = 3.0e38
 WARPS_PER_BLOCK = 4
 SMEM_LIMIT = 232_448
 
-# Launches of the CUDA kernel; the wrapper adds one per launch.
+# Launches of the CUDA kernel; the wrapper adds one per launch, under
+# _kernels.LAUNCH_LOCK (callers may launch from several threads).
 KERNEL_LAUNCHES = 0
 # Search steps the plain version has taken (the data-dependent part of the
 # work, which a kernel's bound counts).
@@ -183,13 +184,17 @@ def _launch(cost: torch.Tensor, row_active) -> torch.Tensor:
     if b == 0 or r == 0:
         return out
     lib = _kernels.library()
-    stream = torch.cuda.current_stream(cost.device).cuda_stream
-    err = lib.ses3d_jv_assign(
-        cost.data_ptr(), None if act is None else act.data_ptr(),
-        out.data_ptr(), b, r, c, plan.per_block, plan.smem_bytes, stream,
-    )
+    # The C entry queries and sets attributes of the current device: make
+    # it the tensor's.
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        err = lib.ses3d_jv_assign(
+            cost.data_ptr(), None if act is None else act.data_ptr(),
+            out.data_ptr(), b, r, c, plan.per_block, plan.smem_bytes, stream,
+        )
     _kernels.check(err, "jv_assign launch")
-    KERNEL_LAUNCHES += 1
+    with _kernels.LAUNCH_LOCK:
+        KERNEL_LAUNCHES += 1
     return out
 
 

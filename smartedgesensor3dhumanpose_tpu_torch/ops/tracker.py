@@ -42,7 +42,8 @@ K_JOINTS = skeleton.NUM_FUSION_JOINTS
 # columns, so T is bounded by the JV's own limit (ops.hungarian.MAX_N).
 MAX_TRACKS = hungarian.MAX_N
 
-# Launches of the CUDA kernel; the wrapper adds one per launch.
+# Launches of the CUDA kernel; the wrapper adds one per launch, under
+# _kernels.LAUNCH_LOCK (callers may launch from several threads).
 KERNEL_LAUNCHES = 0
 
 
@@ -307,21 +308,25 @@ def _launch(records, st: dict, p: int, t_slots: int, w: int, cfg):
     n_dropped = torch.empty((f,), dtype=torch.int32, device=dev)
     vel_sig = linalg.constant(skeleton.FUSION_VEL_SIGMAS, dev, torch.float32)
     lib = _kernels.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ses3d_tracker_scan(
-        records.data_ptr(), vel_sig.data_ptr(),
-        st["est"].data_ptr(), st["ex"].data_ptr(), st["vel"].data_ptr(),
-        st["tprev"].data_ptr(), st["hprev"].data_ptr(), st["rootp"].data_ptr(),
-        st["alive"].data_ptr(), st["tid"].data_ptr(), st["nobs"].data_ptr(),
-        st["next_id"].data_ptr(),
-        off.data_ptr(), publish.data_ptr(), ids.data_ptr(), n_dropped.data_ptr(),
-        f, p, t_slots, w, records.shape[1], plan.stages, int(plan.rings_on_chip),
-        plan.smem_bytes,
-        float(cfg.max_dist), float(cfg.dist_threshold), int(cfg.min_num_obs),
-        float(cfg.max_unobserved_time), float(cfg.merge_dist_thresh), stream,
-    )
+    # The C entry queries and sets attributes of the current device: make
+    # it the tensor's.
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ses3d_tracker_scan(
+            records.data_ptr(), vel_sig.data_ptr(),
+            st["est"].data_ptr(), st["ex"].data_ptr(), st["vel"].data_ptr(),
+            st["tprev"].data_ptr(), st["hprev"].data_ptr(), st["rootp"].data_ptr(),
+            st["alive"].data_ptr(), st["tid"].data_ptr(), st["nobs"].data_ptr(),
+            st["next_id"].data_ptr(),
+            off.data_ptr(), publish.data_ptr(), ids.data_ptr(), n_dropped.data_ptr(),
+            f, p, t_slots, w, records.shape[1], plan.stages, int(plan.rings_on_chip),
+            plan.smem_bytes,
+            float(cfg.max_dist), float(cfg.dist_threshold), int(cfg.min_num_obs),
+            float(cfg.max_unobserved_time), float(cfg.merge_dist_thresh), stream,
+        )
     _kernels.check(err, f"tracker_scan launch ({plan})")
-    KERNEL_LAUNCHES += 1
+    with _kernels.LAUNCH_LOCK:
+        KERNEL_LAUNCHES += 1
     return off, publish, ids, n_dropped
 
 

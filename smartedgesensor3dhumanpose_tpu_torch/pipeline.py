@@ -158,15 +158,27 @@ def smooth_offline(persons: Persons3D, config: PipelineConfig, fusion_batch: int
     ])
 
 
+def offline_feedback(fused_pred: Persons3D, pred_delta_t, cam_stamp, rig: CameraRig,
+                     config: PipelineConfig):
+    """The reprojection feedback of a tracked sequence: the tracker scan's
+    predictions, horizons and the frames' camera stamps, each with a
+    leading time axis."""
+    return reprojection.reproject(
+        fused_pred, rig, config.prior.pose_method, pred_delta_t,
+        ut_kappa=config.fusion.ut_kappa, ts_per_cam=cam_stamp,
+    )
+
+
 def offline_outputs(frames: Frame, persons, pivots, n_dropped_hyp, track,
-                    rig: CameraRig, config: PipelineConfig) -> StepOutput:
+                    rig: CameraRig, config: PipelineConfig, feedback=None) -> StepOutput:
     """Reprojection and bounding boxes of a tracked sequence: the
     StepOutput (leading time axis) of `run_offline` from the fusion's
-    outputs and the tracker scan's stacked TrackStepOutput."""
-    feedback = reprojection.reproject(
-        track.fused_pred, rig, config.prior.pose_method, track.pred_delta_t,
-        ut_kappa=config.fusion.ut_kappa, ts_per_cam=frames.cam_stamp,
-    )
+    outputs and the tracker scan's stacked TrackStepOutput. `feedback`, if
+    given, is `offline_feedback` computed elsewhere (the sharded replay
+    splits it over the mesh)."""
+    if feedback is None:
+        feedback = offline_feedback(track.fused_pred, track.pred_delta_t,
+                                    frames.cam_stamp, rig, config)
     bbox_c, bbox_s = person_bbox3d(track.fused.xyz, track.fused.score, track.fused.valid)
     return StepOutput(
         persons_raw=persons,

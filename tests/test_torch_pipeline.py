@@ -40,6 +40,7 @@ from smartedgesensor3dhumanpose_tpu_torch import (
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
 from smartedgesensor3dhumanpose_tpu_torch.models import end_to_end, keypoint_cnn, train
 from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tracker
+from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame, TrackerState
 
 pytestmark = pytest.mark.torch_port
@@ -401,6 +402,12 @@ def test_entry_points_default_to_the_card():
         demo.build_demo(4, 2, 2, 0)
     with pytest.raises((RuntimeError, AssertionError)):
         keypoint_cnn.init_detector(keypoint_cnn.DetectorConfig(width=8, depth=1))
+    # The mesh defaults to every visible card; with none it raises rather
+    # than build a mesh of CPU entries, and so does the dry run on it.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharding.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharding.dryrun()
 
 
 # ---------------------------------------------------------- offline replay --
