@@ -11,13 +11,18 @@ Phases (each prints one line; any failure exits non-zero):
     batched up to 64 x 40 x 40 and 8 x 120 x 120
   3 K2 against its plain PyTorch version, on the card, also at h_cap = 120
     (the JV's limit) on scaled-layout frames
-  4 the online slice: Pipeline.step over the two golden demo scenes (16
-    cameras x 6 people, 64 frames each) against the JAX reference's outputs
-    stored in tests/data/torch_golden_demo16.npz, with the launch counts
+  4 the online slice: Pipeline.step (a CUDA graph, captured by its first
+    call) over the two golden demo scenes (16 cameras x 6 people, 64 frames
+    each) against the JAX reference's outputs stored in
+    tests/data/torch_golden_demo16.npz, with the wrappers' launch counts
+    (the first call's warm-up and capture)
   5 online times: Pipeline.step, K1/K2 against their plain versions, and
-    K1's device time at the tracker's shape (torch.profiler)
-  6 the offline slice: Pipeline.run_offline (fusion_batch=32) over the same
-    scenes, with the launch counts (K1 = 0, K2 = 2, K3 = 1 per scene); its
+    K1's device time at the tracker's shape (torch.profiler); the kernels
+    of 4 step replays counted on the device (torch.profiler), and the
+    step timed again after that profiler session
+  6 the offline slice: Pipeline.run_offline (fusion_batch=32; a CUDA graph,
+    captured by its first call) over the same scenes, with the launch
+    counts (K1 = 0, K2 = 2, K3 = 1 per scene's replay, on the device); its
     fusion and its tracker stage (K3 + reprojection on the reference's own
     tracker inputs) against tests/data/torch_golden_offline16.npz, and the
     whole run against the plain path on the card
@@ -64,6 +69,18 @@ Phases (each prints one line; any failure exits non-zero):
     4 entries; with several cards the same across them, and K1-K3 on
     cuda:1 tensors while cuda:0 is current; wall times of each mesh
     against run_offline
+ 13 the compiled entry points (graphs.py): the captured Pipeline.step over
+    both golden scenes against the golden and the eager pipeline.step on
+    the card (decisions exact, joints within 1 mm outside each track's
+    first published frame), 0 host syncs and 0 host launches per replay,
+    K1 = K2 = 1 per replay on the device (torch.profiler), the device's
+    idle share and the copies' cost; the stacked run_per_frame_chain
+    against per-frame steps; the captured run_offline against the eager
+    one (decisions exact, joints within 1e-6 m), and a dropped graph's
+    memory released; the captured end-to-end step against the eager
+    end_to_end_step (full width, and the trained detector of phase 11);
+    eager and captured times, the chain's ms per step, first-call seconds
+    and memory, and the LM's device ms per trip (torch.profiler)
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -85,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -139,6 +157,16 @@ PEAK_FP32_PER_S = 67e12
 
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def smi_clocks() -> str:
+    """The card's SM clock (MHz) and power draw (W) now, as nvidia-smi
+    reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0].replace(" ", "")
 
 
 def smi_line() -> str:
@@ -515,6 +543,47 @@ def read_counts():
     return hungarian.KERNEL_LAUNCHES, association.KERNEL_LAUNCHES, tracker.KERNEL_LAUNCHES
 
 
+# K1, K2 and K3 by name in a device trace.
+KERNEL_NAMES = ("jv_assign_kernel", "association_fold_kernel", "tracker_scan_kernel")
+# The wrappers count launches on the host. A captured entry point's first
+# call launches each kernel of its body twice there: once in its eager
+# warm-up (graphs.CapturedFunction) and once recorded by the capture. Its
+# replays launch nothing on the host; their kernels are counted on the
+# device (device_counts).
+FIRST_CALL_HOST_LAUNCHES = 2
+# Replays of the captured step (phase 4) and frames of a chain (phase
+# 13.2) whose kernels are counted on the device.
+STEP_PROFILED = 4
+
+
+def device_counts(fn):
+    """(fn(), (K1, K2, K3) kernels that ran on the device during fn()),
+    counted by name in a torch.profiler trace of the card (the kernels of
+    a graph replay included)."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return result, tuple(sum(k in n for n in names) for k in KERNEL_NAMES)
+
+
+def first_call(fn):
+    """(fn(), seconds, MiB): the wall time of a captured entry point's
+    first call (warm-up and capture) and the growth of memory_reserved over
+    it, from an emptied cache: the graph's pool, its static buffers and the
+    returned copies."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, (torch.cuda.memory_reserved() - reserved) / 2**20
+
+
 def phase_slice(dev, golden, rig, cfg):
     from smartedgesensor3dhumanpose_tpu_torch import pipeline
     from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
@@ -527,6 +596,10 @@ def phase_slice(dev, golden, rig, cfg):
             raise AssertionError(f"{scene}: regenerated scene differs from the golden's input")
         inputs[scene] = data
 
+    # Pipeline.step is a CUDA graph: the run's first call captures it, and
+    # the wrappers count that call's warm-up and capture. The replays'
+    # kernels are counted on the device in phase 5, after its timing: a
+    # profiler session slows the graph replays that follow it (PERF.md).
     reset_counts()
     worst_f = worst_p = 0.0
     frames = 0
@@ -535,20 +608,24 @@ def phase_slice(dev, golden, rig, cfg):
         data = inputs[scene]
         state = pipe.init_state()
         for f in range(data["kp2d"].shape[0]):
-            state, out = pipe.step(state, frame_at(data, f, dev))
+            frame = frame_at(data, f, dev)
+            if frames == 0:
+                (state, out), capture_s, graph_mib = first_call(lambda: pipe.step(state, frame))
+            else:
+                state, out = pipe.step(state, frame)
             df, dp = compare_step(out, golden, scene, f)
             worst_f, worst_p = max(worst_f, df), max(worst_p, dp)
             persons += int(out.fused.valid.sum())
             frames += 1
-    k1, k2, k3 = read_counts()
-    if k1 != frames or k2 != frames or k3 != 0:
-        raise AssertionError(
-            f"launch counts K1={k1} K2={k2} K3={k3}, expected {frames}, {frames}, 0"
-        )
-    log("4 slice", frames=frames, published_persons=persons, decisions="exact",
+    host = read_counts()
+    want_host = (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,)
+    if host != want_host:
+        raise AssertionError(f"launch counts (K1, K2, K3) on the host {host}, expected {want_host}")
+    log("4 slice", captured=True, first_call_s=capture_s, first_call_reserved_mib=graph_mib,
+        frames=frames, published_persons=persons, decisions="exact",
         worst_fused_mm=worst_f * 1e3, worst_pred_mm=worst_p * 1e3,
-        k1_launches=k1, k2_launches=k2)
-    return pipe, inputs, {"jv_assign": k1, "association_fold": k2}
+        host_launches=list(host))
+    return pipe, inputs, {"step": host}
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -597,14 +674,25 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
         step_ms.append((time.perf_counter() - t0) * 1e3)
 
     # Host syncs of one warm step, as torch's sync debug mode reports them.
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            state, _ = pipe.step(state, frames[120])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    sites = sync_sites(lambda: pipe.step(state, frames[120]))
+    syncs = len(sites)
+
+    # The kernels of STEP_PROFILED replays, counted on the device; then the
+    # same steps timed again after that profiler session.
+    on_device = (0, 0, 0)
+    for f in range(STEP_PROFILED):
+        (state, _), counts = device_counts(lambda: pipe.step(state, frames[121 + f]))
+        on_device = tuple(a + b for a, b in zip(on_device, counts))
+    if on_device != (STEP_PROFILED,) * 2 + (0,):
+        raise AssertionError(f"step: {on_device} kernels on the device over {STEP_PROFILED} replays")
+    after = pipe.init_state()
+    after_ms = []
+    for f in range(120):
+        t0 = time.perf_counter()
+        after, _ = pipe.step(after, frames[f])
+        torch.cuda.synchronize()
+        after_ms.append((time.perf_counter() - t0) * 1e3)
+    after_ms = after_ms[20:]
 
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
@@ -654,11 +742,15 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
     )
     log("5 times", steps=len(step_ms), step_ms_median=statistics.median(step_ms),
         step_ms_p10=quart[0], step_ms_p90=quart[-1], step_ms_min=min(step_ms),
-        step_ms_max=max(step_ms), host_syncs_per_step=syncs,
+        step_ms_max=max(step_ms), host_syncs_per_step=syncs, sync_sites=",".join(sites) or "none",
+        replays_profiled=STEP_PROFILED, device_launches=list(on_device),
+        after_profiler_step_ms_median=statistics.median(after_ms),
+        after_profiler_step_ms_p90=statistics.quantiles(after_ms, n=10)[-1],
         k1_ms=k1_ms, k1_device_ms=k1_device_ms, k1_plain_ms=k1_plain, k1_bound_ms=k1_b[0],
         k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_bound_ms=k2_bound[0])
-    return {"jv_assign": (k1_ms, k1_plain) + k1_b,
-            "association_fold": (k2_ms, k2_plain) + k2_bound}
+    return ({"jv_assign": (k1_ms, k1_plain) + k1_b,
+             "association_fold": (k2_ms, k2_plain) + k2_bound},
+            {"step_replays_on_device": on_device})
 
 
 # ---------------------------------------------------------------- phase 6 --
@@ -767,7 +859,15 @@ def phase_offline(dev, golden, rig, cfg, inputs):
     from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
 
     pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=OFFLINE_FUSION_BATCH)
-    launches = [0, 0, 0]
+    # run_offline is a CUDA graph per sequence shape (both scenes share
+    # one): the run's first call captures it (the wrappers count its
+    # warm-up and capture), and the kernels of each scene's replay are
+    # counted on the device.
+    reset_counts()
+    _, capture_s, graph_mib = first_call(
+        lambda: pipe.run_offline(pipe.init_state(), stacked_frames(inputs[SCENES[0]], dev)))
+    host = read_counts()
+    on_device = (0, 0, 0)
     report = {}
     for scene in SCENES:
         data = inputs[scene]
@@ -777,13 +877,13 @@ def phase_offline(dev, golden, rig, cfg, inputs):
         n = data["kp2d"].shape[0]
         state0 = pipe.init_state()
         reset_counts()
-        _, out = pipe.run_offline(state0, frames)
-        torch.cuda.synchronize()
-        counts = read_counts()
+        (_, out), counts = device_counts(lambda: pipe.run_offline(state0, frames))
+        host_launches_none(f"offline {scene}")
         want = (0, -(-n // OFFLINE_FUSION_BATCH), 1)
         if counts != want:
-            raise AssertionError(f"offline {scene}: launch counts (K1, K2, K3) = {counts}, expected {want}")
-        launches = [a + b for a, b in zip(launches, counts)]
+            raise AssertionError(f"offline {scene}: launch counts (K1, K2, K3) on the device = "
+                                 f"{counts}, expected {want}")
+        on_device = tuple(a + b for a, b in zip(on_device, counts))
 
         e2e_frames = 0
         e2e_fused = e2e_pred = 0.0
@@ -813,10 +913,15 @@ def phase_offline(dev, golden, rig, cfg, inputs):
             golden_frames_exact=f"{e2e_frames}/{n}",
             golden_worst_fused_mm=e2e_fused * 1e3, golden_worst_pred_mm=e2e_pred * 1e3,
         )
-    log("6 offline slice", fusion_batch=OFFLINE_FUSION_BATCH, frames_per_scene=n,
-        fusion_decisions="exact", k1_launches=launches[0], k2_launches=launches[1],
-        k3_launches=launches[2], scenes="'" + json.dumps(report) + "'")
-    return pipe, {"association_fold": launches[1], "tracker_scan": launches[2]}
+    want_host = tuple(FIRST_CALL_HOST_LAUNCHES * k for k in want)
+    if host != want_host:
+        raise AssertionError(f"offline: launch counts (K1, K2, K3) on the host = {host}, "
+                             f"expected {want_host} (the first call's warm-up and capture)")
+    log("6 offline slice", captured=True, first_call_s=capture_s, first_call_reserved_mib=graph_mib,
+        fusion_batch=OFFLINE_FUSION_BATCH, frames_per_scene=n, fusion_decisions="exact",
+        host_launches=list(host), replays_profiled=len(SCENES), device_launches=list(on_device),
+        scenes="'" + json.dumps(report) + "'")
+    return pipe, {"run_offline": host, "run_offline_replays_on_device": on_device}
 
 
 # ---------------------------------------------------------------- phase 7 --
@@ -1000,13 +1105,19 @@ def phase_scaled(dev, scaled):
     cfg, rig, frames = scaled
     n = frames.kp2d.shape[0]
     pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=SCALED_FUSION_BATCH)
-    t0 = time.perf_counter()
+    # The first call captures run_offline's graph at this shape: the
+    # wrappers count its warm-up and capture, and the replay nothing.
     reset_counts()
+    t0 = time.perf_counter()
+    pipe.run_offline(pipe.init_state(), frames)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     _, out = pipe.run_offline(pipe.init_state(), frames)
     torch.cuda.synchronize()
     counts = read_counts()
     wall_s = time.perf_counter() - t0
-    want = (0, -(-n // SCALED_FUSION_BATCH), 1)
+    want = (0, FIRST_CALL_HOST_LAUNCHES * -(-n // SCALED_FUSION_BATCH), FIRST_CALL_HOST_LAUNCHES)
     if counts != want:
         raise AssertionError(f"scaled: launch counts (K1, K2, K3) = {counts}, expected {want}")
     published = int(out.fused.valid.sum())
@@ -1032,7 +1143,8 @@ def phase_scaled(dev, scaled):
             raise AssertionError(f"scaled K2 batched {what}: kernel != plain")
     log("8 scaled", cams=SCALED_SCENE["num_cameras"], people=SCALED_SCENE["num_people"],
         frames=n, dets=cfg.fusion.max_dets_per_cam, hyps=cfg.fusion.max_hypotheses,
-        tracks=cfg.tracker.max_tracks, first_call_s=wall_s, published_persons=published,
+        tracks=cfg.tracker.max_tracks, first_call_s=first_call_s, replay_s=wall_s,
+        host_launches=list(counts), published_persons=published,
         k3_vs_plain="exact", k3_max_abs_err=err, k3_dropped=drops, k3_merged=merges, k3_ms=k3_ms,
         k2_batched_frames=SCALED_FUSION_BATCH, k2_vs_plain="exact",
         n_hyp=[int(x) for x in got[1]])
@@ -1041,16 +1153,39 @@ def phase_scaled(dev, scaled):
 
 # ---------------------------------------------------------------- phase 9 --
 
-def count_syncs(fn) -> int:
-    """Host syncs of one call of `fn`, as torch's sync debug mode reports."""
-    with warnings.catch_warnings(record=True) as caught:
+def sync_sites(fn) -> list:
+    """Where the host syncs of one call of `fn` happen, as torch's sync
+    debug mode reports them: the innermost line outside torch that led
+    there, then torch's own line (file:line>file:line)."""
+    sites = []
+    running = [False]
+
+    # Only warnings raised while fn runs: the first set_sync_debug_mode
+    # call warns by itself (torch 2.11).
+    def record(message, category, filename, lineno, file=None, line=None):
+        if running[0] and "synchroniz" in str(message):
+            outside = [f for f in traceback.extract_stack()
+                       if f"{os.sep}torch{os.sep}" not in f.filename
+                       and not f.filename.endswith("warnings.py")]
+            caller = f"{os.path.basename(outside[-2].filename)}:{outside[-2].lineno}"
+            sites.append(f"{caller}>{os.path.basename(filename)}:{lineno}")
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
+        running[0] = True
         try:
             fn()
         finally:
+            running[0] = False
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sites
+
+
+def count_syncs(fn) -> int:
+    """Host syncs of one call of `fn`, as torch's sync debug mode reports."""
+    return len(sync_sites(fn))
 
 
 def k3_bound(persons, state0, has_dets) -> tuple:
@@ -1298,8 +1433,12 @@ def phase_demo(dev):
             "--checkpoint", os.path.join(tmp, "state.npz"), "--record-jsonl", rec])
         pipe, cfg, frames, outs = run.pipe, run.config, run.frames, run.outs
         chunks = -(-DEMO_FRAMES // pipe.fusion_batch)
-        if counts != (0, 2 * chunks, 2):
-            raise AssertionError(f"demo offline: launch counts {counts}, expected (0, {2 * chunks}, 2)")
+        # Two run_offline calls, the first of which captures: the wrappers
+        # count its warm-up and capture, the replays nothing.
+        runs = FIRST_CALL_HOST_LAUNCHES
+        if counts != (0, runs * chunks, runs):
+            raise AssertionError(f"demo offline: launch counts {counts}, expected "
+                                 f"(0, {runs * chunks}, {runs})")
         launches["demo_offline"] = counts
         if tuple(outs.fused.xyz.shape) != (DEMO_FRAMES, 2 * DEMO_PEOPLE, 21, 3):
             raise AssertionError(f"demo offline: fused shape {tuple(outs.fused.xyz.shape)}")
@@ -1385,8 +1524,10 @@ def phase_demo(dev):
             raise AssertionError(f"--online accounting: {rep.dropped} + {len(h)} != {rep.produced}")
         if not all(a < b for a, b in zip(h, h[1:])) or h[-1] != DEMO_LOOP_FRAMES - 1:
             raise AssertionError(f"--online handles {h}")
-        if counts_o != (len(h) + 1, len(h) + 1, 0):
-            raise AssertionError(f"--online launch counts {counts_o} for {len(h)} steps + warm-up")
+        # The demo's warm-up step captures (the wrappers count its warm-up
+        # and capture); the loop's steps are replays.
+        if counts_o != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,):
+            raise AssertionError(f"--online launch counts {counts_o} for {len(h)} replays + capture")
         launches["demo_online"] = counts_o
         state = run_o.pipe.init_state()
         plain_ms = []
@@ -1409,7 +1550,7 @@ def phase_demo(dev):
             raise AssertionError(f"--online --jsonl accounting: {rep}")
         if rep.messages_unconsumed != rep.produced_messages - rep.frames_synced * DEMO_CAMS:
             raise AssertionError(f"--online --jsonl unconsumed: {rep.messages_unconsumed}")
-        if counts_s != (rep.processed_frames + 1, rep.processed_frames + 1, 0):
+        if counts_s != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,):
             raise AssertionError(f"--online --jsonl launch counts {counts_s}")
         launches["demo_online_synced"] = counts_s
         log("10.6 demo online synced", messages=rep.produced_messages, synced=rep.frames_synced,
@@ -1423,7 +1564,7 @@ def phase_demo(dev):
         # the latency plus its lag behind the pivot).
         run_c, counts_c, _ = demo_main(loop_n + ["--closed-loop"])
         rep = run_c.report
-        if counts_c != (DEMO_LOOP_FRAMES + 1, DEMO_LOOP_FRAMES + 1, 0):
+        if counts_c != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,):
             raise AssertionError(f"--closed-loop launch counts {counts_c}")
         launches["demo_closed_loop"] = counts_c
         loop_s = LOOP_PROC_S + LOOP_NET_S
@@ -1639,9 +1780,12 @@ def phase_end_to_end(dev, smi: str):
     inputs = [(images[t], frames.cam_stamp[t]) for t in range(n_frames)]
     reset_counts()
     state, outs, e2e_ms = timed_steps(step, state, inputs)
-    counts = read_counts()
-    if counts != (n_frames, n_frames, 0):
-        raise AssertionError(f"end to end: launch counts {counts}, expected ({n_frames}, {n_frames}, 0)")
+    counts = counts_e2e = read_counts()
+    # The step is a CUDA graph: the wrappers count its first call's warm-up
+    # and capture, the replays nothing (phase 13.4 counts theirs on the device).
+    if counts != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,):
+        raise AssertionError(f"end to end: launch counts {counts}, expected "
+                             f"{FIRST_CALL_HOST_LAUNCHES} (warm-up and capture)")
     for t, out in enumerate(outs):
         if not all(bool(torch.isfinite(x).all()) for x in (
                 out.persons_raw.xyz, out.fused.xyz, out.fused_pred.xyz, out.feedback.kp2d)):
@@ -1748,7 +1892,7 @@ def phase_end_to_end(dev, smi: str):
                                 raw.valid.cpu().numpy(), scene["gt_xyz"][t], to_fusion))
     counts = read_counts()
     errs = np.concatenate(errs)
-    if counts != (E2E_TRAIN_FRAMES, E2E_TRAIN_FRAMES, 0):
+    if counts != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,):
         raise AssertionError(f"trained end to end: launch counts {counts}")
     if not loss < E2E_MAX_LOSS:
         raise AssertionError(f"trained detector: final loss {loss} >= {E2E_MAX_LOSS}")
@@ -1760,7 +1904,10 @@ def phase_end_to_end(dev, smi: str):
         train_s=train_s, train_ms_per_step=train_s / E2E_TRAIN_STEPS * 1e3, final_loss=loss,
         frames=E2E_TRAIN_FRAMES, persons_recovered=f"{int(np.isfinite(errs).sum())}/{errs.shape[0]}",
         mean_err_mm=errs.mean() * 1e3, max_err_mm=errs.max() * 1e3, launches=list(counts))
-    return {"jv_assign": n_frames, "association_fold": n_frames, "tracker_scan": 0}
+    trained = (model2, t_cfg, t_pipe_cfg, cameras.build_rig(P, K, (128, 96), device=dev),
+               [(rendered(t_frames, t, t_cfg.image_size), t_frames.cam_stamp[t])
+                for t in range(E2E_TRAIN_FRAMES)])
+    return counts_e2e, trained
 
 
 def device_ms_by_kernel(fn, reps: int) -> dict:
@@ -2078,6 +2225,404 @@ def phase_sharded(dev, smi, golden, rig, cfg, inputs, scaled):
     return {path: tuple(c) for path, c in launches.items()}
 
 
+# --------------------------------------------------------------- phase 13 --
+
+# The captured run_offline against the eager one on the card: the same
+# kernels on the same inputs, and loops that equal the early exit bit for
+# bit, so any difference is a fault; this bound only names the budget.
+CAPTURED_OFFLINE_TOL_M = 1.0e-6
+# Calls timed: run_offline eager and captured in turns; chains of 64 frames.
+CAPTURED_OFFLINE_TIMED = 4
+CHAIN_TIMED = 3
+# End-to-end steps timed at full width, eager and captured in turns.
+CAPTURED_E2E_STEPS = 12
+# LM trips profiled at the online step's shape (one golden frame's persons).
+LM_TRIPS = 32
+# Replays profiled for device busy time and kernels (13.1, 13.4).
+PROFILED_REPLAYS = 3
+# Back-to-back calls timed for the copies' cost (13.1).
+COPY_TIMED = 50
+# The shorter sequence of the graph release check (13.3).
+RELEASE_FRAMES = 16
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted field path, tensor) of every tensor of a tuple tree."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    names = getattr(tree, "_fields", [str(i) for i in range(len(tree))])
+    return [leaf for name, x in zip(names, tree)
+            for leaf in named_leaves(x, f"{prefix}.{name}" if prefix else name)]
+
+
+def tree_diff(got, want) -> tuple:
+    """(integer and mask fields that differ, {float field: largest
+    difference}) of two trees of tensors; infinities and NaNs equal where
+    both sides hold them."""
+    bad, worst = [], {}
+    for (name, a), (_, b) in zip(named_leaves(got), named_leaves(want)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            bad.append(name)
+        elif a.dtype.is_floating_point:
+            d = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, (a - b).abs())
+            worst[name] = float(d.max()) if d.numel() else 0.0
+        elif not torch.equal(a, b):
+            bad.append(name)
+    return bad, worst
+
+
+def quantiles(ms) -> dict:
+    q = statistics.quantiles(ms, n=10)
+    return {"p50": statistics.median(ms), "p90": q[-1]}
+
+
+def profile_device(fn, reps: int) -> tuple:
+    """(device busy ms per call, device events per call, (K1, K2, K3)
+    kernels over the `reps` calls) in a torch.profiler trace of `reps`
+    calls of `fn` after one untraced call (kernels of a graph replay
+    included)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = tuple(sum(k in e.name for e in evs) for k in KERNEL_NAMES)
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps, len(evs) / reps, counts
+
+
+def host_launches_none(what: str) -> None:
+    """A replay launches nothing on the host: the wrappers' counts since
+    the last reset_counts() are 0."""
+    counts = read_counts()
+    if counts != (0, 0, 0):
+        raise AssertionError(f"{what}: the wrappers counted {counts} launches in a replay")
+
+
+def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
+    """13.1-13.2: the captured step against the golden and the eager step,
+    its syncs per replay, its kernels per replay on the device, eager and
+    captured times, the copies' cost; the stacked chain against the
+    per-frame replays. Returns the chain's kernel counts on the device."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    worst = {"golden_fused_mm": 0.0, "golden_pred_mm": 0.0}
+    eager_worst = {}
+    wall = {"eager": [], "captured": []}
+    event_ms = []
+    clocks = []
+    per_frame = {}
+    fns = {"captured": pipe.step,
+           "eager": lambda state, frame: pipeline.step(state, frame, rig, cfg)}
+    for i, scene in enumerate(SCENES):
+        data = inputs[scene]
+        n = data["kp2d"].shape[0]
+        frames = [frame_at(data, f, dev) for f in range(n)]
+        runs = {}
+        # Each path over the whole scene in a block, a device sync after
+        # every step; the two blocks in turns across the scenes.
+        for name in (("captured", "eager") if i % 2 == 0 else ("eager", "captured")):
+            state, outs = pipe.init_state(), []
+            for f, frame in enumerate(frames):
+                torch.cuda.synchronize()
+                reset_counts()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                state, out = fns[name](state, frame)
+                end.record()
+                torch.cuda.synchronize()
+                wall[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "captured":
+                    event_ms.append(start.elapsed_time(end))
+                    host_launches_none(f"captured step {scene} {f}")
+                outs.append((state, out))
+            clocks.append(f"{name}:{smi_clocks()}")
+            runs[name] = outs
+        for f, ((state_c, out_c), (state_e, out_e)) in enumerate(zip(runs["captured"], runs["eager"])):
+            df, dp = compare_step(out_c, golden, scene, f)
+            worst["golden_fused_mm"] = max(worst["golden_fused_mm"], df * 1e3)
+            worst["golden_pred_mm"] = max(worst["golden_pred_mm"], dp * 1e3)
+            bad, diffs = tree_diff((state_c, out_c), (state_e, out_e))
+            if bad:
+                raise AssertionError(f"captured step {scene} {f}: {bad} differ from the eager step")
+            for k, v in diffs.items():
+                eager_worst[k] = max(eager_worst.get(k, 0.0), v)
+        per_frame[scene] = (runs["captured"][-1][0], [out for _, out in runs["captured"]])
+    joints = max(v for k, v in eager_worst.items() if k.endswith("xyz"))
+    if joints > JOINT_TOL_M:
+        raise AssertionError(f"captured step: joints {joints} m from the eager step")
+
+    frame = frame_at(inputs["benign"], 40, dev)
+    state = pipe.init_state()
+    replay_syncs = count_syncs(lambda: pipe.step(state, frame))
+    eager_syncs = count_syncs(lambda: pipeline.step(state, frame, rig, cfg))
+    if replay_syncs:
+        raise AssertionError(f"captured step: {replay_syncs} host syncs per replay")
+    busy_ms, events, on_device = profile_device(lambda: pipe.step(state, frame), PROFILED_REPLAYS)
+    if on_device != (PROFILED_REPLAYS,) * 2 + (0,):
+        raise AssertionError(f"captured step: {on_device} kernels on the device over "
+                             f"{PROFILED_REPLAYS} replays")
+    # The copies that keep the step functional (inputs into the static
+    # buffers, outputs out to fresh tensors): a call against its replay.
+    graph = next(iter(pipe._step.graphs.values()))
+    call_ms = sync_time(lambda: pipe.step(state, frame), COPY_TIMED)
+    replay_ms = sync_time(graph.graph.replay, COPY_TIMED)
+    in_mib = sum(t.nbytes for t in graph.inputs) / 2**20
+    out_mib = sum(t.nbytes for t in graph.outputs) / 2**20
+    wall_c, wall_e = quantiles(wall["captured"]), quantiles(wall["eager"])
+    event_q = quantiles(event_ms)
+    log("13.1 captured step", gpu=repr(smi), frames=len(event_ms), decisions="exact",
+        vs_golden_worst_fused_mm=worst["golden_fused_mm"], vs_golden_worst_pred_mm=worst["golden_pred_mm"],
+        vs_eager_decisions="exact", vs_eager_max_abs_err=max(eager_worst.values()),
+        vs_eager_joints_max_abs_err_m=joints, host_launches_per_replay="0,0,0",
+        device_kernels_over_replays=",".join(map(str, on_device)), replays_profiled=PROFILED_REPLAYS,
+        host_syncs_per_replay=replay_syncs, host_syncs_eager_step=eager_syncs,
+        eager_ms_p50=wall_e["p50"], eager_ms_p90=wall_e["p90"],
+        captured_ms_p50=wall_c["p50"], captured_ms_p90=wall_c["p90"],
+        captured_event_ms_p50=event_q["p50"], captured_event_ms_p90=event_q["p90"],
+        profiled_replay_busy_ms=busy_ms, profiled_replay_device_events=events,
+        captured_device_idle_share=1.0 - busy_ms / wall_c["p50"],
+        call_ms=call_ms, replay_only_ms=replay_ms, copies_ms=call_ms - replay_ms,
+        copied_in_mib=in_mib, copied_out_mib=out_mib,
+        sm_clock_mhz_power_w_after_each_block="'" + " ".join(clocks) + "'")
+
+    # 13.2 The chain: the step's graph once per frame, the state on the device.
+    chain_ms = []
+    for scene in SCENES:
+        frames = stacked_frames(inputs[scene], dev)
+        n = frames.kp2d.shape[0]
+        torch.cuda.synchronize()
+        reset_counts()
+        end, chain = pipe.run_per_frame_chain(pipe.init_state(), frames)
+        torch.cuda.synchronize()
+        host_launches_none(f"chain {scene}")
+        state_c, outs = per_frame[scene]
+        bad, diffs = tree_diff((end, chain), (state_c, tracker.stack_frames(outs)))
+        if bad or any(diffs.values()):
+            raise AssertionError(f"chain {scene}: differs from the per-frame replays: {bad} {diffs}")
+        syncs = count_syncs(lambda: pipe.run_per_frame_chain(pipe.init_state(), frames))
+        if syncs:
+            raise AssertionError(f"chain {scene}: {syncs} host syncs")
+        for _ in range(CHAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run_per_frame_chain(pipe.init_state(), frames)
+            torch.cuda.synchronize()
+            chain_ms.append((time.perf_counter() - t0) * 1e3 / n)
+    head = Frame(*(x[:STEP_PROFILED] for x in frames))
+    _, on_device = device_counts(lambda: pipe.run_per_frame_chain(pipe.init_state(), head))
+    if on_device != (STEP_PROFILED,) * 2 + (0,):
+        raise AssertionError(f"chain of {STEP_PROFILED} frames: {on_device} kernels on the device")
+    log("13.2 captured chain", gpu=repr(smi), scenes=len(SCENES), frames=n,
+        stacked="StepOutput [F, ...]", vs_per_frame_replays="equal", host_syncs_per_call=0,
+        host_launches_per_call="0,0,0", frames_profiled=STEP_PROFILED,
+        device_kernels=",".join(map(str, on_device)),
+        chain_ms_per_step_median=statistics.median(chain_ms),
+        chain_ms_per_step_min=min(chain_ms), chain_ms_per_step_max=max(chain_ms))
+    return {"chain_replays_on_device": on_device}
+
+
+def check_graph_release(smi, rig, cfg, state0, frames):
+    """13.3 (end): a CapturedFunction that keeps one graph, called on a
+    64-frame then a RELEASE_FRAMES-frame sequence: the second capture drops
+    the first graph, and its memory goes back to the allocator."""
+    from smartedgesensor3dhumanpose_tpu_torch import graphs, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+    offline = graphs.CapturedFunction(
+        lambda s, f: pipeline.run_offline(s, f, rig, cfg, OFFLINE_FUSION_BATCH), "run_offline")
+    offline.max_graphs = 1
+    short = Frame(*(x[:RELEASE_FRAMES] for x in frames))
+    reserved = []
+    for seq in (None, frames, short):
+        if seq is not None:
+            offline(state0, seq)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+    base, long_, after = reserved
+    if len(offline.graphs) != 1 or not after < long_:
+        raise AssertionError(f"graph release: {len(offline.graphs)} graphs kept, reserved "
+                             f"{base} -> {long_} -> {after} bytes")
+    log("13.3 graph release", gpu=repr(smi), max_graphs=1,
+        frames=f"{frames.kp2d.shape[0]},{RELEASE_FRAMES}",
+        reserved_over_base_mib=f"{(long_ - base) / 2**20:.2f},{(after - base) / 2**20:.2f}",
+        released=True)
+
+
+def phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe):
+    """13.3: the captured run_offline against the eager one, its syncs and
+    host launches per replay, eager and captured times; the release of a
+    dropped graph's memory."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+
+    worst = 0.0
+    wall = {"eager": [], "captured": []}
+    for scene in SCENES:
+        frames = stacked_frames(inputs[scene], dev)
+        n = frames.kp2d.shape[0]
+        state0 = off_pipe.init_state()
+        torch.cuda.synchronize()
+        reset_counts()
+        got = off_pipe.run_offline(state0, frames)
+        torch.cuda.synchronize()
+        host_launches_none(f"captured run_offline {scene}")
+        want = pipeline.run_offline(state0, frames, rig, cfg, OFFLINE_FUSION_BATCH)
+        bad, _ = offline_diff(got[1], want[1])
+        bad_all, diffs = tree_diff(got, want)
+        if bad or bad_all:
+            raise AssertionError(f"captured run_offline {scene}: {bad + bad_all} differ from eager")
+        joints = max(v for k, v in diffs.items() if k.endswith("xyz"))
+        if joints > CAPTURED_OFFLINE_TOL_M:
+            raise AssertionError(f"captured run_offline {scene}: joints off by {joints} m")
+        worst = max(worst, max(diffs.values()))
+    syncs = count_syncs(lambda: off_pipe.run_offline(state0, frames))
+    if syncs:
+        raise AssertionError(f"captured run_offline: {syncs} host syncs per replay")
+    eager_syncs = count_syncs(lambda: pipeline.run_offline(state0, frames, rig, cfg, OFFLINE_FUSION_BATCH))
+    runs = {"eager": lambda: pipeline.run_offline(state0, frames, rig, cfg, OFFLINE_FUSION_BATCH),
+            "captured": lambda: off_pipe.run_offline(state0, frames)}
+    for i in range(CAPTURED_OFFLINE_TIMED):
+        for name in (("eager", "captured") if i % 2 == 0 else ("captured", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            wall[name].append((time.perf_counter() - t0) * 1e3)
+    e_ms, c_ms = statistics.median(wall["eager"]), statistics.median(wall["captured"])
+    log("13.3 captured run_offline", gpu=repr(smi), frames=n, fusion_batch=OFFLINE_FUSION_BATCH,
+        vs_eager_decisions="exact", vs_eager_max_abs_err=worst, host_launches_per_replay="0,0,0",
+        host_syncs_per_replay=syncs, host_syncs_eager=eager_syncs,
+        eager_ms_median=e_ms, captured_ms_median=c_ms,
+        eager_fused_fps=n / e_ms * 1e3, captured_fused_fps=n / c_ms * 1e3)
+    check_graph_release(smi, rig, cfg, state0, frames)
+
+
+def phase_captured_end_to_end(dev, smi, trained):
+    """13.4: the captured end-to-end step against the eager
+    end_to_end_step: at full width (random weights), times, syncs, host
+    launches per replay and kernels on the device; on the trained detector
+    of phase 11, outputs. Returns the kernel counts on the device."""
+    from smartedgesensor3dhumanpose_tpu_torch import demo
+    from smartedgesensor3dhumanpose_tpu_torch.models import end_to_end, keypoint_cnn
+
+    det_cfg = keypoint_cnn.DetectorConfig()
+    _, cfg, frames, pipe = demo.build_demo(DEMO_CAMS, DEMO_PEOPLE, CAPTURED_E2E_STEPS, DEMO_SEED,
+                                           device=dev)
+    step, model, state0 = end_to_end.make_end_to_end(
+        pipe.rig, cfg, det_cfg, torch.Generator().manual_seed(E2E_SEED), device=dev)
+    inputs = [(rendered(frames, t, det_cfg.image_size), frames.cam_stamp[t])
+              for t in range(CAPTURED_E2E_STEPS)]
+    _, capture_s, graph_mib = first_call(lambda: step(state0, *inputs[0]))
+
+    def eager(state, images, stamp):
+        return end_to_end.end_to_end_step(state, images, stamp, model, det_cfg, pipe.rig, cfg)
+
+    wall = {"eager": [], "captured": []}
+    state_c = state_e = state0
+    for t, args in enumerate(inputs):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state_c, out_c = step(state_c, *args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host_launches_none(f"captured end to end {t}")
+        state_e, out_e = eager(state_e, *args)
+        torch.cuda.synchronize()
+        wall["captured"].append((t1 - t0) * 1e3)
+        wall["eager"].append((time.perf_counter() - t1) * 1e3)
+        bad, _ = tree_diff((state_c, out_c), (state_e, out_e))
+        if bad:
+            raise AssertionError(f"captured end to end {t}: {bad} differ from eager")
+    syncs = count_syncs(lambda: step(state0, *inputs[0]))
+    if syncs:
+        raise AssertionError(f"captured end to end: {syncs} host syncs per replay")
+    _, _, on_device = profile_device(lambda: step(state0, *inputs[0]), PROFILED_REPLAYS)
+    if on_device != (PROFILED_REPLAYS,) * 2 + (0,):
+        raise AssertionError(f"captured end to end: {on_device} kernels on the device over "
+                             f"{PROFILED_REPLAYS} replays")
+
+    # The trained detector of phase 11 (it finds every person).
+    model2, t_cfg, t_pipe_cfg, t_rig, t_inputs = trained
+    step2, model3, s_c = end_to_end.make_end_to_end(t_rig, t_pipe_cfg, t_cfg, device=dev)
+    model3.load_state_dict(model2.state_dict())
+    s_e = s_c
+    worst, persons = {}, 0
+    for t, args in enumerate(t_inputs):
+        s_c, o_c = step2(s_c, *args)
+        s_e, o_e = end_to_end.end_to_end_step(s_e, *args, model3, t_cfg, t_rig, t_pipe_cfg)
+        bad, diffs = tree_diff((s_c, o_c), (s_e, o_e))
+        if bad:
+            raise AssertionError(f"trained captured end to end {t}: {bad} differ from eager")
+        for k, v in diffs.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        persons += int(o_c.persons_raw.valid.sum())
+    joints = max(v for k, v in worst.items() if k.endswith("xyz"))
+    if not persons or joints > JOINT_TOL_M:
+        raise AssertionError(f"trained captured end to end: {persons} persons, joints off by {joints} m")
+    q_e, q_c = quantiles(wall["eager"][1:]), quantiles(wall["captured"][1:])
+    log("13.4 captured end to end", gpu=repr(smi), image="x".join(map(str, det_cfg.image_size)),
+        width=det_cfg.width, steps=CAPTURED_E2E_STEPS, vs_eager_decisions="exact",
+        host_launches_per_replay="0,0,0", replays_profiled=PROFILED_REPLAYS,
+        device_kernels_over_replays=",".join(map(str, on_device)), host_syncs_per_replay=syncs,
+        eager_ms_p50=q_e["p50"], eager_ms_p90=q_e["p90"],
+        captured_ms_p50=q_c["p50"], captured_ms_p90=q_c["p90"],
+        first_call_s=capture_s, first_call_reserved_mib=graph_mib,
+        trained_frames=len(t_inputs), trained_persons=persons, trained_vs_eager_decisions="exact",
+        trained_vs_eager_joints_max_abs_err_m=joints)
+    return {"end_to_end_replays_on_device": on_device}
+
+
+def phase_lm_trips(dev, smi, rig, cfg, inputs):
+    """13.5: the LM's device ms per trip at the online step's shape (one
+    golden frame's hypotheses), by torch.profiler over eager trips, and per
+    trip of a graph of the LM's 32 fixed trips (CUDA events)."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, pipeline, prior
+
+    frame, _ = pipeline.mask_stale_cameras(frame_at(inputs["adversarial"], 40, dev),
+                                           cfg.fusion.max_sync_diff)
+    persons = fusion.fuse_frame(frame, rig, cfg.fusion)
+    p_cfg = cfg.prior
+    g_in = prior.build_graph_inputs(persons, p_cfg)
+    bones = prior._bones(p_cfg, g_in.meas.dtype, dev)
+    eye3 = torch.eye(3, dtype=g_in.meas.dtype, device=dev)
+    x = torch.where(g_in.active[..., None], g_in.meas, 0.0)
+    carry0 = (x, prior._residual_terms(x, g_in, bones)[2],
+              torch.full((x.shape[0],), p_cfg.lm_initial_lambda, device=dev),
+              g_in.num_meas == 0, torch.zeros((), dtype=torch.int32, device=dev))
+
+    def trips():
+        carry = carry0
+        for _ in range(LM_TRIPS):
+            carry = prior._lm_trip(carry, g_in, bones, eye3, p_cfg)
+        return carry
+
+    busy_ms, events, _ = profile_device(trips, 3)
+    trip_device_ms = busy_ms / LM_TRIPS
+    eager_trip_ms = sync_time(trips, 3) / LM_TRIPS
+    lm = graphs.CapturedFunction(lambda gi, w: prior.optimize(gi, w, p_cfg), "prior.optimize")
+    lm(g_in, g_in.meas)
+    graph_ms = sync_time(lambda: lm(g_in, g_in.meas), 20)
+    early = prior.optimize(g_in, g_in.meas, p_cfg)
+    bad, diffs = tree_diff(lm(g_in, g_in.meas), early)
+    if bad or any(diffs.values()):
+        raise AssertionError(f"LM graph (fixed trips) differs from the early exit: {bad} {diffs}")
+    log("13.5 LM trips", gpu=repr(smi), persons=x.shape[0], trip_device_ms=trip_device_ms,
+        trip_device_events=events / LM_TRIPS,
+        trip_eager_wall_ms=eager_trip_ms, captured_lm_ms=graph_ms,
+        captured_lm_ms_per_trip=graph_ms / p_cfg.lm_max_iterations,
+        early_exit_iters=int(early.iters), fixed_trips=p_cfg.lm_max_iterations,
+        captured_vs_early="equal bit for bit")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="write a profiler table here")
@@ -2116,37 +2661,41 @@ def main() -> int:
     k1_err = phase_k1(dev, rng)
     k2_err = phase_k2(dev, golden, rig, cfg, scaled)
     pipe, inputs, launches = phase_slice(dev, golden, rig, cfg)
-    times = phase_times(dev, pipe, golden, rig, cfg, rng, args.profile)
+    times, step_on_device = phase_times(dev, pipe, golden, rig, cfg, rng, args.profile)
     off_pipe, off_launches = phase_offline(dev, golden_offline, rig, cfg, inputs)
     k3_err = phase_k3(dev, off_pipe, inputs)
     k3_err = max(k3_err, phase_scaled(dev, scaled))
     times.update(phase_offline_times(dev, off_pipe, inputs, args.profile))
     demo_launches, demo_k3_err = phase_demo(dev)
     k3_err = max(k3_err, demo_k3_err)
-    e2e_launches = phase_end_to_end(dev, smi)
+    e2e_launches, trained = phase_end_to_end(dev, smi)
     sharded_launches = phase_sharded(dev, smi, golden_offline, rig, cfg, inputs, scaled)
+    captured_launches = phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe)
+    phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe)
+    captured_launches.update(phase_captured_end_to_end(dev, smi, trained))
+    phase_lm_trips(dev, smi, rig, cfg, inputs)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"
-    # launches: the online path's (phase 4), the offline path's (phase 6),
-    # the demo modes' (phase 10), the end-to-end step's (phase 11, full
-    # width) and the sharded paths' (phase 12) counts; no single PyTorch
-    # call computes
-    # JV, the fold or the scan, so there is no library time.
-    by_path = {
-        "jv_assign": {"step": launches["jv_assign"], "run_offline": 0},
-        "association_fold": {"step": launches["association_fold"],
-                             "run_offline": off_launches["association_fold"]},
-        "tracker_scan": {"step": 0, "run_offline": off_launches["tracker_scan"]},
-    }
-    # The demo CLI's modes (phase 10), each counted over its own run.
-    for i, name in enumerate(("jv_assign", "association_fold", "tracker_scan")):
-        for mode, counts in demo_launches.items():
-            by_path[name][mode] = counts[i]
-        by_path[name]["end_to_end"] = e2e_launches[name]
-        # The sharded replay and fusion (phase 12), summed over their meshes.
-        for path, counts in sharded_launches.items():
-            by_path[name][path] = counts[i]
+    # launches: the wrappers' counts over the main path's run, the online
+    # step's (phase 4) for K1 and K2 and the offline replay's (phase 6) for
+    # K3. Both are CUDA graphs: the wrappers count their first call's
+    # warm-up and capture, and a replay launches nothing on the host.
+    # launches_by_path: the wrappers' counts per path, those of the online
+    # step (phase 4), the offline path (6), the demo modes (10), the
+    # end-to-end step (11, full width) and the sharded paths (12, eager);
+    # and under `*_replays_on_device` the kernels that graph replays ran on
+    # the device, counted by name in torch.profiler traces: STEP_PROFILED
+    # replays of phase 4's step (in phase 5), phase 6's replay of each scene, a chain of
+    # STEP_PROFILED frames (13.2) and PROFILED_REPLAYS end-to-end replays
+    # (13.4). No single PyTorch call computes JV, the fold or the scan, so
+    # there is no library time.
+    paths = {**launches, **step_on_device, **off_launches, **demo_launches, "end_to_end": e2e_launches,
+             **sharded_launches, **captured_launches}
+    names = ("jv_assign", "association_fold", "tracker_scan")
+    by_path = {name: {path: counts[i] for path, counts in paths.items()}
+               for i, name in enumerate(names)}
+    main_path = {"jv_assign": "step", "association_fold": "step", "tracker_scan": "run_offline"}
     # K1 replaces both JV sites: the single problem (:238) and the batched
     # launch (:516).
     also = {"jv_assign": [f"{tpu}/hungarian_pallas.py:516"]}
@@ -2161,7 +2710,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"{pkg}/{src}", "replaces": replaces,
             **({"also_replaces": also[name]} if name in also else {}),
-            "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+            "launches": by_path[name][main_path[name]], "launches_by_path": by_path[name],
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })

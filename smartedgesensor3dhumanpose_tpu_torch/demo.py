@@ -192,7 +192,8 @@ def main(argv=None) -> DemoRun:
         sensors = sensors_lib.VirtualSensorArray(
             args.cameras, network_latency=args.loop_network_latency
         )
-        # Warm up (kernel build, device tables) with a throwaway state.
+        # Warm up (kernel build, device tables, and on CUDA the step's graph
+        # capture) with a throwaway state, before the clock starts.
         pipe.step(pipe.init_state(), _frame_at(frames, 0))
         synchronize(device)
         t0 = time.perf_counter()

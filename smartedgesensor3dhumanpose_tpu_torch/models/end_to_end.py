@@ -6,7 +6,10 @@ fusion on a desktop, connected by a network with ~100 ms feedback latency
 camera streams reach one card, the detector (models.keypoint_cnn), multi-view
 fusion, LM smoothing/tracking and reprojection feedback run there back to
 back for each frame: the detector's decoded keypoints feed `pipeline.step`,
-which launches the association fold (K2) and the tracker's JV (K1).
+which launches the association fold (K2) and the tracker's JV (K1). On
+CUDA `make_end_to_end` returns the step captured as one CUDA graph
+(graphs.py), the detector, the decoder and `pipeline.step` inside it, as
+the JAX package jits it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Tuple
 
 import torch
 
+from smartedgesensor3dhumanpose_tpu_torch import graphs
 from smartedgesensor3dhumanpose_tpu_torch import pipeline as pl
 from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
 from smartedgesensor3dhumanpose_tpu_torch.models import keypoint_cnn
@@ -67,7 +71,9 @@ def make_end_to_end(
     """Build (step, model, initial_state) on `device`, where the rig must
     already live; step(state, images, cam_stamp) closes over the model,
     det_cfg, rig and config. The detector's weights come from `generator`
-    (see keypoint_cnn.init_detector); load trained ones into `model`."""
+    (see keypoint_cnn.init_detector); load trained ones into `model` in
+    place (`load_state_dict`): on CUDA the step is a captured graph that
+    reads the parameters by address."""
     if det_cfg.max_detections != config.fusion.max_dets_per_cam:
         raise ValueError(
             f"det_cfg.max_detections ({det_cfg.max_detections}) must equal "
@@ -80,4 +86,6 @@ def make_end_to_end(
     step = functools.partial(
         end_to_end_step, model=model, det_cfg=det_cfg, rig=rig, config=config
     )
+    if pipe.device.type == "cuda":
+        step = graphs.CapturedFunction(step, "end_to_end_step")
     return step, model, pipe.init_state()

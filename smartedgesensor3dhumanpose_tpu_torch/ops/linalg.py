@@ -28,7 +28,17 @@ def require_ieee_fp32() -> None:
         )
 
 
-@functools.lru_cache(maxsize=256)
+def capturing(t: torch.Tensor) -> bool:
+    """Whether `t` lies on CUDA while the current stream captures a CUDA
+    graph (graphs.py). A capture may not read a device value on the host,
+    so the loops that test one eagerly run their fixed trip counts then
+    (prior.optimize, tracking._merge_tracks)."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+# Unbounded: the tables are few, and a captured CUDA graph reads them by
+# address, so an evicted table would be freed under a live graph.
+@functools.lru_cache(maxsize=None)
 def _uploaded(data: bytes, np_dtype: str, shape: tuple, device: torch.device, dtype):
     arr = np.frombuffer(data, dtype=np_dtype).reshape(shape)
     return torch.as_tensor(arr.copy(), dtype=dtype, device=device)
@@ -38,7 +48,8 @@ def constant(array, device, dtype=None) -> torch.Tensor:
     """A small host constant (a skeleton or pair index table) as a tensor on
     `device`, uploaded once per (contents, device, dtype) and then reused:
     on CUDA every host-to-device copy is a host sync. The returned tensor is
-    shared by every caller and must never be written in place."""
+    shared by every caller, never freed, and must never be written in
+    place."""
     a = np.ascontiguousarray(array)
     return _uploaded(a.tobytes(), a.dtype.str, a.shape, torch.device(device), dtype)
 

@@ -100,20 +100,21 @@ def _rebuild(like, values):
 
 def _frame(tree, f: int):
     """Frame f of a stacked Persons3D / precomputed tuple (PriorResult's
-    iteration count is a plain int and passes through)."""
+    iteration count, a 0-d tensor or an int, passes through)."""
     if isinstance(tree, torch.Tensor):
-        return tree[f]
+        return tree[f] if tree.dim() else tree
     if isinstance(tree, int):
         return tree
     return _rebuild(tree, [_frame(x, f) for x in tree])
 
 
-def _stack(items):
-    """Stack a list of per-frame TrackStepOutputs along a new frame axis."""
+def stack_frames(items):
+    """Stack a list of per-frame outputs (TrackStepOutput, StepOutput, any
+    tuple tree of tensors) along a new leading frame axis."""
     first = items[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(items)
-    return _rebuild(first, [_stack(list(xs)) for xs in zip(*items)])
+    return _rebuild(first, [stack_frames(list(xs)) for xs in zip(*items)])
 
 
 def tracker_scan_reference(state0: TrackerState, persons: Persons3D, pivots,
@@ -130,7 +131,7 @@ def tracker_scan_reference(state0: TrackerState, persons: Persons3D, pivots,
             assign=hungarian.linear_sum_assignment_reference,
         )
         outs.append(out)
-    return state, _stack(outs)
+    return state, stack_frames(outs)
 
 
 def check_domain(p: int, t_slots: int, k_j: int) -> None:

@@ -133,8 +133,8 @@ def _split(n: int, parts: int) -> list:
 
 
 def _map(fn, tree):
-    """`fn` over every tensor of a (named) tuple tree; other leaves (such
-    as `PriorResult.iters`) pass through."""
+    """`fn` over every tensor of a (named) tuple tree; other leaves pass
+    through."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, (tuple, list)):
@@ -267,7 +267,8 @@ def run_offline_sharded(rig: CameraRig, config: PipelineConfig, mesh: Mesh,
     def smooth(dev, part):
         return pipeline.smooth_offline(part, config, fusion_batch * h)
 
-    pre = _map(lambda x: x.reshape((n, h) + x.shape[1:]), pipeline._cat(_run(smooth, jobs, home)))
+    pre = _map(lambda x: x.reshape((n, h) + x.shape[1:]) if x.dim() else x,
+               pipeline._cat(_run(smooth, jobs, home)))
     return track_sharded(rig, config, mesh, frames, state, persons, pivots, n_drop, pre,
                          rigs=rigs)
 

@@ -20,6 +20,14 @@ Both are functional: they return a new TrackerState and never write into
 the one passed in, so a caller may keep or reuse any earlier state. (The
 JAX package donates the state buffers on the TPU instead, and forbids
 reuse.)
+
+On CUDA the entry points of `Pipeline` replay CUDA graphs, as the JAX
+package jits them (graphs.py): `Pipeline.step` a graph of `step`,
+`Pipeline.run_per_frame_chain` that graph once per frame with the state
+kept on the device (JAX's `lax.scan` of `step`), and `Pipeline.run_offline`
+a graph of the whole replay per sequence shape. The module-level `step`
+and `run_offline` stay eager, as JAX's raw `step` is unjitted. On the CPU
+every entry point runs eagerly.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import fusion, reprojection, tracking
+from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, reprojection, tracking
 from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
 from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import (
@@ -123,12 +131,11 @@ def _chunks(n: int, size: int):
 
 def _cat(parts):
     """Concatenate per-chunk results (tensors, tuples, NamedTuples) along
-    the frame axis; PriorResult's iteration count keeps its largest."""
+    the frame axis; a 0-d tensor (PriorResult's iteration count) keeps its
+    largest."""
     first = parts[0]
     if isinstance(first, torch.Tensor):
-        return torch.cat(parts)
-    if isinstance(first, int):
-        return max(parts)
+        return torch.stack(parts).amax() if first.dim() == 0 else torch.cat(parts)
     values = [_cat(list(xs)) for xs in zip(*parts)]
     return type(first)(*values) if hasattr(first, "_fields") else tuple(values)
 
@@ -197,13 +204,33 @@ def offline_outputs(frames: Frame, persons, pivots, n_dropped_hyp, track,
     )
 
 
+def run_offline(state: TrackerState, frames: Frame, rig: CameraRig,
+                config: PipelineConfig, fusion_batch: int):
+    """The offline replay, eagerly (what `Pipeline.run_offline` captures):
+    chunked fusion, chunked cold-start smoothing, one tracker scan,
+    reprojection. Returns (final state, StepOutput with a leading time
+    axis) and leaves `state` untouched."""
+    persons, pivots, n_drop = fuse_offline(frames, rig, config, fusion_batch)
+    pre = smooth_offline(persons, config, fusion_batch)
+    state, track = tracker.tracker_scan(
+        state, persons, pivots.to(persons.xyz.dtype), frames.fb_delay, pre,
+        config.prior, config.tracker,
+    )
+    return state, offline_outputs(frames, persons, pivots, n_drop, track, rig, config)
+
+
 class Pipeline:
     """The rig and config with the online and offline entry points.
 
     `device` places every tensor the pipeline creates; the rig and the
     frames must already live there. It is the card unless the caller asks
     for the CPU. On CUDA the solvers run as kernels K1/K2/K3 and the hot path
-    is float32; matrix products are pinned to IEEE fp32 (no TF32).
+    is float32; matrix products are pinned to IEEE fp32 (no TF32). On CUDA
+    `step`, `run_per_frame_chain` and `run_offline` replay CUDA graphs,
+    captured at the first call of each input shape (graphs.py), which
+    read the rig by address: the rig and config are fixed at construction.
+    Each entry point keeps the graphs, and their memory, of its four most
+    recently used input shapes (PERF.md lists the sizes).
     `fusion_batch` is the chunk size of the offline fusion and smoothing.
     """
 
@@ -221,6 +248,11 @@ class Pipeline:
         self.rig = rig
         self.config = config
         self.fusion_batch = fusion_batch
+        self._step = self._step_eager
+        self._offline = self._offline_eager
+        if self.device.type == "cuda":
+            self._step = graphs.CapturedFunction(self._step_eager, "Pipeline.step")
+            self._offline = graphs.CapturedFunction(self._offline_eager, "Pipeline.run_offline")
 
     def init_state(self, dtype=torch.float32) -> TrackerState:
         t = self.config.tracker
@@ -228,30 +260,37 @@ class Pipeline:
             t.max_tracks, t.n_mov_avg, t.avg_delay, dtype=dtype, device=self.device
         )
 
-    def step(self, state: TrackerState, frame: Frame):
-        """The online path: one frame in, (new state, StepOutput) out."""
+    def _step_eager(self, state: TrackerState, frame: Frame):
         return step(state, frame, self.rig, self.config)
+
+    def step(self, state: TrackerState, frame: Frame):
+        """The online path: one frame in, (new state, StepOutput) out; on
+        CUDA a replay of the captured step."""
+        return self._step(state, frame)
 
     def run_per_frame_chain(self, state: TrackerState, frames: Frame):
         """`step` over a stacked sequence (leading time axis on every Frame
-        field); returns (final state, list of StepOutput)."""
+        field); returns (final state, StepOutput with a leading time axis),
+        as JAX's `lax.scan` of `step`. On CUDA the step's graph is replayed
+        once per frame with the state threaded on the device, no host sync
+        between frames."""
+        n = frames.kp2d.shape[0]
+        if n == 0:
+            raise ValueError("run_per_frame_chain needs at least one frame")
         outs = []
-        for i in range(frames.kp2d.shape[0]):
+        for i in range(n):
             state, out = self.step(state, Frame(*(f[i] for f in frames)))
             outs.append(out)
-        return state, outs
+        return state, tracker.stack_frames(outs)
+
+    def _offline_eager(self, state: TrackerState, frames: Frame):
+        return run_offline(state, frames, self.rig, self.config, self.fusion_batch)
 
     def run_offline(self, state: TrackerState, frames: Frame):
         """The offline replay of a stacked sequence (leading time axis on
         every Frame field): chunked fusion, chunked cold-start smoothing,
         one tracker scan, reprojection. Returns (final state, StepOutput
-        with a leading time axis); `state` is left as it was."""
-        cfg = self.config
-        persons, pivots, n_drop = fuse_offline(frames, self.rig, cfg, self.fusion_batch)
-        pre = smooth_offline(persons, cfg, self.fusion_batch)
-        state, track = tracker.tracker_scan(
-            state, persons, pivots.to(persons.xyz.dtype), frames.fb_delay, pre,
-            cfg.prior, cfg.tracker,
-        )
-        return state, offline_outputs(frames, persons, pivots, n_drop, track,
-                                      self.rig, cfg)
+        with a leading time axis); `state` is left as it was. On CUDA a
+        replay of the whole call's graph, captured once per sequence
+        shape."""
+        return self._offline(state, frames)

@@ -7,8 +7,12 @@ bone-length range factors (:384-481), optimized by LM from a warm start
 (:483-503) with marginals from the final Hessian (:760-767). The normal
 equations are solved along the bone tree (ops.tree_solve).
 
-The LM loop tests `all(done)` on the host once per iteration: one device
-sync per iteration on CUDA (see `optimize`).
+Eager calls stop the LM early: they test `all(done)` on the host once per
+iteration, one device sync per iteration on CUDA. While a CUDA graph is
+captured (graphs.py) the LM runs its fixed `lm_max_iterations` trips with
+no host test, as the JAX package's `lax.while_loop` runs on the device;
+both loops take the same trip body and give the same result bit for bit
+(see `optimize`).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ class PriorResult(NamedTuple):
     x: torch.Tensor         # [P, K, 3] optimized normalized joints
     marg_cov: torch.Tensor  # [P, K, 3, 3] marginal covariances (normalized)
     marg_ok: torch.Tensor   # [P] marginals usable (else default sigma)
-    iters: int              # LM iterations run
+    iters: torch.Tensor     # [] int32 LM iterations run
 
 
 def _safe_inv3(a):
@@ -211,13 +215,48 @@ def _linearize_tree(x, g_in: GraphInputs, bones: _Bones):
     return hdiag, -uu, g, err
 
 
+def _lm_trip(carry, g_in: GraphInputs, bones: _Bones, eye3, cfg: PriorConfig):
+    """One LM iteration over every person: carry (x, err, lam, done, iters)
+    in, the next carry out. Finished persons stay frozen: `x` and `err` move
+    only where `accept & ~done` and `lam` only where `~done`, so a trip
+    after every person is done returns its carry bit for bit. `iters` counts
+    the trips that started with a person still running (JAX's count)."""
+    x, err, lam, done, iters = carry
+    iters = iters + (~done.all()).to(torch.int32)
+    hdiag, coup, g, _ = _linearize_tree(x, g_in, bones)
+    damped = hdiag + lam[:, None, None, None] * eye3
+    delta, _ = tree_solve.tree_solve_levels(damped, coup, g_in.bone_active, -g)
+    delta = torch.where(torch.isfinite(delta), delta, 0.0)
+    x_new = x + delta
+    err_new = _residual_terms(x_new, g_in, bones)[2]
+    accept = (err_new < err) & torch.isfinite(err_new)
+    dec = err - err_new
+    # Converged when the attempted step barely changes the error, in
+    # either direction (gtsam checkConvergence semantics).
+    conv = torch.isfinite(err_new) & (
+        (torch.abs(dec) <= cfg.lm_absolute_error_tol)
+        | (torch.abs(dec) <= cfg.lm_relative_error_tol * err)
+    )
+    take = accept & ~done
+    x = torch.where(take[:, None, None], x_new, x)
+    err = torch.where(take, err_new, err)
+    lam_next = torch.where(
+        accept, lam / cfg.lm_lambda_factor, lam * cfg.lm_lambda_factor
+    )
+    lam = torch.where(done, lam, lam_next)
+    done = done | conv | (lam > cfg.lm_lambda_upper)
+    return x, err, lam, done, iters
+
+
 def optimize(g_in: GraphInputs, warm_start, cfg: PriorConfig) -> PriorResult:
     """Batched LM over all persons (reference :746-767).
 
     warm_start: [P, K, 3] initial state (previous track estimate where the
-    joint persisted, else the measurement). The iteration stops when every
-    person is done or after lm_max_iterations; the test of `all(done)` is
-    one host sync per iteration.
+    joint persisted, else the measurement). Eagerly the iteration stops when
+    every person is done or after lm_max_iterations, testing `all(done)` on
+    the host once per iteration. While a CUDA graph is captured it runs all
+    lm_max_iterations trips with no host test; trips after every person is
+    done change nothing, so both give the same result and `iters`.
     """
     dtype = g_in.meas.dtype
     dev = g_in.meas.device
@@ -225,38 +264,23 @@ def optimize(g_in: GraphInputs, warm_start, cfg: PriorConfig) -> PriorResult:
     bones = _bones(cfg, dtype, dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
-    def error(x):
-        return _residual_terms(x, g_in, bones)[2]
-
     x = torch.where(g_in.active[..., None], warm_start, 0.0)
-    err = error(x)
-    lam = torch.full((p,), cfg.lm_initial_lambda, dtype=dtype, device=dev)
-    done = g_in.num_meas == 0  # persons without measurements are skipped
-    it = 0
-    while it < cfg.lm_max_iterations and not bool(done.all()):
-        hdiag, coup, g, _ = _linearize_tree(x, g_in, bones)
-        damped = hdiag + lam[:, None, None, None] * eye3
-        delta, _ = tree_solve.tree_solve_levels(damped, coup, g_in.bone_active, -g)
-        delta = torch.where(torch.isfinite(delta), delta, 0.0)
-        x_new = x + delta
-        err_new = error(x_new)
-        accept = (err_new < err) & torch.isfinite(err_new)
-        dec = err - err_new
-        # Converged when the attempted step barely changes the error, in
-        # either direction (gtsam checkConvergence semantics).
-        conv = torch.isfinite(err_new) & (
-            (torch.abs(dec) <= cfg.lm_absolute_error_tol)
-            | (torch.abs(dec) <= cfg.lm_relative_error_tol * err)
-        )
-        take = accept & ~done
-        x = torch.where(take[:, None, None], x_new, x)
-        err = torch.where(take, err_new, err)
-        lam_next = torch.where(
-            accept, lam / cfg.lm_lambda_factor, lam * cfg.lm_lambda_factor
-        )
-        lam = torch.where(done, lam, lam_next)
-        done = done | conv | (lam > cfg.lm_lambda_upper)
-        it += 1
+    carry = (
+        x,
+        _residual_terms(x, g_in, bones)[2],
+        torch.full((p,), cfg.lm_initial_lambda, dtype=dtype, device=dev),
+        g_in.num_meas == 0,  # persons without measurements are skipped
+        torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    if linalg.capturing(x):
+        for _ in range(cfg.lm_max_iterations):
+            carry = _lm_trip(carry, g_in, bones, eye3, cfg)
+    else:
+        trips = 0
+        while trips < cfg.lm_max_iterations and not bool(carry[3].all()):
+            carry = _lm_trip(carry, g_in, bones, eye3, cfg)
+            trips += 1
+    x, _, _, _, iters = carry
 
     # Optimization failure falls back to the raw measurements (:748-758).
     bad = ~torch.isfinite(x.reshape(p, -1)).all(dim=-1)
@@ -269,7 +293,7 @@ def optimize(g_in: GraphInputs, warm_start, cfg: PriorConfig) -> PriorResult:
     )
     marg_ok = torch.isfinite(marg.reshape(p, -1)).all(dim=-1) & ~bad
     marg = torch.where(marg_ok[:, None, None, None], marg, eye3)
-    return PriorResult(x=x, marg_cov=marg, marg_ok=marg_ok, iters=it)
+    return PriorResult(x=x, marg_cov=marg, marg_ok=marg_ok, iters=iters)
 
 
 def denormalize(result: PriorResult, g_in: GraphInputs, cfg: PriorConfig):

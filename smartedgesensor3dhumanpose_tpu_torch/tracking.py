@@ -317,8 +317,11 @@ def _merge_tracks(alive, track_id, est, est_exists, height_prev, root_prev,
 
     The reference's lexicographic pair loop reduces to the recurrence
     surv[j] = alive[j] and no surviving close i < j, solved as a monotone
-    fixpoint (see the JAX package's tracking._merge_tracks); each round is
-    one host test.
+    fixpoint (see the JAX package's tracking._merge_tracks). Eagerly each
+    round is one host test. While a CUDA graph is captured it runs T rounds
+    with no test: each round settles at least the lowest alive slot still
+    unsettled (its close predecessors are all settled), and a round after
+    the fixpoint changes neither `live` nor `dead`.
     """
     t_slots = alive.shape[0]
     if t_slots < 2:
@@ -336,11 +339,18 @@ def _merge_tracks(alive, track_id, est, est_exists, height_prev, root_prev,
         & alive[None, :]
     )  # [T(keeper), T(victim)]
 
+    def settle(live, dead):
+        live = live | (alive & ~(close & ~dead[:, None]).any(dim=0))
+        return live, dead | (close & live[:, None]).any(dim=0)
+
     live = torch.zeros_like(alive)
     dead = torch.zeros_like(alive)
-    while bool((alive & ~live & ~dead).any()):
-        live = live | (alive & ~(close & ~dead[:, None]).any(dim=0))
-        dead = dead | (close & live[:, None]).any(dim=0)
+    if linalg.capturing(alive):
+        for _ in range(t_slots):
+            live, dead = settle(live, dead)
+    else:
+        while bool((alive & ~live & ~dead).any()):
+            live, dead = settle(live, dead)
 
     kill = close & live[:, None]
     keeper = torch.argmax(kill.to(torch.int32), dim=0)  # first surviving keeper

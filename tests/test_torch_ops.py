@@ -189,7 +189,9 @@ def test_prior_matches_jax(rng, normalize_by_height):
     warm = tg.meas + 0.01 * torch.from_numpy(rng.normal(size=tg.meas.shape)) * tg.active[..., None]
     jr = jax.jit(jax_prior.optimize, static_argnums=2)(jg, jnp.asarray(warm.numpy()), jcfg)
     tr = prior.optimize(tg, warm, tcfg)
-    assert tr.iters == int(jr.iters)
+    # JAX's type: a 0-d int32 count on the device.
+    assert tr.iters.dtype == torch.int32 and tr.iters.dim() == 0
+    assert int(tr.iters) == int(jr.iters)
     # Same LM path (equal iteration count); the tree solve's summation order
     # differs, amplified by the root's 1e4 information weight: 1e-8 m.
     close(tr.x, jr.x, rtol=0, atol=1e-8)

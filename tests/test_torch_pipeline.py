@@ -345,7 +345,10 @@ def test_chain_and_offline_entry_points():
                              fusion_batch=2)
     frames = _frames64()[:3]
     stacked = _stacked(frames)
-    end, outs = pipe.run_per_frame_chain(pipe.init_state(), stacked)
+    end, chain = pipe.run_per_frame_chain(pipe.init_state(), stacked)
+    # One StepOutput with a leading time axis, as JAX's lax.scan returns.
+    assert isinstance(chain, pipeline.StepOutput)
+    outs = [tracker._frame(chain, f) for f in range(len(frames))]
     state = pipe.init_state()
     for arrays, chained in zip(frames, outs):
         state, out = pipe.step(state, Frame.from_arrays(arrays, "cpu"))
