@@ -1,9 +1,12 @@
 """Drive the PyTorch port's online and offline pipelines, its demo CLI and its sharded paths on NVIDIA GPUs and check them.
 
 Phases (each prints one line; any failure exits non-zero):
-  0 environment: card name and power limit, torch/CUDA versions, TF32 flags
+  0 environment: card name and power limit, torch/CUDA versions, TF32 flags,
+    the route of the captured loops (a WHILE node, csrc/graph_loop.cu) and
+    whether this torch has CUDA-graph IF nodes of its own
   1 build: compile kernels K1 (jv_assign.cu), K2 (association_fold.cu) and
-    K3 (tracker_scan.cu), one nvcc per source, all started together; the
+    K3 (tracker_scan.cu), and the captured loops' kernels (graph_loop.cu),
+    one nvcc per source, all started together; the
     wrappers' shared-memory plans against the kernels' own byte counts; K1
     without local memory (-Xptxas -v)
   2 K1 against its plain PyTorch version and scipy, on the card, at every
@@ -46,7 +49,8 @@ Phases (each prints one line; any failure exits non-zero):
     (accounting, and the loop's state against stepping its frames again);
     --online --jsonl (accounting); --closed-loop over 64 frames (and the
     horizon's exact convergence on jitter-free stamps); a checkpoint resume;
-    profile_stages against a direct timing of run_offline
+    profile_stages (each stage a captured graph) against a direct timing of
+    run_offline
  11 the end-to-end slice (images -> keypoint CNN -> decode -> Pipeline.step):
     the full-width detector (DetectorConfig(): 480x640, width 128, stride 8,
     bfloat16) on the demo's 16 cameras, 30 steps from seeded random
@@ -80,7 +84,12 @@ Phases (each prints one line; any failure exits non-zero):
     memory released; the captured end-to-end step against the eager
     end_to_end_step (full width, and the trained detector of phase 11);
     eager and captured times, the chain's ms per step, first-call seconds
-    and memory, and the LM's device ms per trip (torch.profiler)
+    and memory, each graph's top-level nodes and the device's idle share
+    (back to back against waited for); the loops (LM, merge) of every
+    captured path as WHILE nodes: the trips each ran on the device, from
+    the loops' own log (loops.trip_log), against the eager loops' trips
+    (the LM's iters) and against lm_max_iterations, and the LM's ms per
+    trip run and skipped against PR 8's fixed 32 trips
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -94,6 +103,8 @@ Usage:  python3 chip_smoke.py [--profile DIR]
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -707,8 +718,10 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
         busy_ms = sum(e.self_device_time_total for e in averages) / 1e3 / 9
         with open(os.path.join(profile_dir, "profile_steps.txt"), "w") as fh:
             fh.write(averages.table(sort_by="self_device_time_total", row_limit=40))
+        # A trace may miss kernels of the loops' WHILE bodies (trips_in_trace):
+        # its busy time bounds the device's from below.
         log("5 profile", steps=9, wall_ms_per_step=wall_ms,
-            device_busy_ms_per_step=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms)
+            device_busy_ms_per_step_in_trace=busy_ms, device_idle_share_at_most=1.0 - busy_ms / wall_ms)
         log("5 stages", **stage_times(pipe, pipe.init_state(), frames[:30]))
 
     # K1 at the tracker's shape (16 persons x 24 slots, 6 valid).
@@ -1294,8 +1307,8 @@ def phase_offline_times(dev, pipe, inputs, profile_dir):
         busy_ms = sum(e.self_device_time_total for e in averages) / 1e3 / 3
         with open(os.path.join(profile_dir, "profile_offline.txt"), "w") as fh:
             fh.write(averages.table(sort_by="self_device_time_total", row_limit=40))
-        log("9 profile", runs=3, wall_ms_per_run=wall_ms, device_busy_ms_per_run=busy_ms,
-            device_idle_share=1.0 - busy_ms / wall_ms)
+        log("9 profile", runs=3, wall_ms_per_run=wall_ms, device_busy_ms_per_run_in_trace=busy_ms,
+            device_idle_share_at_most=1.0 - busy_ms / wall_ms)
 
     # K3 at the demo shape (64 frames, 16 persons, 24 slots), wrapper call
     # (frame-local precompute, packing, one launch) against the plain scan.
@@ -1611,7 +1624,8 @@ def phase_demo(dev):
         log("10.8 checkpoint resume", frames=f"{half}+{DEMO_FRAMES - half}", decisions="exact",
             max_abs_err=diff, published_after=int(out_a.fused.valid[-1].sum()))
 
-        # 9. profile_stages on the demo scene against run_offline timed directly.
+        # 9. profile_stages (a captured graph per stage) on the demo scene
+        # against run_offline timed directly.
         stages = profiling.profile_stages(pipe, frames, reps=3)
         direct = []
         for _ in range(3):
@@ -1625,8 +1639,9 @@ def phase_demo(dev):
         ratio = stages["full"] / direct_ms
         if not 1 / PROFILE_FULL_RATIO <= ratio <= PROFILE_FULL_RATIO:
             raise AssertionError(f"profile_stages full {stages['full']} ms/frame vs direct {direct_ms}")
-        log("10.9 profile_stages", unit="ms/frame", **stages, direct_run_offline=direct_ms,
-            full_over_direct=ratio)
+        log("10.9 profile_stages", unit="ms/frame", captured="fuse,smooth_cold,tracker,reproj,full",
+            **stages, stage_sum=sum(v for k, v in stages.items() if k != "full"),
+            direct_run_offline=direct_ms, full_over_direct=ratio)
 
         # --viz / --live on this machine: matplotlib or a clear ImportError.
         try:
@@ -2240,6 +2255,18 @@ CAPTURED_E2E_STEPS = 12
 LM_TRIPS = 32
 # Replays profiled for device busy time and kernels (13.1, 13.4).
 PROFILED_REPLAYS = 3
+# The captured loops' kernels (csrc/graph_loop.cu), by name in a trace.
+LOOP_BEGIN, LOOP_NEXT = "loop_begin_kernel", "loop_next_kernel"
+# Rounds of the LM graphs timed in turns (13.5).
+LM_TIMED_ROUNDS = 5
+# Frames of each golden scene at which the step's loops are counted on the
+# device (13.5), each from the state the captured chain reaches there.
+TRIP_FRAMES = (8, 24, 40, 56)
+# Replays timed, a sync after each, for the fixed-trip step graph (13.5).
+FIXED_STEP_TIMED = 30
+# Every BUSY_STRIDE-th frame of each scene's captured steps is replayed
+# again for the trips and device time of its loops (13.1).
+BUSY_STRIDE = 4
 # Back-to-back calls timed for the copies' cost (13.1).
 COPY_TIMED = 50
 # The shorter sequence of the graph release check (13.3).
@@ -2276,23 +2303,171 @@ def quantiles(ms) -> dict:
     return {"p50": statistics.median(ms), "p90": q[-1]}
 
 
-def profile_device(fn, reps: int) -> tuple:
-    """(device busy ms per call, device events per call, (K1, K2, K3)
-    kernels over the `reps` calls) in a torch.profiler trace of `reps`
-    calls of `fn` after one untraced call (kernels of a graph replay
-    included)."""
+def traced(fn) -> list:
+    """The device events of one call of `fn` in a torch.profiler trace of
+    it alone (kernels of a graph replay included), in the order they
+    started."""
     from torch.autograd import DeviceType
 
-    fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sorted(evs, key=lambda e: e.time_range.start)
+
+
+def profile_device(fn, reps: int) -> tuple:
+    """(device busy ms per call, device events per call, (K1, K2, K3)
+    kernels over the `reps` calls) in torch.profiler traces of `reps`
+    calls of `fn`, one trace each, after one untraced call."""
+    fn()
+    evs = [e for _ in range(reps) for e in traced(fn)]
     counts = tuple(sum(k in e.name for e in evs) for k in KERNEL_NAMES)
     return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps, len(evs) / reps, counts
+
+
+def captured_with_log(fn, *args):
+    """(fn captured anew as graphs.CapturedFunction and called on `args`,
+    the trip log of its WHILE nodes): loops.trip_log is on while it
+    captures, so every replay writes, on the device, the trips each loop
+    ran and the device clock at the loop's start and at each trip's end."""
+    from smartedgesensor3dhumanpose_tpu_torch import graphs
+    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
+
+    captured = graphs.CapturedFunction(fn, "trip log")
+    loops.trip_log = []
+    try:
+        captured(*args)
+    finally:
+        log, loops.trip_log = loops.trip_log, None
+    return captured, log
+
+
+def log_trips(log) -> list:
+    """The trips each loop of the last replay ran, read from the device."""
+    torch.cuda.synchronize()
+    return [int(trips) for trips, _ in log]
+
+
+def log_spans_ms(log) -> list:
+    """Each loop's span in the last replay on the device clock, from the
+    loop's start to its last trip's end, in ms."""
+    torch.cuda.synchronize()
+    return [float(stamps[int(trips)] - stamps[0]) / 1e6 for trips, stamps in log]
+
+
+def trips_in_trace(fn) -> list:
+    """The trips each loop of one call of `fn` shows in a torch.profiler
+    trace: the loop_next kernels after each loop_begin kernel. A cross
+    check of the device's own log only: such traces showed every trip of
+    a WHILE node's body in some runs on the card, some trips or none in
+    others, so no busy time is taken from a trace of a graph with loops."""
+    shown = []
+    for e in traced(fn):
+        if LOOP_BEGIN in e.name:
+            shown.append(0)
+        elif LOOP_NEXT in e.name and shown:
+            shown[-1] += 1
+    return shown
+
+
+def waited_and_back_to_back(fn, reps: int) -> tuple:
+    """(median ms of a call of `fn` that the caller waits for, a sync after
+    each; ms per call of `reps` calls queued back to back, by CUDA
+    events). Back to back the device never waits for the host, so the
+    second bounds the device's time per call from above (its own gaps
+    included), and 1 - second / first bounds from below the share of a
+    waited-for call in which the device idles."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), sync_time(fn, reps)
+
+
+def eager_trips(fn) -> list:
+    """The trips each `loops.while_loop` of one eager call of `fn` ran, in
+    order (the loop's host test, counted)."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
+
+    counts = []
+    while_loop = loops.while_loop
+
+    def counted(cond, body, carry, max_trips):
+        counts.append(0)
+
+        def trip(c):
+            counts[-1] += 1
+            return body(c)
+
+        return while_loop(cond, trip, carry, max_trips)
+
+    loops.while_loop = counted
+    try:
+        fn()
+    finally:
+        loops.while_loop = while_loop
+    return counts
+
+
+@contextlib.contextmanager
+def fixed_trips():
+    """PR 8's captured loops, for comparison: while this is on, a
+    `loops.while_loop` runs all of its `max_trips` trips with no test (its
+    trips after the loop's end change nothing), so a function captured now
+    records every trip."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
+
+    def fixed(cond, body, carry, max_trips):
+        for _ in range(max_trips):
+            carry = body(carry)
+        return carry
+
+    while_loop = loops.while_loop
+    loops.while_loop = fixed
+    try:
+        yield
+    finally:
+        loops.while_loop = while_loop
+
+
+def graph_nodes(fn, *args) -> dict:
+    """The nodes of the top level of `fn`'s CUDA graph, as
+    graphs.CapturedFunction captures it for `args`, by type (the driver's
+    cuGraphGetNodes and cuGraphNodeGetType): all, kernel, memcpy, memset,
+    conditional (a WHILE node's body is one conditional node here)."""
+    import ctypes
+
+    from smartedgesensor3dhumanpose_tpu_torch import graphs
+
+    captured = graphs.CapturedFunction(fn, "node count")
+    captured.keep_graph = True
+    captured(*args)
+    raw = ctypes.c_void_p(next(iter(captured.graphs.values())).graph.raw_cuda_graph())
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    kinds = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds[kind.value] += 1
+    # CUgraphNodeType: KERNEL 0, MEMCPY 1, MEMSET 2, CONDITIONAL 13.
+    return {"all": n.value, "kernel": kinds[0], "memcpy": kinds[1], "memset": kinds[2],
+            "conditional": kinds[13]}
+
+
+def nodes_str(nodes: dict) -> str:
+    return ",".join(f"{k}:{v}" for k, v in nodes.items())
 
 
 def host_launches_none(what: str) -> None:
@@ -2306,8 +2481,10 @@ def host_launches_none(what: str) -> None:
 def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
     """13.1-13.2: the captured step against the golden and the eager step,
     its syncs per replay, its kernels per replay on the device, eager and
-    captured times, the copies' cost; the stacked chain against the
-    per-frame replays. Returns the chain's kernel counts on the device."""
+    captured times, the copies' cost and the device's idle share, and the
+    trips and device time of its loops on every BUSY_STRIDE-th frame; the
+    stacked chain against the per-frame replays. Returns the chain's
+    kernel counts on the device."""
     from smartedgesensor3dhumanpose_tpu_torch import pipeline
     from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
     from smartedgesensor3dhumanpose_tpu_torch.types import Frame
@@ -2318,6 +2495,10 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
     event_ms = []
     clocks = []
     per_frame = {}
+    # Busy ms, wall ms and (LM, merge) trips of sampled frames' replays.
+    sampled = []
+    step_fn = lambda s, f: pipeline.step(s, f, rig, cfg)  # noqa: E731
+    logged, trip_log = captured_with_log(step_fn, pipe.init_state(), frame_at(inputs["benign"], 0, dev))
     fns = {"captured": pipe.step,
            "eager": lambda state, frame: pipeline.step(state, frame, rig, cfg)}
     for i, scene in enumerate(SCENES):
@@ -2345,6 +2526,8 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
                 outs.append((state, out))
             clocks.append(f"{name}:{smi_clocks()}")
             runs[name] = outs
+            if name == "captured":
+                scene_wall = wall[name][-n:]
         for f, ((state_c, out_c), (state_e, out_e)) in enumerate(zip(runs["captured"], runs["eager"])):
             df, dp = compare_step(out_c, golden, scene, f)
             worst["golden_fused_mm"] = max(worst["golden_fused_mm"], df * 1e3)
@@ -2355,6 +2538,10 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
             for k, v in diffs.items():
                 eager_worst[k] = max(eager_worst.get(k, 0.0), v)
         per_frame[scene] = (runs["captured"][-1][0], [out for _, out in runs["captured"]])
+        states = [pipe.init_state()] + [st for st, _ in runs["captured"]]
+        for f in range(0, n, BUSY_STRIDE):
+            logged(states[f], frames[f])
+            sampled.append((log_trips(trip_log), log_spans_ms(trip_log), scene_wall[f]))
     joints = max(v for k, v in eager_worst.items() if k.endswith("xyz"))
     if joints > JOINT_TOL_M:
         raise AssertionError(f"captured step: joints {joints} m from the eager step")
@@ -2365,17 +2552,21 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
     eager_syncs = count_syncs(lambda: pipeline.step(state, frame, rig, cfg))
     if replay_syncs:
         raise AssertionError(f"captured step: {replay_syncs} host syncs per replay")
-    busy_ms, events, on_device = profile_device(lambda: pipe.step(state, frame), PROFILED_REPLAYS)
+    _, _, on_device = profile_device(lambda: pipe.step(state, frame), PROFILED_REPLAYS)
     if on_device != (PROFILED_REPLAYS,) * 2 + (0,):
         raise AssertionError(f"captured step: {on_device} kernels on the device over "
                              f"{PROFILED_REPLAYS} replays")
+    lm_trips = [trips[0] for trips, _, _ in sampled]
+    lm_ms = [spans[0] for _, spans, _ in sampled]
+    lm_share = sum(lm_ms) / sum(wall for _, _, wall in sampled)
     # The copies that keep the step functional (inputs into the static
     # buffers, outputs out to fresh tensors): a call against its replay.
     graph = next(iter(pipe._step.graphs.values()))
-    call_ms = sync_time(lambda: pipe.step(state, frame), COPY_TIMED)
+    waited_ms, call_ms = waited_and_back_to_back(lambda: pipe.step(state, frame), COPY_TIMED)
     replay_ms = sync_time(graph.graph.replay, COPY_TIMED)
     in_mib = sum(t.nbytes for t in graph.inputs) / 2**20
     out_mib = sum(t.nbytes for t in graph.outputs) / 2**20
+    nodes = graph_nodes(lambda s, f: pipeline.step(s, f, rig, cfg), state, frame)
     wall_c, wall_e = quantiles(wall["captured"]), quantiles(wall["eager"])
     event_q = quantiles(event_ms)
     log("13.1 captured step", gpu=repr(smi), frames=len(event_ms), decisions="exact",
@@ -2387,8 +2578,12 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
         eager_ms_p50=wall_e["p50"], eager_ms_p90=wall_e["p90"],
         captured_ms_p50=wall_c["p50"], captured_ms_p90=wall_c["p90"],
         captured_event_ms_p50=event_q["p50"], captured_event_ms_p90=event_q["p90"],
-        profiled_replay_busy_ms=busy_ms, profiled_replay_device_events=events,
-        captured_device_idle_share=1.0 - busy_ms / wall_c["p50"],
+        frames_sampled=len(sampled), sampled_lm_trips_min=min(lm_trips),
+        sampled_lm_trips_mean=statistics.mean(lm_trips), sampled_lm_trips_max=max(lm_trips),
+        sampled_lm_device_clock_ms_mean=statistics.mean(lm_ms), sampled_lm_device_clock_ms_max=max(lm_ms),
+        sampled_lm_share_of_wall=lm_share,
+        sampled_merge_rounds_max=max(trips[1] for trips, _, _ in sampled), graph_nodes=nodes_str(nodes),
+        waited_ms_p50=waited_ms, idle_share_at_least=1.0 - call_ms / waited_ms,
         call_ms=call_ms, replay_only_ms=replay_ms, copies_ms=call_ms - replay_ms,
         copied_in_mib=in_mib, copied_out_mib=out_mib,
         sm_clock_mhz_power_w_after_each_block="'" + " ".join(clocks) + "'")
@@ -2417,7 +2612,7 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
             torch.cuda.synchronize()
             chain_ms.append((time.perf_counter() - t0) * 1e3 / n)
     head = Frame(*(x[:STEP_PROFILED] for x in frames))
-    _, on_device = device_counts(lambda: pipe.run_per_frame_chain(pipe.init_state(), head))
+    _, _, on_device = profile_device(lambda: pipe.run_per_frame_chain(pipe.init_state(), head), 1)
     if on_device != (STEP_PROFILED,) * 2 + (0,):
         raise AssertionError(f"chain of {STEP_PROFILED} frames: {on_device} kernels on the device")
     log("13.2 captured chain", gpu=repr(smi), scenes=len(SCENES), frames=n,
@@ -2459,9 +2654,10 @@ def check_graph_release(smi, rig, cfg, state0, frames):
 
 def phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe):
     """13.3: the captured run_offline against the eager one, its syncs and
-    host launches per replay, eager and captured times; the release of a
-    dropped graph's memory."""
-    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+    host launches per replay, eager and captured times, its LMs' trips on
+    the device, and PR 8's fixed-trip graph timed beside it; the release
+    of a dropped graph's memory."""
+    from smartedgesensor3dhumanpose_tpu_torch import graphs, pipeline
 
     worst = 0.0
     wall = {"eager": [], "captured": []}
@@ -2486,6 +2682,31 @@ def phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe):
     syncs = count_syncs(lambda: off_pipe.run_offline(state0, frames))
     if syncs:
         raise AssertionError(f"captured run_offline: {syncs} host syncs per replay")
+    # The adversarial scene (the last in SCENES): each fusion chunk's
+    # cold-start LM as one WHILE node; the merge runs inside K3.
+    offline_fn = lambda s, f: pipeline.run_offline(s, f, rig, cfg, OFFLINE_FUSION_BATCH)  # noqa: E731
+    logged, trip_log = captured_with_log(offline_fn, state0, frames)
+    trips, lm_ms = log_trips(trip_log), log_spans_ms(trip_log)
+    traced_trips = trips_in_trace(lambda: logged(state0, frames))
+    # PR 8's graph, whose LMs ran every trip, timed in turns with this one.
+    fixed = graphs.CapturedFunction(offline_fn, "fixed-trip run_offline")
+    with fixed_trips():
+        fixed(state0, frames)
+    bad, diffs = tree_diff(fixed(state0, frames), off_pipe.run_offline(state0, frames))
+    if bad or any(diffs.values()):
+        raise AssertionError(f"fixed-trip run_offline differs from the captured one: {bad} {diffs}")
+    times = {"while": [], "fixed": []}
+    for _ in range(2):
+        for name, fn in (("while", off_pipe.run_offline), ("fixed", fixed)):
+            times[name].append(waited_and_back_to_back(lambda fn=fn: fn(state0, frames),
+                                                       CAPTURED_OFFLINE_TIMED))
+    waited_ms, b2b_ms = (statistics.median(x[i] for x in times["while"]) for i in (0, 1))
+    fixed_waited_ms, fixed_b2b_ms = (statistics.median(x[i] for x in times["fixed"]) for i in (0, 1))
+    del fixed
+    want = eager_trips(lambda: offline_fn(state0, frames))
+    if trips != want:
+        raise AssertionError(f"captured run_offline: loops ran {trips} trips on the device, eager {want}")
+    nodes = graph_nodes(offline_fn, state0, frames)
     eager_syncs = count_syncs(lambda: pipeline.run_offline(state0, frames, rig, cfg, OFFLINE_FUSION_BATCH))
     runs = {"eager": lambda: pipeline.run_offline(state0, frames, rig, cfg, OFFLINE_FUSION_BATCH),
             "captured": lambda: off_pipe.run_offline(state0, frames)}
@@ -2501,7 +2722,13 @@ def phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe):
         vs_eager_decisions="exact", vs_eager_max_abs_err=worst, host_launches_per_replay="0,0,0",
         host_syncs_per_replay=syncs, host_syncs_eager=eager_syncs,
         eager_ms_median=e_ms, captured_ms_median=c_ms,
-        eager_fused_fps=n / e_ms * 1e3, captured_fused_fps=n / c_ms * 1e3)
+        eager_fused_fps=n / e_ms * 1e3, captured_fused_fps=n / c_ms * 1e3,
+        lm_trips_on_device=",".join(map(str, trips)), lm_trips_eager=",".join(map(str, want)),
+        lm_trips_in_profiler_trace=",".join(map(str, traced_trips)),
+        lm_device_clock_ms=",".join(f"{t:.4f}" for t in lm_ms),
+        waited_ms=waited_ms, back_to_back_ms=b2b_ms, idle_share_at_least=1.0 - b2b_ms / waited_ms,
+        fixed_trips_waited_ms=fixed_waited_ms, fixed_trips_back_to_back_ms=fixed_b2b_ms,
+        graph_nodes=nodes_str(nodes))
     check_graph_release(smi, rig, cfg, state0, frames)
 
 
@@ -2549,6 +2776,15 @@ def phase_captured_end_to_end(dev, smi, trained):
     if on_device != (PROFILED_REPLAYS,) * 2 + (0,):
         raise AssertionError(f"captured end to end: {on_device} kernels on the device over "
                              f"{PROFILED_REPLAYS} replays")
+    # The LM and the merge of a replay late in the sequence, against eager.
+    late = inputs[-1]
+    logged, trip_log = captured_with_log(eager, state_c, *late)
+    trips = log_trips(trip_log)
+    waited_ms, b2b_ms = waited_and_back_to_back(lambda: step(state0, *inputs[0]), CAPTURED_E2E_STEPS)
+    want = eager_trips(lambda: eager(state_c, *late))
+    if trips != want:
+        raise AssertionError(f"captured end to end: loops ran {trips} trips on the device, eager {want}")
+    nodes = graph_nodes(eager, state0, *inputs[0])
 
     # The trained detector of phase 11 (it finds every person).
     model2, t_cfg, t_pipe_cfg, t_rig, t_inputs = trained
@@ -2569,10 +2805,14 @@ def phase_captured_end_to_end(dev, smi, trained):
     if not persons or joints > JOINT_TOL_M:
         raise AssertionError(f"trained captured end to end: {persons} persons, joints off by {joints} m")
     q_e, q_c = quantiles(wall["eager"][1:]), quantiles(wall["captured"][1:])
+
     log("13.4 captured end to end", gpu=repr(smi), image="x".join(map(str, det_cfg.image_size)),
         width=det_cfg.width, steps=CAPTURED_E2E_STEPS, vs_eager_decisions="exact",
         host_launches_per_replay="0,0,0", replays_profiled=PROFILED_REPLAYS,
         device_kernels_over_replays=",".join(map(str, on_device)), host_syncs_per_replay=syncs,
+        waited_ms=waited_ms, back_to_back_ms=b2b_ms, idle_share_at_least=1.0 - b2b_ms / waited_ms,
+        graph_nodes=nodes_str(nodes), loop_trips_on_device=",".join(map(str, trips)),
+        loop_trips_eager=",".join(map(str, want)),
         eager_ms_p50=q_e["p50"], eager_ms_p90=q_e["p90"],
         captured_ms_p50=q_c["p50"], captured_ms_p90=q_c["p90"],
         first_call_s=capture_s, first_call_reserved_mib=graph_mib,
@@ -2581,10 +2821,16 @@ def phase_captured_end_to_end(dev, smi, trained):
     return {"end_to_end_replays_on_device": on_device}
 
 
-def phase_lm_trips(dev, smi, rig, cfg, inputs):
-    """13.5: the LM's device ms per trip at the online step's shape (one
-    golden frame's hypotheses), by torch.profiler over eager trips, and per
-    trip of a graph of the LM's 32 fixed trips (CUDA events)."""
+def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
+    """13.5: the captured loops against the eager ones. The LM alone at the
+    online step's shape (one golden frame's hypotheses): its graph against
+    the early exit bit for bit, the trips its WHILE node ran on the device
+    (counted in a trace) against the eager `iters` and against
+    lm_max_iterations, its ms per trip run and per trip skipped, and PR 8's
+    graph of the fixed 32 trips beside it. Then the step's replays on
+    golden frames: the trips of its LM and its merge on the device against
+    the eager loops' on the same state and frame, and the step's graph
+    beside PR 8's fixed-trip one (nodes, busy ms, wall p50)."""
     from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, pipeline, prior
 
     frame, _ = pipeline.mask_stale_cameras(frame_at(inputs["adversarial"], 40, dev),
@@ -2605,22 +2851,109 @@ def phase_lm_trips(dev, smi, rig, cfg, inputs):
             carry = prior._lm_trip(carry, g_in, bones, eye3, p_cfg)
         return carry
 
-    busy_ms, events, _ = profile_device(trips, 3)
+    busy_ms, events, _ = profile_device(trips, 1)
     trip_device_ms = busy_ms / LM_TRIPS
     eager_trip_ms = sync_time(trips, 3) / LM_TRIPS
-    lm = graphs.CapturedFunction(lambda gi, w: prior.optimize(gi, w, p_cfg), "prior.optimize")
-    lm(g_in, g_in.meas)
-    graph_ms = sync_time(lambda: lm(g_in, g_in.meas), 20)
+
+    def lm_fn(max_iterations):
+        c = dataclasses.replace(p_cfg, lm_max_iterations=max_iterations)
+        return lambda gi, w: prior.optimize(gi, w, c)
+
     early = prior.optimize(g_in, g_in.meas, p_cfg)
-    bad, diffs = tree_diff(lm(g_in, g_in.meas), early)
-    if bad or any(diffs.values()):
-        raise AssertionError(f"LM graph (fixed trips) differs from the early exit: {bad} {diffs}")
+    iters = int(early.iters)
+    logged, trip_log = captured_with_log(lm_fn(p_cfg.lm_max_iterations), g_in, g_in.meas)
+    # The same graph without the trip log, the same loop bounded at the
+    # trips it runs, and PR 8's fixed 32 trips.
+    lm = graphs.CapturedFunction(lm_fn(p_cfg.lm_max_iterations), "prior.optimize")
+    bounded = graphs.CapturedFunction(lm_fn(iters), "prior.optimize")
+    fixed = graphs.CapturedFunction(lm_fn(p_cfg.lm_max_iterations), "prior.optimize")
+    with fixed_trips():
+        fixed(g_in, g_in.meas)
+    done = g_in._replace(num_meas=torch.zeros_like(g_in.num_meas))   # every person done
+    for name, graph in (("while", lm), ("logged", logged), ("bounded", bounded), ("fixed", fixed)):
+        bad, diffs = tree_diff(graph(g_in, g_in.meas), early)
+        if bad or any(diffs.values()):
+            raise AssertionError(f"LM graph ({name}) differs from the early exit: {bad} {diffs}")
+    logged(g_in, g_in.meas)
+    on_device, (_, stamps) = log_trips(trip_log), trip_log[0]
+    trip_ms = [float(b - a) / 1e6 for a, b in zip(stamps[:iters].tolist(), stamps[1:iters + 1].tolist())]
+    traced_trips = trips_in_trace(lambda: logged(g_in, g_in.meas))
+    if on_device != [iters] or iters >= p_cfg.lm_max_iterations:
+        raise AssertionError(f"LM graph: {on_device} trips on the device, the early exit {iters}")
+    logged(done, done.meas)
+    if log_trips(trip_log) != [0]:
+        raise AssertionError("LM graph: trips ran with every person done")
+    # The graphs timed in turns, LM_TIMED_ROUNDS rounds; medians.
+    runs = {"while": lambda: lm(g_in, g_in.meas), "logged": lambda: logged(g_in, g_in.meas),
+            "bounded": lambda: bounded(g_in, g_in.meas), "fixed": lambda: fixed(g_in, g_in.meas),
+            "done": lambda: lm(done, done.meas)}
+    timed = {name: [] for name in runs}
+    for _ in range(LM_TIMED_ROUNDS):
+        for name, run in runs.items():
+            timed[name].append(sync_time(run, 10))
+    ms = {name: statistics.median(v) for name, v in timed.items()}
+    done_ms = ms["done"]
     log("13.5 LM trips", gpu=repr(smi), persons=x.shape[0], trip_device_ms=trip_device_ms,
-        trip_device_events=events / LM_TRIPS,
-        trip_eager_wall_ms=eager_trip_ms, captured_lm_ms=graph_ms,
-        captured_lm_ms_per_trip=graph_ms / p_cfg.lm_max_iterations,
-        early_exit_iters=int(early.iters), fixed_trips=p_cfg.lm_max_iterations,
-        captured_vs_early="equal bit for bit")
+        trip_device_events=events / LM_TRIPS, trip_eager_wall_ms=eager_trip_ms,
+        lm_max_iterations=p_cfg.lm_max_iterations, early_exit_iters=iters,
+        trips_on_device=on_device[0], trips_on_device_all_done=0,
+        trips_in_profiler_trace=",".join(map(str, traced_trips)),
+        device_clock_ms_per_trip="'" + ",".join(f"{t:.4f}" for t in trip_ms) + "'",
+        captured_lm_ms=ms["while"], captured_lm_logged_ms=ms["logged"], captured_lm_all_done_ms=done_ms,
+        ms_per_trip_run=(ms["while"] - done_ms) / iters,
+        bounded_at_iters_ms=ms["bounded"],
+        ms_per_trip_skipped=(ms["while"] - ms["bounded"]) / (p_cfg.lm_max_iterations - iters),
+        fixed_trips_ms=ms["fixed"], captured_vs_early="equal bit for bit")
+
+    # The step's loops on golden frames, each from the state the captured
+    # chain reaches there, against the eager step's loops.
+    per_frame = []
+    step_fn = lambda s, f: pipeline.step(s, f, rig, cfg)  # noqa: E731
+    logged, trip_log = captured_with_log(step_fn, pipe.init_state(), frame_at(inputs["benign"], 0, dev))
+    for scene in SCENES:
+        frames = stacked_frames(inputs[scene], dev)
+        for f in TRIP_FRAMES:
+            state, _ = pipe.run_per_frame_chain(pipe.init_state(), type(frames)(*(x[:f] for x in frames)))
+            frame = type(frames)(*(x[f] for x in frames))
+            logged(state, frame)
+            got = log_trips(trip_log)
+            want = eager_trips(lambda: step_fn(state, frame))
+            if got != want or len(got) != 2:
+                raise AssertionError(f"step {scene} {f}: loops ran {got} trips on the device, eager {want}")
+            per_frame.append(f"{scene[0]}{f}:{got[0]}/{got[1]}")
+
+    # The step's graph against PR 8's, whose loops ran every trip.
+    state = pipe.init_state()
+    frame = frame_at(inputs["benign"], 40, dev)
+    fixed_step = graphs.CapturedFunction(step_fn, "fixed-trip step")
+    with fixed_trips():
+        fixed_step(state, frame)
+        fixed_nodes = graph_nodes(step_fn, state, frame)
+    bad, diffs = tree_diff(fixed_step(state, frame), pipe.step(state, frame))
+    if bad or any(diffs.values()):
+        raise AssertionError(f"fixed-trip step differs from the captured step: {bad} {diffs}")
+    # In turns, FIXED_STEP_TIMED calls each per round; PR 8's idle share
+    # (profiler busy over the waited p50) only for the fixed-trip graph,
+    # whose trace shows all of its kernels.
+    times = {"while": [], "fixed": []}
+    for _ in range(2):
+        for name, fn in (("while", pipe.step), ("fixed", fixed_step)):
+            times[name].append(waited_and_back_to_back(lambda fn=fn: fn(state, frame), FIXED_STEP_TIMED))
+    waited = {k: statistics.median(w for w, _ in v) for k, v in times.items()}
+    b2b = {k: statistics.median(b for _, b in v) for k, v in times.items()}
+    fixed_busy, fixed_events, _ = profile_device(lambda: fixed_step(state, frame), PROFILED_REPLAYS)
+    logged(state, frame)
+    log("13.5 step loops", gpu=repr(smi), frames_checked=len(per_frame),
+        lm_merge_trips_on_device_equal_eager="'" + " ".join(per_frame) + "'",
+        timed_frame="benign:40", lm_merge_trips_timed_frame=",".join(map(str, log_trips(trip_log))),
+        lm_device_clock_ms_timed_frame=log_spans_ms(trip_log)[0],
+        while_waited_p50_ms=waited["while"], while_back_to_back_ms=b2b["while"],
+        while_idle_share_at_least=1.0 - b2b["while"] / waited["while"],
+        fixed_trips_waited_p50_ms=waited["fixed"], fixed_trips_back_to_back_ms=b2b["fixed"],
+        fixed_trips_idle_share_at_least=1.0 - b2b["fixed"] / waited["fixed"],
+        fixed_trips_profiler_busy_ms=fixed_busy, fixed_trips_device_events=fixed_events,
+        fixed_trips_idle_share_pr8=1.0 - fixed_busy / waited["fixed"],
+        fixed_trips_graph_nodes=nodes_str(fixed_nodes))
 
 
 def main() -> int:
@@ -2639,16 +2972,22 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = smi_line()
     linalg.require_ieee_fp32()
+    # The build prints nvcc's -Xptxas -v report; phase 0's line follows it,
+    # so that it stays within the end of the output that callers keep.
+    t0 = time.perf_counter()
+    _kernels.build(verbose=True)
+    _kernels.library()
+    build_s = time.perf_counter() - t0
     log("0 env", gpu=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
         device=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
         matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_tf32=torch.backends.cudnn.allow_tf32,
-        fp32_precision=torch.get_float32_matmul_precision())
+        fp32_precision=torch.get_float32_matmul_precision(),
+        captured_loops="'one WHILE node per loop (ops/loops.py, csrc/graph_loop.cu)'",
+        torch_if_nodes=hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
+        torch_stream_to_pool=hasattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool"))
 
-    t0 = time.perf_counter()
-    _kernels.build(verbose=True)
-    _kernels.library()
-    log("1 build", seconds=round(time.perf_counter() - t0, 2),
+    log("1 build", seconds=round(build_s, 2),
         fresh_build_seconds=_kernels.build_seconds, flags=" ".join(_kernels.NVCC_FLAGS),
         plans_checked=check_plans(), k1_registers_no_local_memory=check_k1_ptxas(_kernels.build_log))
 
@@ -2673,7 +3012,7 @@ def main() -> int:
     captured_launches = phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe)
     phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe)
     captured_launches.update(phase_captured_end_to_end(dev, smi, trained))
-    phase_lm_trips(dev, smi, rig, cfg, inputs)
+    phase_lm_trips(dev, smi, rig, cfg, inputs, pipe)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"

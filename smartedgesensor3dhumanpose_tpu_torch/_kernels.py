@@ -24,7 +24,7 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("jv_assign.cu", "association_fold.cu", "tracker_scan.cu")
+SOURCES = ("jv_assign.cu", "association_fold.cu", "tracker_scan.cu", "graph_loop.cu")
 HEADERS = ("jv.cuh", "bulk_copy.cuh")
 # --fmad=false: every float operation rounds on its own, as in the plain
 # PyTorch versions the kernels are held to bit for bit.
@@ -126,6 +126,13 @@ def library() -> ctypes.CDLL:
             lib.ses3d_tracker_scan.restype = i
             lib.ses3d_tracker_scan_smem_bytes.argtypes = [i] * 5
             lib.ses3d_tracker_scan_smem_bytes.restype = i
+            u = ctypes.c_ulonglong
+            lib.ses3d_loop_begin.argtypes = [p, p, p, i, p, p, ctypes.POINTER(u)]
+            lib.ses3d_loop_begin.restype = i
+            lib.ses3d_loop_next.argtypes = [p, u, p, p, i, p]
+            lib.ses3d_loop_next.restype = i
+            lib.ses3d_loop_end.argtypes = [p]
+            lib.ses3d_loop_end.restype = i
             _lib = lib
     return _lib
 

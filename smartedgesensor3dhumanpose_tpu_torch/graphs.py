@@ -9,10 +9,11 @@ captures each entry point as a CUDA graph instead and replays it.
 library loads, `linalg.constant` uploads its tables), then captures it once
 per signature of its inputs (the tree of NamedTuples and tuples, and each
 tensor's shape, dtype and device), as `jax.jit` compiles once per shape.
-While a stream captures, the LM (`prior.optimize`) runs its fixed
-`lm_max_iterations` trips and the merge (`tracking._merge_tracks`) its T
-rounds, with no host test of a device value (`linalg.capturing`); both
-equal their early-exit loops bit for bit. A call copies its inputs into
+While a stream captures (`linalg.capturing`), the LM (`prior.optimize`)
+and the merge (`tracking._merge_tracks`) are each one CUDA-graph WHILE
+node whose body the device runs while the loop's test holds
+(ops/loops.py), with no host test of a device value; both loops equal
+their eager runs bit for bit. A call copies its inputs into
 the graph's static input tensors, replays the graph and returns fresh
 copies of the static outputs: the entry points stay functional (the
 caller's tensors are never written and a result survives the next call),
@@ -40,6 +41,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from smartedgesensor3dhumanpose_tpu_torch.ops import loops
 
 _PACKAGE = Path(__file__).resolve().parent
 
@@ -123,6 +126,9 @@ class CapturedFunction:
 
     # Signatures whose graphs are kept (each graph holds its own pool).
     max_graphs = 4
+    # Keep each graph's cudaGraph_t after instantiation, for
+    # `CUDAGraph.raw_cuda_graph()` (to count its nodes).
+    keep_graph = False
 
     def __init__(self, fn, name: str):
         self.fn = fn
@@ -137,12 +143,13 @@ class CapturedFunction:
             inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in leaves]
             copy_all(inputs, leaves)
             args = unflatten(spec, inputs)
+            loops.prepare(dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 self.fn(*args)
             torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
             try:
                 with torch.cuda.graph(graph):
                     out = self.fn(*args)

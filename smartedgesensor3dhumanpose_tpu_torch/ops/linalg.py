@@ -31,8 +31,8 @@ def require_ieee_fp32() -> None:
 def capturing(t: torch.Tensor) -> bool:
     """Whether `t` lies on CUDA while the current stream captures a CUDA
     graph (graphs.py). A capture may not read a device value on the host,
-    so the loops that test one eagerly run their fixed trip counts then
-    (prior.optimize, tracking._merge_tracks)."""
+    so the loops that test one eagerly become WHILE nodes then
+    (ops/loops.py)."""
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 

@@ -1,0 +1,140 @@
+"""A loop that stops on a device value: the port's `lax.while_loop` with a
+static bound on its trips.
+
+The JAX package runs two such loops on the device: the LM iteration
+(`prior.optimize`) and the track-merge fixpoint (`tracking._merge_tracks`).
+`while_loop(cond, body, carry, max_trips)` is their counterpart here.
+
+Eagerly (on the CPU, or on CUDA outside a capture) it tests `cond(carry)`
+on the host before each trip, as a Python `while` does.
+
+While the current stream captures a CUDA graph (`linalg.capturing`;
+graphs.py) no host may read a device value. The loop is then one CUDA-graph
+WHILE conditional node (csrc/graph_loop.cu): its first test is computed on
+the device before the node, one trip is captured as the node's body with
+the next test at its end, and on a replay the device runs the body while
+the test holds, at most `max_trips` times. A replay runs the trips the
+eager loop runs; a trip that does not run costs nothing.
+
+The carry lives in tensors allocated before the node, and the body writes
+them in place. A tensor allocated inside the body never leaves it: where
+the device runs the body no time, that memory holds whatever it held
+before. The bodies capture on one stream per device and allocate from one
+memory pool per device that every captured loop shares, so graphs that
+hold loops must be replayed one at a time (the port replays each on the
+caller's stream).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+
+import torch
+
+from smartedgesensor3dhumanpose_tpu_torch import _kernels
+from smartedgesensor3dhumanpose_tpu_torch.ops import linalg
+
+# device index -> (the stream loop bodies capture on, their memory pool)
+_BODIES: dict = {}
+
+# None, or a list to which every WHILE node captured while it is set
+# appends (trips, stamps): the trips the node's last replay ran (int32) and
+# the device clock at the loop's start and at the end of each trip run (ns,
+# int64 [max_trips + 1]). Each replay rewrites both, and the list keeps
+# them alive. It is for measurement (chip_smoke.py); a profiler trace of a
+# replay may miss some of a loop body's kernels.
+trip_log = None
+
+
+def prepare(device: torch.device):
+    """The body stream and memory pool of `device`, made on first use, and
+    the kernel library loaded: before a capture, so that nothing of that
+    is first done while a stream captures."""
+    if device.index not in _BODIES:
+        _kernels.library()
+        _BODIES[device.index] = (torch.cuda.Stream(device), torch.cuda.graph_pool_handle())
+    return _BODIES[device.index]
+
+
+@contextlib.contextmanager
+def _allocating_to(pool, device: torch.device):
+    """Route the current stream's allocations to `pool` (the graph's own
+    pool does not serve a stream that captures into another graph)."""
+    torch._C._cuda_beginAllocateCurrentStreamToPool(device.index, pool)
+    try:
+        yield
+    finally:
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+
+
+class _Trip:
+    """The body of a WHILE node being captured: `repeat_while(pred)` ends
+    it with the test of the next trip."""
+
+    def __init__(self, handle: int, trips: torch.Tensor, max_trips: int, stamps, stream):
+        self.handle, self.trips, self.max_trips = handle, trips, max_trips
+        self.stamps, self.stream = stamps, stream
+        self.tested = False
+
+    def repeat_while(self, pred: torch.Tensor) -> None:
+        err = _kernels.library().ses3d_loop_next(
+            self.stream.cuda_stream, self.handle, pred.data_ptr(),
+            self.trips.data_ptr(), self.max_trips, self.stamps)
+        _kernels.check(err, "while node: the trip's test")
+        self.tested = True
+
+
+@contextlib.contextmanager
+def _while_node(pred: torch.Tensor, max_trips: int):
+    """Capture the block as the body of a WHILE node that the device
+    enters while `pred` (0-d bool, computed before the node) holds; the
+    block ends with `repeat_while(next pred)` on the yielded _Trip."""
+    dev = pred.device
+    stream, pool = prepare(dev)
+    lib = _kernels.library()
+    trips = torch.empty((), dtype=torch.int32, device=dev)
+    stamps = None
+    if trip_log is not None:
+        stamps = torch.zeros(max_trips + 1, dtype=torch.int64, device=dev)
+        trip_log.append((trips, stamps))
+        stamps = stamps.data_ptr()
+    handle = ctypes.c_ulonglong(0)
+    err = lib.ses3d_loop_begin(
+        torch.cuda.current_stream(dev).cuda_stream, pred.data_ptr(), trips.data_ptr(),
+        max_trips, stamps, stream.cuda_stream, ctypes.byref(handle))
+    _kernels.check(err, "while node: begin")
+    trip = _Trip(handle.value, trips, max_trips, stamps, stream)
+    try:
+        with torch.cuda.stream(stream), _allocating_to(pool, dev):
+            yield trip
+        if not trip.tested:
+            raise RuntimeError("a while node's body must end with repeat_while")
+    finally:
+        err = lib.ses3d_loop_end(stream.cuda_stream)
+    _kernels.check(err, "while node: end")
+
+
+def while_loop(cond, body, carry: tuple, max_trips: int) -> tuple:
+    """`carry = body(carry)` while `cond(carry)` holds, at most `max_trips`
+    times; returns the last carry.
+
+    `carry` is a tuple of tensors, `body` returns a tuple of the same
+    shapes and dtypes, and `cond` returns a 0-d bool tensor. Eagerly the
+    test runs on the host. While a CUDA graph is captured the loop is a
+    WHILE node on the device (module docstring) and the result lies in
+    copies of `carry` that the body writes in place; both give the same
+    carry bit for bit. The caller's tensors are never written.
+    """
+    if not linalg.capturing(carry[0]):
+        for _ in range(max_trips):
+            if not bool(cond(carry)):
+                break
+            carry = body(carry)
+        return carry
+    carry = tuple(t.clone() for t in carry)
+    with _while_node(cond(carry), max_trips) as trip:
+        for dst, src in zip(carry, body(carry), strict=True):
+            dst.copy_(src)
+        trip.repeat_while(cond(carry))
+    return carry

@@ -7,12 +7,12 @@ bone-length range factors (:384-481), optimized by LM from a warm start
 (:483-503) with marginals from the final Hessian (:760-767). The normal
 equations are solved along the bone tree (ops.tree_solve).
 
-Eager calls stop the LM early: they test `all(done)` on the host once per
-iteration, one device sync per iteration on CUDA. While a CUDA graph is
-captured (graphs.py) the LM runs its fixed `lm_max_iterations` trips with
-no host test, as the JAX package's `lax.while_loop` runs on the device;
-both loops take the same trip body and give the same result bit for bit
-(see `optimize`).
+The LM is `ops.loops.while_loop` over one trip body, as the JAX package's
+is a `lax.while_loop`: eagerly it tests `all(done)` on the host once per
+iteration (one device sync per iteration on CUDA); while a CUDA graph is
+captured (graphs.py) it is one WHILE node that the device leaves once
+every person is done, after at most `lm_max_iterations` trips. Both give
+the same result bit for bit (see `optimize`).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import skeleton
 from smartedgesensor3dhumanpose_tpu_torch.config import PriorConfig
-from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tree_solve
+from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, loops, tree_solve
 from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D
 
 _K = skeleton.NUM_FUSION_JOINTS
@@ -252,11 +252,10 @@ def optimize(g_in: GraphInputs, warm_start, cfg: PriorConfig) -> PriorResult:
     """Batched LM over all persons (reference :746-767).
 
     warm_start: [P, K, 3] initial state (previous track estimate where the
-    joint persisted, else the measurement). Eagerly the iteration stops when
-    every person is done or after lm_max_iterations, testing `all(done)` on
-    the host once per iteration. While a CUDA graph is captured it runs all
-    lm_max_iterations trips with no host test; trips after every person is
-    done change nothing, so both give the same result and `iters`.
+    joint persisted, else the measurement). The iteration stops when every
+    person is done or after lm_max_iterations (`loops.while_loop`: a host
+    test per iteration eagerly, a WHILE node in a CUDA graph); `iters`
+    counts the trips run.
     """
     dtype = g_in.meas.dtype
     dev = g_in.meas.device
@@ -272,15 +271,11 @@ def optimize(g_in: GraphInputs, warm_start, cfg: PriorConfig) -> PriorResult:
         g_in.num_meas == 0,  # persons without measurements are skipped
         torch.zeros((), dtype=torch.int32, device=dev),
     )
-    if linalg.capturing(x):
-        for _ in range(cfg.lm_max_iterations):
-            carry = _lm_trip(carry, g_in, bones, eye3, cfg)
-    else:
-        trips = 0
-        while trips < cfg.lm_max_iterations and not bool(carry[3].all()):
-            carry = _lm_trip(carry, g_in, bones, eye3, cfg)
-            trips += 1
-    x, _, _, _, iters = carry
+    x, _, _, _, iters = loops.while_loop(
+        lambda c: ~c[3].all(),
+        lambda c: _lm_trip(c, g_in, bones, eye3, cfg),
+        carry, cfg.lm_max_iterations,
+    )
 
     # Optimization failure falls back to the raw measurements (:748-758).
     bad = ~torch.isfinite(x.reshape(p, -1)).all(dim=-1)

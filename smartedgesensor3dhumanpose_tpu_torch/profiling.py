@@ -13,7 +13,10 @@ work of the previous one where the stage allows it.
 The stage bodies are `Pipeline.run_offline`'s own calls (`fuse_offline`,
 `smooth_offline`, `ops.tracker.tracker_scan` — kernel K3 on CUDA — and the
 reprojection of `offline_outputs`); `full` is the real `run_offline`, so
-`full` against the stage sum shows what is paid between the stages.
+`full` against the stage sum shows what is paid between the stages. On
+CUDA each stage is a CUDA graph (graphs.CapturedFunction), captured by its
+warm-up call, as `run_offline` is one and as the JAX package jits each
+stage; on the CPU every stage runs eagerly.
 
 CLI:
     python -m smartedgesensor3dhumanpose_tpu_torch.profiling            # 16-cam demo
@@ -28,8 +31,8 @@ from typing import Dict
 
 import torch
 
+from smartedgesensor3dhumanpose_tpu_torch import graphs, reprojection
 from smartedgesensor3dhumanpose_tpu_torch import pipeline as pl
-from smartedgesensor3dhumanpose_tpu_torch import reprojection
 from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
 from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame
@@ -51,7 +54,7 @@ def profile_stages(
     pipe: pl.Pipeline, frames: Frame, reps: int = 5
 ) -> Dict[str, float]:
     """Time each offline stage of `pipe` on `frames` (on the pipeline's
-    device).
+    device; on CUDA each stage replays a CUDA graph).
 
     Returns {stage: milliseconds per frame}; stages are `fuse`,
     `smooth_cold`, `tracker`, `reproj`, and `full` (= run_offline).
@@ -75,6 +78,12 @@ def profile_stages(
         return reprojection.reproject(
             fused_pred, rig, config.prior.pose_method, pred_dt,
             ut_kappa=config.fusion.ut_kappa, ts_per_cam=ts,
+        )
+
+    if device.type == "cuda":
+        stage_fuse, stage_smooth, stage_track, stage_reproj = (
+            graphs.CapturedFunction(fn, f"profile_stages.{fn.__name__}")
+            for fn in (stage_fuse, stage_smooth, stage_track, stage_reproj)
         )
 
     state = pipe.init_state()

@@ -26,7 +26,7 @@ import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import prior, skeleton
 from smartedgesensor3dhumanpose_tpu_torch.config import PriorConfig, TrackerConfig
-from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian, linalg
+from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian, linalg, loops
 from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D, TrackerState
 
 _COST_CLIP = 1.0e3
@@ -317,11 +317,11 @@ def _merge_tracks(alive, track_id, est, est_exists, height_prev, root_prev,
 
     The reference's lexicographic pair loop reduces to the recurrence
     surv[j] = alive[j] and no surviving close i < j, solved as a monotone
-    fixpoint (see the JAX package's tracking._merge_tracks). Eagerly each
-    round is one host test. While a CUDA graph is captured it runs T rounds
-    with no test: each round settles at least the lowest alive slot still
-    unsettled (its close predecessors are all settled), and a round after
-    the fixpoint changes neither `live` nor `dead`.
+    fixpoint (see the JAX package's tracking._merge_tracks), as
+    `loops.while_loop`: eagerly each round is one host test, in a CUDA
+    graph a trip of a WHILE node. Each round settles at least the lowest
+    alive slot still unsettled (its close predecessors are all settled),
+    so T rounds bound it.
     """
     t_slots = alive.shape[0]
     if t_slots < 2:
@@ -339,18 +339,15 @@ def _merge_tracks(alive, track_id, est, est_exists, height_prev, root_prev,
         & alive[None, :]
     )  # [T(keeper), T(victim)]
 
-    def settle(live, dead):
+    def settle(carry):
+        live, dead = carry
         live = live | (alive & ~(close & ~dead[:, None]).any(dim=0))
         return live, dead | (close & live[:, None]).any(dim=0)
 
-    live = torch.zeros_like(alive)
-    dead = torch.zeros_like(alive)
-    if linalg.capturing(alive):
-        for _ in range(t_slots):
-            live, dead = settle(live, dead)
-    else:
-        while bool((alive & ~live & ~dead).any()):
-            live, dead = settle(live, dead)
+    live, dead = loops.while_loop(
+        lambda c: (alive & ~c[0] & ~c[1]).any(), settle,
+        (torch.zeros_like(alive), torch.zeros_like(alive)), t_slots,
+    )
 
     kill = close & live[:, None]
     keeper = torch.argmax(kill.to(torch.int32), dim=0)  # first surviving keeper

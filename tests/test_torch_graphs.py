@@ -1,14 +1,18 @@
 """The port's compiled execution (graphs.py) on the CPU: the loops a CUDA
-graph holds against the early-exit loops, and the entry points with those
+graph holds against the eager loops, and the entry points with those
 loops against the eager ones, bit for bit.
 
 On the card `Pipeline.step`, `run_per_frame_chain`, `run_offline` and the
 end-to-end step replay CUDA graphs, and while a graph is captured the LM
-and the track merge run their fixed trip counts (`linalg.capturing`). The
-CPU has no graphs, so these tests select those loops by patching
-`linalg.capturing` (`fixed_trips`) and run the same bodies eagerly. The
-capture and replay themselves are checked on the card by `chip_smoke.py`
-(phase 13). The JAX package runs on the CPU in float64.
+and the track merge are each one CUDA-graph WHILE node whose body the
+device runs while the loop's test holds (ops/loops.py). The CPU has no
+graphs, so these tests emulate that form (`device_loops`): they patch
+`linalg.capturing` and hand `loops.while_loop` a stand-in for the WHILE
+node. As in a capture, the body runs once to be recorded; the stand-in
+then undoes that run, as a capture runs nothing, and replays the recorded
+operations while the test holds, as the device does. The capture and
+replay themselves are checked on the card by `chip_smoke.py` (phase 13).
+The JAX package runs on the CPU in float64.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from smartedgesensor3dhumanpose_tpu import cameras as jax_cameras
 from smartedgesensor3dhumanpose_tpu import config as jax_config
@@ -36,10 +42,11 @@ from smartedgesensor3dhumanpose_tpu_torch import (
     graphs,
     pipeline,
     prior,
+    profiling,
     tracking,
 )
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
-from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tracker
+from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, loops, tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame, Persons3D, TrackerState
 
 pytestmark = pytest.mark.torch_port
@@ -55,13 +62,129 @@ LM_FRAMES = {"benign": (0, 16), "adversarial": (48, 64)}
 F64_TOL_M = 1e-6
 
 
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+class _RecordedBody(TorchDispatchMode):
+    """Records the operations of a loop body while the capture runs it
+    once, so that `replay` can run them again on the same tensors, as the
+    device runs a graph's body. `undo` takes back what the recording run
+    did, as a capture runs nothing: every tensor that existed before the
+    body and that the body wrote gets its old value back, and every tensor
+    the body allocated is poisoned (NaN, flipped bools, a sentinel
+    integer), as memory that no kernel wrote yet holds anything."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []    # (op, args, kwargs, outputs)
+        self.fresh = {}    # storage -> a tensor the body allocated on it
+        self.saved = []    # (tensor, its value before the body wrote it)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for i, arg in enumerate(func._schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            value = args[i] if i < len(args) else kwargs.get(arg.name)
+            for t in pytree.tree_leaves(value):
+                if isinstance(t, torch.Tensor) and _storage(t) not in self.fresh:
+                    self.saved.append((t, t.clone()))
+        out = func(*args, **kwargs)
+        seen = {_storage(t) for t in pytree.tree_leaves((args, kwargs))
+                if isinstance(t, torch.Tensor)}
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and _storage(t) not in seen:
+                self.fresh.setdefault(_storage(t), t)
+        self.calls.append((func, args, kwargs, out))
+        return out
+
+    def undo(self) -> None:
+        for t, old in reversed(self.saved):
+            t.copy_(old)
+        for t in self.fresh.values():
+            storage = t.untyped_storage()
+            whole = t.new_empty(0).set_(storage, 0, (storage.nbytes() // t.element_size(),))
+            if whole.dtype.is_floating_point:
+                whole.fill_(float("nan"))
+            elif whole.dtype == torch.bool:
+                whole.logical_not_()
+            else:
+                whole.fill_(-7)
+
+    def replay(self) -> None:
+        for func, args, kwargs, out in self.calls:
+            again = func(*args, **kwargs)
+            for old, new in zip(pytree.tree_leaves(out), pytree.tree_leaves(again)):
+                if isinstance(old, torch.Tensor) and new is not old:
+                    old.copy_(new)
+
+
+class _HostTrip:
+    def __init__(self):
+        self.pred = None
+
+    def repeat_while(self, pred: torch.Tensor) -> None:
+        assert pred.dtype == torch.bool and pred.dim() == 0
+        self.pred = pred
+
+
+class HostWhileNodes:
+    """A stand-in on the CPU for the WHILE nodes a capture records
+    (`loops._while_node`): the device's tests run on the host. `trips`
+    lists, per node, the trips the device ran."""
+
+    def __init__(self):
+        self.trips = []
+
+    @contextlib.contextmanager
+    def while_node(self, pred: torch.Tensor, max_trips: int):
+        assert pred.dtype == torch.bool and pred.dim() == 0
+        go = bool(pred) and max_trips > 0
+        trip, body = _HostTrip(), _RecordedBody()
+        with body:
+            yield trip
+        body.undo()
+        assert trip.pred is not None, "the body must end with repeat_while"
+        ran = 0
+        while go:
+            body.replay()
+            ran += 1
+            go = bool(trip.pred) and ran < max_trips
+        self.trips.append(ran)
+
+
 @contextlib.contextmanager
-def fixed_trips():
-    """The loops of a capture on the CPU: `linalg.capturing` answers yes, so
-    the LM runs its fixed trips and the merge its T rounds."""
+def eager_trips():
+    """Counts the trips of every eager `loops.while_loop` (a list with one
+    entry per loop run, yielded)."""
+    counts = []
+    while_loop = loops.while_loop
+
+    def counted(cond, body, carry, max_trips):
+        counts.append(0)
+
+        def trip(c):
+            counts[-1] += 1
+            return body(c)
+
+        return while_loop(cond, trip, carry, max_trips)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loops, "while_loop", counted)
+        yield counts
+
+
+@contextlib.contextmanager
+def device_loops():
+    """The loops of a capture on the CPU: `linalg.capturing` answers yes and
+    `loops.while_loop` records its WHILE nodes into a HostWhileNodes
+    (yielded)."""
+    nodes = HostWhileNodes()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(linalg, "capturing", lambda t: True)
-        yield
+        mp.setattr(loops, "_while_node", nodes.while_node)
+        yield nodes
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -123,6 +246,9 @@ def golden_persons():
 
 @pytest.mark.parametrize("scene", sorted(LM_FRAMES))
 def test_fixed_trip_lm_equals_early_exit(golden_persons, scene, monkeypatch):
+    """The LM in a WHILE node equals the eager early exit bit for bit: the
+    capture records one trip, and the device runs the trips that the eager
+    loop runs."""
     cfg = config.PipelineConfig.demo_16cam().prior
     trips = []
     lm_trip = prior._lm_trip
@@ -135,9 +261,9 @@ def test_fixed_trip_lm_equals_early_exit(golden_persons, scene, monkeypatch):
     for start in (g_in.meas, warm):
         eager = prior.optimize(g_in, start, cfg)
         trips.clear()
-        with fixed_trips():
+        with device_loops() as graph:
             fixed = prior.optimize(g_in, start, cfg)
-        assert len(trips) == cfg.lm_max_iterations
+        assert len(trips) == 1 and graph.trips == [int(eager.iters)]
         _equal_trees(fixed, eager, f"{scene} LM")
         assert fixed.iters.dtype == torch.int32 and fixed.iters.dim() == 0
     cold = prior.optimize(g_in, g_in.meas, cfg)
@@ -160,7 +286,7 @@ def test_lm_iters_match_jax(golden_persons, scene):
     jg = jax.jit(jax_prior.build_graph_inputs, static_argnums=1)(jp, jcfg)
     jr = jax.jit(jax_prior.optimize, static_argnums=2)(jg, jg.meas, jcfg)
     g_in = prior.build_graph_inputs(p64, tcfg)
-    with fixed_trips():
+    with device_loops():
         fixed = prior.optimize(g_in, g_in.meas, tcfg)
     eager = prior.optimize(g_in, g_in.meas, tcfg)
     assert int(fixed.iters) == int(eager.iters) == int(jr.iters)
@@ -198,7 +324,7 @@ def _merge_cases():
     thr = config.TrackerConfig().merge_dist_thresh
     # A chain: each track is close to its neighbours only, so killing one
     # frees the next: 0 keeps, 1 dies, 2 keeps, ... (three rounds settle
-    # six slots; the device loop runs all six).
+    # six slots; the device skips the other three).
     chain = [i * 0.7 * thr for i in range(6)]
     yield ("chain", chain, [True] * 6, [True, False, True, False, True, False],
            [10, 10, 12, 12, 14, 14])
@@ -221,24 +347,73 @@ def _merge_cases():
 def test_merge_rounds_equal_fixpoint(name, positions, alive, survivors, ids):
     cfg = config.TrackerConfig()
     args = _merge_case(positions, alive)
-    eager = tracking._merge_tracks(*args, cfg)
-    with fixed_trips():
+    with eager_trips() as rounds:
+        eager = tracking._merge_tracks(*args, cfg)
+    with device_loops() as graph:
         fixed = tracking._merge_tracks(*args, cfg)
     _equal_trees(fixed, eager, name)
+    # One WHILE node; the device runs the eager loop's rounds.
+    assert graph.trips == rounds and rounds[0] <= len(positions)
     if survivors is not None:
         assert eager[0].tolist() == survivors
         # A merged-away track's person takes its keeper's id.
         assert eager[1].person_id.tolist() == ids
-    # Frames without detections merge nothing.
+    if name == "chain":
+        assert rounds == [3]
+    # Frames without detections merge nothing, in one round.
     quiet = _merge_case(positions, alive, has_dets=False)
-    with fixed_trips():
+    with device_loops() as graph:
         assert torch.equal(tracking._merge_tracks(*quiet, cfg)[0], torch.as_tensor(alive))
+    assert graph.trips == [1]
 
 
 def test_capturing_is_false_on_the_cpu():
-    """A CPU tensor never selects the fixed trips (and asks CUDA nothing,
+    """A CPU tensor never selects the WHILE nodes (and asks CUDA nothing,
     which a CPU build of torch could not answer)."""
     assert linalg.capturing(torch.zeros(3)) is False
+
+
+def _count(c):
+    return c[0] + 1, c[1] * 2.0
+
+
+@pytest.mark.parametrize("start,max_trips,want", [
+    (0, 8, (5, 32.0)),      # stops on its test
+    (3, 1, (4, 2.0)),       # stops at max_trips
+    (9, 8, (9, 1.0)),       # runs no trip
+])
+def test_while_loop_device_form_equals_eager(start, max_trips, want):
+    """while_loop in a WHILE node equals the eager loop, and the device runs
+    its trips; the caller's carry is never written."""
+    carry = (torch.tensor(start), torch.tensor(1.0))
+    eager = loops.while_loop(lambda c: c[0] < 5, _count, carry, max_trips)
+    with device_loops() as graph:
+        got = loops.while_loop(lambda c: c[0] < 5, _count, carry, max_trips)
+    assert (int(eager[0]), float(eager[1])) == want
+    _equal_trees(got, eager, "while_loop")
+    assert graph.trips == [int(eager[0]) - start]
+    assert (int(carry[0]), float(carry[1])) == (start, 1.0)
+
+
+@pytest.mark.parametrize("start", [0, 9])
+def test_a_body_that_rebinds_the_carry_is_caught(start):
+    """A loop whose body rebinds the carry to the tensors it allocated,
+    instead of writing the carry in place, is wrong on the device: every
+    trip starts again from the first carry, and where no trip runs the
+    result is memory that no kernel wrote. The emulation shows both, so
+    the tests above would catch while_loop doing it."""
+    carry = (torch.tensor(start), torch.tensor(1.0))
+    eager = loops.while_loop(lambda c: c[0] < 5, _count, carry, 8)
+    with device_loops() as graph:
+        c = carry
+        with loops._while_node(c[0] < 5, 8) as trip:
+            c = _count(c)
+            trip.repeat_while(c[0] < 5)
+    if start == 0:
+        assert graph.trips == [8] and (int(c[0]), float(c[1])) == (1, 2.0)
+    else:
+        assert graph.trips == [0] and int(c[0]) == -7 and c[1].isnan()
+    assert not torch.equal(c[0], eager[0])
 
 
 # ---------------------------------------------------- the entry points --
@@ -246,16 +421,19 @@ def test_capturing_is_false_on_the_cpu():
 @pytest.mark.parametrize("scene", ["benign", "adversarial"])
 def test_step_inside_device_loops_equals_eager(scene):
     """pipeline.step over the first 16 golden frames with the loops of a
-    capture (`fixed_trips`): the body the card captures equals the eager
-    step (held to JAX by test_torch_pipeline)."""
+    capture (`device_loops`): the body the card captures equals the eager
+    step (held to JAX by test_torch_pipeline), and the device runs the
+    eager loops' trips (LM and merge) of every frame."""
     cfg, data = _golden_data(scene)
     pipe = pipeline.Pipeline(cameras.hall_rig(16, device="cpu"), cfg, device="cpu")
     eager_state = fixed_state = pipe.init_state()
     for f in range(16):
         frame = Frame.from_arrays({k: v[f] for k, v in data.items()}, "cpu")
-        eager_state, eager = pipe.step(eager_state, frame)
-        with fixed_trips():
+        with eager_trips() as trips:
+            eager_state, eager = pipe.step(eager_state, frame)
+        with device_loops() as graph:
             fixed_state, fixed = pipeline.step(fixed_state, frame, pipe.rig, cfg)
+        assert graph.trips == trips and len(trips) == 2
         _equal_trees((fixed_state, fixed), (eager_state, eager), f"{scene} frame {f}")
 
 
@@ -268,10 +446,15 @@ def test_run_offline_inside_device_loops_equals_eager():
                              fusion_batch=32)
     frames = Frame.from_arrays(data, "cpu")
     state0 = pipe.init_state()
-    eager = pipe.run_offline(state0, frames)
-    with fixed_trips():
+    with eager_trips() as trips:
+        eager = pipe.run_offline(state0, frames)
+    with device_loops() as graph:
         fixed = pipe.run_offline(state0, frames)
     _equal_trees(fixed, eager, "run_offline")
+    # Two cold-start LMs, one per fusion chunk, then the merge of every
+    # frame: on the CPU the tracker scan is K3's plain version, a loop of
+    # tracking.step.
+    assert graph.trips == trips
     assert int(eager[1].fused.valid.sum()) > 0
 
 
@@ -326,6 +509,28 @@ def test_chain_stacks_like_jax():
             np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=F64_TOL_M, err_msg=name)
         else:
             np.testing.assert_array_equal(a.numpy(), w, err_msg=name)
+
+
+def test_profile_stages_on_the_cpu_stays_eager(monkeypatch):
+    """profile_stages on the CPU returns its five stages in ms per frame,
+    each run eagerly: it builds no CapturedFunction there (on CUDA it
+    captures one per stage)."""
+    def refuse(*args):
+        raise AssertionError("profile_stages built a CapturedFunction on the CPU")
+
+    monkeypatch.setattr(graphs, "CapturedFunction", refuse)
+    kw_f = dict(num_cameras=CHAIN_CAMS, max_dets_per_cam=CHAIN_PEOPLE,
+                max_hypotheses=2 * CHAIN_PEOPLE)
+    cfg = config.PipelineConfig(fusion=config.FusionConfig(**kw_f),
+                                tracker=config.TrackerConfig(max_tracks=2 * CHAIN_PEOPLE))
+    scene = synthetic.generate_scene(synthetic.SceneConfig(
+        num_cameras=CHAIN_CAMS, num_people=CHAIN_PEOPLE, num_frames=CHAIN_FRAMES, seed=5))
+    frames = Frame.from_arrays(synthetic.frames_from_scene(scene), "cpu")
+    pipe = pipeline.Pipeline(cameras.hall_rig(CHAIN_CAMS, device="cpu"), cfg, device="cpu",
+                             fusion_batch=2)
+    stages = profiling.profile_stages(pipe, frames, reps=1)
+    assert set(stages) == {"fuse", "smooth_cold", "tracker", "reproj", "full"}
+    assert all(v > 0.0 for v in stages.values())
 
 
 # ----------------------------------------------------- graphs.py's pieces --
