@@ -61,18 +61,27 @@ Phases (each prints one line; any failure exits non-zero):
     and step's times against Pipeline.step on the same detections;
     then the detector trained on the card (300 Adam steps) on the JAX
     package's test scene: every person recovered within 5 cm mean, 8 cm max
- 12 the sharded paths (parallel/sharding.py): run_offline_sharded
+ 12 the sharded paths (parallel/sharding.py), each shard's stages replayed
+    as CUDA graphs (one per stage, device and mesh entry): run_offline_sharded
     (fusion_batch=32) over both golden scenes on make_mesh() (every visible
-    card) and on virtual meshes of cuda:0 (data 2 x model 2, 4 x 1), with
-    the launch counts (K1 = 0, K2 = one per chunk of each data shard,
-    K3 = 1): fusion decisions against run_offline and the golden, its
+    card) and on virtual meshes of cuda:0 (data 2 x model 2, 4 x 1), every
+    graph captured anew by the mesh's first call (its seconds, memory and
+    host launch counts); per warm call 0 host syncs and 0 host launches,
+    and on the device K1 = 0, K2 = one per chunk of each data shard,
+    K3 = 1; bit for bit the eager sharded replay on the same mesh, each
+    shard's LM running the eager loop's trips on the device (its trip
+    log); fusion decisions against run_offline and the golden, its
     tracker stage on the golden's inputs against the golden's, the whole
     run against run_offline and the golden (gated on the benign scene);
+    the 4 x 1 mesh's entries replaying at once against one at a time;
     fuse_frame_sharded on phase 8's 64-camera frame over 4 entries of
-    cuda:0 against fusion.fuse_frame (one K2 launch); sharding.dryrun on
-    4 entries; with several cards the same across them, and K1-K3 on
-    cuda:1 tensors while cuda:0 is current; wall times of each mesh
-    against run_offline
+    cuda:0 against fusion.fuse_frame and the eager sharded fusion (one K2
+    per replay on the device); sharding.dryrun on 4 entries; with several
+    cards the same across them, K1-K3 on cuda:1 tensors while cuda:0 is
+    current, and a Pipeline captured on cuda:1 running there alone; wall
+    times, in turns, of each mesh captured and eager against the captured
+    run_offline, and of the sharded fusion captured and eager against
+    fuse_frame captured and eager
  13 the compiled entry points (graphs.py): the captured Pipeline.step over
     both golden scenes against the golden and the eager pipeline.step on
     the card (decisions exact, joints within 1 mm outside each track's
@@ -806,7 +815,8 @@ def golden_stage(golden, scene: str, dev):
         root_xyz=g("graph_root_xyz"), root_score=unread, neck_score=unread,
         height=g("graph_height"), score_out=g("graph_score_out"), num_meas=g("graph_num_meas"),
     )
-    result = prior.PriorResult(x=g("result_x"), marg_cov=unread, marg_ok=unread, iters=0)
+    result = prior.PriorResult(x=g("result_x"), marg_cov=unread, marg_ok=unread,
+                               iters=torch.zeros((), dtype=torch.int32, device=dev))
     return persons, g("pivot"), g("n_dropped_hyp"), (g_in, result, g("xyz_out"), g("cov_out"))
 
 
@@ -1960,10 +1970,16 @@ def conv_macs(det_cfg) -> int:
 
 # The sharded replay's meshes of virtual entries on one card: (data, model).
 VIRTUAL_MESHES = ((2, 2), (4, 1))
+# The virtual mesh whose entries' replays at once are held to the same
+# replays one at a time.
+CONCURRENT_MESH = (4, 1)
 # Entries of the sharded fusion's model axis on one card (phase 8's frame).
 FUSION_ENTRIES = 4
-# Warm calls timed, in turns, for each mesh and for run_offline.
+# Warm calls timed, in turns: the captured paths and run_offline in every
+# one of SHARDED_TIMED rounds, the eager sharded paths in the first
+# EAGER_SHARDED_TIMED.
 SHARDED_TIMED = 5
+EAGER_SHARDED_TIMED = 2
 
 
 def to_device(tree, dev):
@@ -1984,9 +2000,103 @@ def sharded_k2_launches(n: int, data: int) -> int:
     return sum(-(-size // OFFLINE_FUSION_BATCH) for size in sizes)
 
 
+@contextlib.contextmanager
+def eager_sharded():
+    """The sharded paths run eagerly on the card, for comparison: each
+    shard's stages dispatched op by op on its stream, the LM testing its
+    loop on the host."""
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+
+    captured = sharding._captured
+    sharding._captured = lambda stage, device, k: stage.body
+    try:
+        yield
+    finally:
+        sharding._captured = captured
+
+
+def eagerly(fn):
+    """`fn` with the sharded paths eager (eager_sharded)."""
+    def run():
+        with eager_sharded():
+            return fn()
+    return run
+
+
+@contextlib.contextmanager
+def one_stream_per_device():
+    """Every entry of a device on that device's first shard stream, so that
+    the entries' replays run one at a time, in job order."""
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+
+    stream = sharding._stream
+    sharding._stream = lambda device, k: stream(device, 0)
+    try:
+        yield
+    finally:
+        sharding._stream = stream
+
+
+def fresh_sharded_graphs() -> None:
+    """Drop every graph the sharded paths keep, so that the next call
+    captures anew."""
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+
+    sharding._GRAPHS.clear()
+    torch.cuda.synchronize()
+
+
+def sharded_graph_cost() -> dict:
+    """The captured functions and graphs the sharded paths keep, and the
+    MiB of their loops' body pools (ops/loops.py: one per graph)."""
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+
+    kept = [g for f in sharding._GRAPHS.values() for g in f.graphs.values()]
+    return {"functions": len(sharding._GRAPHS), "graphs": len(kept),
+            "body_pools_mib": pools_mib(g.bodies.pool.id for g in kept)}
+
+
+def pools_mib(pool_ids) -> float:
+    """MiB of the caching allocator's segments in these memory pools."""
+    ids = {tuple(p) for p in pool_ids}
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) in ids) / 2**20
+
+
+def overlap_share(spans) -> float:
+    """1 - (the length of the union of the [start, end) spans) / (the sum
+    of their lengths): 0 when no two overlap."""
+    total = sum(b - a for a, b in spans)
+    union, reach = 0, None
+    for a, b in sorted(spans):
+        if reach is None or a >= reach:
+            union += b - a
+            reach = b
+        elif b > reach:
+            union += b - reach
+            reach = b
+    return 1.0 - union / total if total else 0.0
+
+
+def lm_spans(log) -> list:
+    """Each loop's [start, end) on the device clock (ns) in its last
+    replay, from the trip log."""
+    torch.cuda.synchronize()
+    return [(int(stamps[0]), int(stamps[int(trips)])) for trips, stamps in log]
+
+
 def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
-    """run_offline_sharded over both golden scenes on `mesh`, with the
-    launch counts of each call (K1 = 0, K2 per shard chunk, K3 = 1), checked:
+    """run_offline_sharded over both golden scenes on `mesh`, every graph
+    captured anew by the first call (benign) with the loops' trip log on
+    (loops.trip_log), checked:
+      - the first call: the wrappers count each kernel of every graph
+        twice (warm-up and capture): K1 = 0, K2 = 2 per chunk of each data
+        shard, K3 = 2; its seconds and the memory it reserves;
+      - every warm call: 0 host syncs, 0 launches on the host, and on the
+        device K1 = 0, K2 one per chunk of each data shard, K3 = 1; the
+        input state unwritten; bit for bit the eager sharded replay on
+        the same mesh, and each shard's LM ran on the device (its trip
+        log) the trips of the eager loop;
       - its fusion stage against run_offline's in the same call and
         against the offline golden: every decision exact, joints within
         JOINT_TOL_M of run_offline's;
@@ -1999,30 +2109,63 @@ def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
         golden (every decision exact, joints reported as phase 6 reports
         run_offline's): gated on the benign scene, reported on the
         adversarial one (ROADMAP C2).
-    Returns ((K1, K2, K3) summed over both scenes, report)."""
+    Returns ((K1, K2, K3) of the first call on the host, (K1, K2, K3) of
+    the checked replays on the device, report, trip log)."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
     from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
     from smartedgesensor3dhumanpose_tpu_torch.types import TrackerState
 
-    launches = [0, 0, 0]
-    report = {}
+    dev = rig.P.device
+    frames = {scene: stacked_frames(inputs[scene], dev) for scene in SCENES}
+    n = frames["benign"].kp2d.shape[0]
+    want_counts = (0, sharded_k2_launches(n, mesh.shape["data"]), 1)
+    state0 = TrackerState.initial(cfg.tracker.max_tracks, cfg.tracker.n_mov_avg,
+                                  cfg.tracker.avg_delay, device=dev)
+
+    def call(scene):
+        return sharding.run_offline_sharded(rig, cfg, mesh, frames[scene], state0,
+                                            fusion_batch=OFFLINE_FUSION_BATCH)
+
+    fresh_sharded_graphs()
+    reset_counts()
+    loops.trip_log = []
+    try:
+        _, first_s, first_mib = first_call(lambda: call("benign"))
+    finally:
+        trip_log, loops.trip_log = loops.trip_log, None
+    first = read_counts()
+    if first != tuple(FIRST_CALL_HOST_LAUNCHES * c for c in want_counts):
+        raise AssertionError(f"sharded {label}: the first call counted (K1, K2, K3) = {first} "
+                             f"on the host, expected {FIRST_CALL_HOST_LAUNCHES} x {want_counts}")
+    report = {"first_call_s": first_s, "first_call_reserved_mib": first_mib,
+              **sharded_graph_cost(), "host_syncs_per_call": count_syncs(lambda: call("benign"))}
+    if report["host_syncs_per_call"]:
+        raise AssertionError(f"sharded {label}: {report['host_syncs_per_call']} host syncs")
+    on_device = [0, 0, 0]
     for scene in SCENES:
-        frames = stacked_frames(inputs[scene], rig.P.device)
-        n = frames.kp2d.shape[0]
-        state0 = TrackerState.initial(cfg.tracker.max_tracks, cfg.tracker.n_mov_avg,
-                                      cfg.tracker.avg_delay, device=rig.P.device)
         before = [t.clone() for t in state0]
         reset_counts()
-        _, out = sharding.run_offline_sharded(rig, cfg, mesh, frames, state0,
-                                              fusion_batch=OFFLINE_FUSION_BATCH)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        want_counts = (0, sharded_k2_launches(n, mesh.shape["data"]), 1)
-        if counts != want_counts:
-            raise AssertionError(f"sharded {label} {scene}: launch counts (K1, K2, K3) = "
-                                 f"{counts}, expected {want_counts}")
-        launches = [a + b for a, b in zip(launches, counts)]
+        got, counts = device_counts(lambda: call(scene))
+        host = read_counts()
+        if host != (0, 0, 0) or counts != want_counts:
+            raise AssertionError(f"sharded {label} {scene}: launch counts (K1, K2, K3) = {host} on "
+                                 f"the host, {counts} on the device; expected (0, 0, 0), "
+                                 f"{want_counts}")
+        on_device = [a + b for a, b in zip(on_device, counts)]
         if not all(torch.equal(a, b) for a, b in zip(before, state0)):
             raise AssertionError(f"sharded {label} {scene}: the input state was written")
+        trips = log_trips(trip_log)
+        eager = []
+        with eager_sharded():
+            want_trips = eager_trips(lambda: eager.append(call(scene)))
+        bad, diffs = tree_diff(got, eager[0])
+        if bad or any(diffs.values()):
+            raise AssertionError(f"sharded {label} {scene}: captured != eager: {bad} "
+                                 f"{ {k: v for k, v in diffs.items() if v} }")
+        if trips != want_trips:
+            raise AssertionError(f"sharded {label} {scene}: the LMs ran {trips} trips on the "
+                                 f"device, eager {want_trips}")
+        _, out = got
 
         # Fusion stage.
         want = unsharded[scene]
@@ -2049,8 +2192,8 @@ def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
                 golden_fused, golden_pred = max(golden_fused, d_fused), max(golden_pred, d_pred)
 
         # Tracker stage on the golden's own inputs.
-        persons, pivots, n_drop, pre = golden_stage(golden, scene, rig.P.device)
-        _, stage = sharding.track_sharded(rig, cfg, mesh, frames, state0, persons, pivots,
+        persons, pivots, n_drop, pre = golden_stage(golden, scene, dev)
+        _, stage = sharding.track_sharded(rig, cfg, mesh, frames[scene], state0, persons, pivots,
                                           n_drop, pre)
         stage_mm = 0.0
         for f in range(n):
@@ -2063,12 +2206,49 @@ def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
         if scene == "benign":
             compare_outputs(out, want, f"sharded {label} {scene} vs run_offline")
         report[scene] = dict(
+            vs_eager="equal", lm_trips_on_device=",".join(map(str, trips)),
             fusion_vs_run_offline_mm=fusion_mm, stage_worst_mm=stage_mm * 1e3,
             run_offline_differs=bad, run_offline_worst_mm={k: v * 1e3 for k, v in worst.items()},
             golden_frames_exact=f"{golden_frames}/{n}", golden_worst_fused_mm=golden_fused * 1e3,
             golden_worst_pred_mm=golden_pred * 1e3,
         )
-    return launches, report
+    return first, tuple(on_device), report, trip_log
+
+
+def check_concurrent_replays(label, mesh, rig, cfg, inputs, trip_log) -> dict:
+    """The entries of `mesh` (all on one card) replaying at once, each on
+    its stream, against the same replays one at a time (every entry on one
+    stream): equal bit for bit. How much the entries' LMs overlapped on the
+    device clock (overlap_share of their spans in the trip log), at once
+    and one at a time, and how much the device events of a torch.profiler
+    trace of one call overlapped (kernels and copies of one stream never
+    do; a trace may miss some of a WHILE body's kernels)."""
+    from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
+    from smartedgesensor3dhumanpose_tpu_torch.types import TrackerState
+
+    dev = rig.P.device
+    frames = stacked_frames(inputs["adversarial"], dev)
+    state0 = TrackerState.initial(cfg.tracker.max_tracks, cfg.tracker.n_mov_avg,
+                                  cfg.tracker.avg_delay, device=dev)
+
+    def call():
+        return sharding.run_offline_sharded(rig, cfg, mesh, frames, state0,
+                                            fusion_batch=OFFLINE_FUSION_BATCH)
+
+    at_once = call()
+    spans_at_once = lm_spans(trip_log)
+    trace = [(e.time_range.start, e.time_range.end) for e in traced(call)]
+    with one_stream_per_device():
+        one_at_a_time = call()
+    spans_in_turn = lm_spans(trip_log)
+    bad, diffs = tree_diff(at_once, one_at_a_time)
+    if bad or any(diffs.values()):
+        raise AssertionError(f"sharded {label}: replays at once != one at a time: {bad} "
+                             f"{ {k: v for k, v in diffs.items() if v} }")
+    return {"at_once_vs_one_at_a_time": "equal", "lms": len(spans_at_once),
+            "lm_overlap_share_at_once": overlap_share(spans_at_once),
+            "lm_overlap_share_one_at_a_time": overlap_share(spans_in_turn),
+            "trace_events": len(trace), "trace_overlap_share_at_once": overlap_share(trace)}
 
 
 def scaled_frame(scaled, dev):
@@ -2085,23 +2265,40 @@ def scaled_frame(scaled, dev):
 
 def check_sharded_fusion(label, mesh, scaled):
     """fuse_frame_sharded on the first frame of phase 8's scaled scene on
-    `mesh`'s model axis against fusion.fuse_frame on the home device: valid
-    and the drop count equal, published joints within JOINT_TOL_M, one K2
-    launch. Returns ((K1, K2, K3), worst m, joints compared)."""
+    `mesh`'s model axis, every graph captured anew by the first call (K2
+    counted twice on the host: warm-up and capture), then a warm call: 0
+    host syncs, 0 launches on the host, K2 = 1 on the device, bit for bit
+    the eager sharded fusion; against fusion.fuse_frame on the home
+    device: valid and the drop count equal, published joints within
+    JOINT_TOL_M. Returns ((K1, K2, K3) of the first call on the host,
+    (K1, K2, K3) of the replay on the device, report)."""
     from smartedgesensor3dhumanpose_tpu_torch import fusion
     from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
 
     home = mesh.home
     cfg, rig, frame = scaled_frame(scaled, home)
     want, want_drop = fusion.fuse_frame(frame, rig, cfg.fusion, with_stats=True)
-    torch.cuda.synchronize(home)
+
+    def call():
+        return sharding.fuse_frame_sharded(frame, rig, cfg, mesh, with_stats=True)
+
+    fresh_sharded_graphs()
     reset_counts()
-    got, got_drop = sharding.fuse_frame_sharded(frame, rig, cfg, mesh, with_stats=True)
-    torch.cuda.synchronize(home)
-    counts = read_counts()
-    if counts != (0, 1, 0):
-        raise AssertionError(f"sharded fusion {label}: launch counts (K1, K2, K3) = {counts}, "
-                             "expected (0, 1, 0)")
+    _, first_s, first_mib = first_call(call)
+    first = read_counts()
+    if first != (0, FIRST_CALL_HOST_LAUNCHES, 0):
+        raise AssertionError(f"sharded fusion {label}: the first call counted (K1, K2, K3) = "
+                             f"{first} on the host")
+    syncs = count_syncs(call)
+    reset_counts()
+    (got, got_drop), on_device = device_counts(call)
+    host = read_counts()
+    if syncs or host != (0, 0, 0) or on_device != (0, 1, 0):
+        raise AssertionError(f"sharded fusion {label}: {syncs} host syncs, launch counts (K1, K2, "
+                             f"K3) = {host} on the host, {on_device} on the device")
+    bad, diffs = tree_diff((got, got_drop), eagerly(call)())
+    if bad or any(diffs.values()):
+        raise AssertionError(f"sharded fusion {label}: captured != eager: {bad} {diffs}")
     if not (torch.equal(got.valid, want.valid) and torch.equal(got_drop, want_drop)):
         raise AssertionError(f"sharded fusion {label}: valid or drops differ from fuse_frame")
     on = want.valid[:, None] & (want.score > 0)
@@ -2111,12 +2308,18 @@ def check_sharded_fusion(label, mesh, scaled):
     worst = float(diff.max())
     if not worst < JOINT_TOL_M:
         raise AssertionError(f"sharded fusion {label}: worst joint {worst} m > {JOINT_TOL_M}")
-    return counts, worst, int(diff.numel())
+    return first, on_device, {
+        "vs_eager": "equal", "host_syncs_per_call": syncs, "first_call_s": first_s,
+        "first_call_reserved_mib": first_mib, **sharded_graph_cost(),
+        "joints_compared": int(diff.numel()), "worst_mm": worst * 1e3}
 
 
 def check_cross_device(home, other, rig, cfg, inputs) -> dict:
     """K1, K2 and K3 launched on tensors of `other` while `home` is the
-    current device, each against its plain version on the same tensors."""
+    current device, each against its plain version on the same tensors;
+    then a Pipeline on `other`, captured after the ones on `home` of the
+    phases before: its step's replay runs on `other` alone (every kernel
+    of a profiler trace of it) and equals the eager step there."""
     from smartedgesensor3dhumanpose_tpu_torch import pipeline
     from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian
 
@@ -2138,11 +2341,29 @@ def check_cross_device(home, other, rig, cfg, inputs) -> dict:
         persons, pivots, fb, pre = tracker_inputs(pipe, frames)
         k3_err, _, _, _ = check_k3(f"on {other}", pipe.init_state(), persons, pivots, fb, pre,
                                    cfg.prior, cfg.tracker)
+
+        # The captured step on `other`.
+        from torch.autograd import DeviceType
+
+        state, frame = pipe.init_state(), frame_at(inputs["benign"], 0, other)
+        got = pipe.step(state, frame)
+        torch.cuda.synchronize(other)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            pipe.step(state, frame)
+            torch.cuda.synchronize(other)
+        cards = collections.Counter(e.device_index for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA)
+        bad, diffs = tree_diff(got, pipeline.step(state, frame, rig, cfg))
+        if set(cards) != {other.index} or bad or any(diffs.values()):
+            raise AssertionError(f"the step captured on {other}: kernels by card {dict(cards)}, "
+                                 f"against eager {bad} {diffs}")
         if torch.cuda.current_device() != home.index:
-            raise AssertionError("a kernel wrapper left another device current")
+            raise AssertionError("a kernel wrapper or a capture left another device current")
     torch.cuda.synchronize(other)
     return {"home": str(home), "tensors_on": str(other), "k1": "exact", "k2": "exact",
-            "k3_max_abs_err": k3_err}
+            "k3_max_abs_err": k3_err, "captured_step_kernels_by_card": dict(cards),
+            "captured_step_vs_eager": "equal"}
 
 
 def wall_ms(fn, dev) -> float:
@@ -2153,20 +2374,39 @@ def wall_ms(fn, dev) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def in_turns(calls: dict, dev, eager_calls: dict) -> dict:
+    """Median wall ms of each call, warm: every call of `calls` once per
+    round for SHARDED_TIMED rounds, those of `eager_calls` in the first
+    EAGER_SHARDED_TIMED rounds only."""
+    for fn in {**calls, **eager_calls}.values():
+        fn()
+    times = {label: [] for label in {**calls, **eager_calls}}
+    for i in range(SHARDED_TIMED):
+        for label, fn in {**calls, **(eager_calls if i < EAGER_SHARDED_TIMED else {})}.items():
+            times[label].append(wall_ms(fn, dev))
+    return {label: statistics.median(v) for label, v in times.items()}
+
+
 def phase_sharded(dev, smi, golden, rig, cfg, inputs, scaled):
-    """parallel/sharding.py on the card: run_offline_sharded over every
-    visible card (make_mesh()) and on virtual meshes of `dev`, the sharded
-    fusion of phase 8's frame, the dry run, the same across real cards where
-    there are several (with launches on another card's tensors), and the
-    wall times of each mesh against run_offline on the benign scene and
-    of the sharded fusion against fuse_frame. Returns {path: (K1, K2, K3)} of the sharded paths' runs."""
-    from smartedgesensor3dhumanpose_tpu_torch import fusion, pipeline
+    """parallel/sharding.py on the card, each shard's stages replayed as
+    CUDA graphs: run_offline_sharded over every visible card (make_mesh())
+    and on virtual meshes of `dev`, the sharded fusion of phase 8's frame,
+    the dry run, the same across real cards where there are several (with
+    launches and a captured step on another card's tensors); each against
+    the eager sharded path on the same mesh (bit for bit), the entries of
+    one card replaying at once against one at a time, and the wall times
+    of each mesh, captured and eager, against the captured run_offline on
+    the benign scene, and of the sharded fusion against fuse_frame, eager
+    and captured. Returns {path: (K1, K2, K3)}: the sharded paths' first
+    calls on the host and their checked replays on the device."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, pipeline
     from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
 
     pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=OFFLINE_FUSION_BATCH)
     unsharded = {scene: pipe.run_offline(pipe.init_state(), stacked_frames(inputs[scene], dev))[1]
                  for scene in SCENES}
     torch.cuda.synchronize()
+    offline_body_mib = pools_mib(g.bodies.pool.id for g in pipe._offline.graphs.values())
     n_cards = torch.cuda.device_count()
     meshes = {"cards": sharding.make_mesh()}
     for d, m in VIRTUAL_MESHES:
@@ -2178,26 +2418,40 @@ def phase_sharded(dev, smi, golden, rig, cfg, inputs, scaled):
             meshes[f"cards{n_cards // 2}x2"] = sharding.make_mesh(model=2)
         fusion_meshes[f"cards1x{n_cards}"] = sharding.make_mesh(data=1, model=n_cards)
 
-    launches = {"run_offline_sharded": [0, 0, 0], "fuse_frame_sharded": [0, 0, 0]}
-    replay = {}
+    launches = {path: [0, 0, 0] for path in (
+        "run_offline_sharded", "run_offline_sharded_replays_on_device",
+        "fuse_frame_sharded", "fuse_frame_sharded_replays_on_device")}
+
+    def add(path, counts):
+        launches[path] = [a + b for a, b in zip(launches[path], counts)]
+
+    concurrent = "virtual{}x{}".format(*CONCURRENT_MESH)
     for label, mesh in meshes.items():
-        counts, replay[label] = check_sharded_replay(label, mesh, rig, cfg, golden, inputs,
-                                                     unsharded)
-        launches["run_offline_sharded"] = [a + b for a, b in
-                                           zip(launches["run_offline_sharded"], counts)]
-        log("12 sharded replay", mesh=label, shape=repr(mesh.shape).replace(" ", ""),
-            devices=len({d for row in mesh.devices for d in row}), k1_launches=counts[0],
-            k2_launches=counts[1], k3_launches=counts[2],
-            scenes="'" + json.dumps(replay[label]) + "'")
+        first, on_device, report, trip_log = check_sharded_replay(label, mesh, rig, cfg, golden,
+                                                                  inputs, unsharded)
+        add("run_offline_sharded", first)
+        add("run_offline_sharded_replays_on_device", on_device)
+        if label == concurrent:
+            report["concurrent"] = check_concurrent_replays(label, mesh, rig, cfg, inputs, trip_log)
+        log("12 sharded replay", gpu=repr(smi), mesh=label,
+            shape=repr(mesh.shape).replace(" ", ""),
+            devices=len({d for row in mesh.devices for d in row}),
+            first_call_host_launches=",".join(map(str, first)),
+            replays_on_device=",".join(map(str, on_device)), host_launches_per_replay="0,0,0",
+            report="'" + json.dumps(report) + "'")
     for label, mesh in fusion_meshes.items():
-        counts, worst, joints = check_sharded_fusion(label, mesh, scaled)
-        launches["fuse_frame_sharded"] = [a + b for a, b in
-                                          zip(launches["fuse_frame_sharded"], counts)]
-        log("12 sharded fusion", mesh=label, cams=SCALED_SCENE["num_cameras"],
-            people=SCALED_SCENE["num_people"], valid="exact", joints_compared=joints,
-            worst_mm=worst * 1e3, k2_launches=counts[1])
+        first, on_device, report = check_sharded_fusion(label, mesh, scaled)
+        add("fuse_frame_sharded", first)
+        add("fuse_frame_sharded_replays_on_device", on_device)
+        log("12 sharded fusion", gpu=repr(smi), mesh=label, cams=SCALED_SCENE["num_cameras"],
+            people=SCALED_SCENE["num_people"], valid="exact",
+            first_call_host_launches=",".join(map(str, first)),
+            replay_on_device=",".join(map(str, on_device)), host_launches_per_replay="0,0,0",
+            report="'" + json.dumps(report) + "'")
+    fresh_sharded_graphs()
     dry = sharding.dryrun(4, [dev] * 4)
-    log("12 dryrun", entries=4, device=str(dev), report="'" + json.dumps(dry) + "'")
+    log("12 dryrun", entries=4, device=str(dev), captured=True,
+        report="'" + json.dumps(dry) + "'")
     if n_cards >= 2:
         cross = check_cross_device(torch.device("cuda", 0), torch.device("cuda", 1), rig, cfg,
                                    inputs)
@@ -2207,36 +2461,34 @@ def phase_sharded(dev, smi, golden, rig, cfg, inputs, scaled):
         log("12 multi card", multi_card="not_run", count=n_cards)
 
     # Wall times on the benign scene, warm, in turns.
+    fresh_sharded_graphs()
     frames = stacked_frames(inputs["benign"], dev)
     calls = {"run_offline": lambda: pipe.run_offline(pipe.init_state(), frames)}
+    eager_calls = {}
     for label, mesh in meshes.items():
         calls[label] = (lambda m=mesh: sharding.run_offline_sharded(
             rig, cfg, m, frames, pipe.init_state(), fusion_batch=OFFLINE_FUSION_BATCH))
-    for fn in calls.values():
-        fn()
-    times = {label: [] for label in calls}
-    for _ in range(SHARDED_TIMED):
-        for label, fn in calls.items():
-            times[label].append(wall_ms(fn, dev))
-    medians = {label: statistics.median(v) for label, v in times.items()}
+        eager_calls[f"eager_{label}"] = eagerly(calls[label])
+    medians = in_turns(calls, dev, eager_calls)
     # One scaled frame's fusion, unsharded and over each fusion mesh.
     s_cfg, s_rig, s_frame = scaled_frame(scaled, dev)
-    fuse = {"fuse_frame": lambda: fusion.fuse_frame(s_frame, s_rig, s_cfg.fusion)}
+    fuse_graph = graphs.CapturedFunction(lambda fr, rg: fusion.fuse_frame(fr, rg, s_cfg.fusion),
+                                         "fuse_frame")
+    fuse = {"fuse_frame": lambda: fuse_graph(s_frame, s_rig)}
+    eager_fuse = {"eager_fuse_frame": lambda: fusion.fuse_frame(s_frame, s_rig, s_cfg.fusion)}
     for label, mesh in fusion_meshes.items():
         fuse[label] = (lambda m=mesh: sharding.fuse_frame_sharded(s_frame, s_rig, s_cfg, m))
-    for fn in fuse.values():
-        fn()
-    fuse_times = {label: [] for label in fuse}
-    for _ in range(SHARDED_TIMED):
-        for label, fn in fuse.items():
-            fuse_times[label].append(wall_ms(fn, dev))
-    fuse_medians = {label: statistics.median(v) for label, v in fuse_times.items()}
-    log("12 sharded times", gpu=repr(smi), frames=frames.kp2d.shape[0], calls=SHARDED_TIMED,
-        fusion_batch=OFFLINE_FUSION_BATCH,
+        eager_fuse[f"eager_{label}"] = eagerly(fuse[label])
+    fuse_medians = in_turns(fuse, dev, eager_fuse)
+    log("12 sharded times", gpu=repr(smi), frames=frames.kp2d.shape[0], rounds=SHARDED_TIMED,
+        eager_rounds=EAGER_SHARDED_TIMED, fusion_batch=OFFLINE_FUSION_BATCH,
+        run_offline_body_pool_mib=offline_body_mib,
         replay_median_ms="'" + json.dumps(medians) + "'",
         replay_over_run_offline="'" + json.dumps({k: v / medians["run_offline"]
                                                   for k, v in medians.items()}) + "'",
-        fusion_median_ms="'" + json.dumps(fuse_medians) + "'")
+        fusion_median_ms="'" + json.dumps(fuse_medians) + "'",
+        fusion_over_fuse_frame="'" + json.dumps({k: v / fuse_medians["fuse_frame"]
+                                                 for k, v in fuse_medians.items()}) + "'")
     return {path: tuple(c) for path, c in launches.items()}
 
 
@@ -3022,13 +3274,15 @@ def main() -> int:
     # warm-up and capture, and a replay launches nothing on the host.
     # launches_by_path: the wrappers' counts per path, those of the online
     # step (phase 4), the offline path (6), the demo modes (10), the
-    # end-to-end step (11, full width) and the sharded paths (12, eager);
+    # end-to-end step (11, full width) and the sharded paths (12: each
+    # mesh's first call, which captures its graphs);
     # and under `*_replays_on_device` the kernels that graph replays ran on
     # the device, counted by name in torch.profiler traces: STEP_PROFILED
     # replays of phase 4's step (in phase 5), phase 6's replay of each scene, a chain of
-    # STEP_PROFILED frames (13.2) and PROFILED_REPLAYS end-to-end replays
-    # (13.4). No single PyTorch call computes JV, the fold or the scan, so
-    # there is no library time.
+    # STEP_PROFILED frames (13.2), PROFILED_REPLAYS end-to-end replays
+    # (13.4) and phase 12's checked replays of the sharded paths (both
+    # scenes on every mesh; one fusion per fusion mesh). No single PyTorch
+    # call computes JV, the fold or the scan, so there is no library time.
     paths = {**launches, **step_on_device, **off_launches, **demo_launches, "end_to_end": e2e_launches,
              **sharded_launches, **captured_launches}
     names = ("jv_assign", "association_fold", "tracker_scan")

@@ -19,11 +19,14 @@ copies of the static outputs: the entry points stay functional (the
 caller's tensors are never written and a result survives the next call),
 where the JAX package donates its state buffers instead.
 
-Each graph holds a private memory pool for its intermediates as long as
-it is kept. A `CapturedFunction` keeps the graphs of its `max_graphs` most
-recently used signatures and drops the least recently used beyond that
-(its pool goes back to the allocator; a later call of that signature
-captures again).
+Each graph holds a private memory pool for its intermediates, and one for
+the bodies of its loops (`loops.Bodies`), as long as it is kept. A
+`CapturedFunction` keeps the graphs of its `max_graphs` most recently used
+signatures and drops the least recently used beyond that (its pools go
+back to the allocator; a later call of that signature captures again).
+Graphs capture on a stream of their inputs' device, one kept per device,
+and replay on the caller's current stream, so graphs of one card may be
+replayed at once on several streams (parallel/sharding.py).
 
 The kernel wrappers count their launches on the host (`KERNEL_LAUNCHES`
 in ops/hungarian.py, ops/association.py, ops/tracker.py): the warm-up
@@ -115,6 +118,19 @@ class _Graph(NamedTuple):
     inputs: list       # static input tensors, in flatten order
     outputs: list      # static output tensors, in flatten order
     out_spec: object
+    bodies: loops.Bodies  # its loops' body stream and memory pool
+
+
+# device index -> the stream graphs of that device capture on. torch's own
+# default (`torch.cuda.graph` without `stream=`) is one stream of whichever
+# device was current at the process's first capture.
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    if device.index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device.index]
 
 
 class CapturedFunction:
@@ -143,7 +159,8 @@ class CapturedFunction:
             inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in leaves]
             copy_all(inputs, leaves)
             args = unflatten(spec, inputs)
-            loops.prepare(dev)
+            stream = _capture_stream(dev)
+            bodies = loops.Bodies(dev, stream)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -151,14 +168,14 @@ class CapturedFunction:
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
             try:
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, stream=stream), loops.capturing_into(bodies):
                     out = self.fn(*args)
             except Exception as exc:
                 raise RuntimeError(
                     f"capturing {self.name} as a CUDA graph failed at {_where(exc)}: {exc}"
                 ) from exc
             outputs, out_spec = flatten(out)
-        return _Graph(graph, inputs, outputs, out_spec)
+        return _Graph(graph, inputs, outputs, out_spec, bodies)
 
     def _graph_for(self, leaves, spec) -> _Graph:
         """The graph of this input signature, captured on first use; the

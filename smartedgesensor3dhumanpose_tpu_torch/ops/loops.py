@@ -19,10 +19,12 @@ eager loop runs; a trip that does not run costs nothing.
 The carry lives in tensors allocated before the node, and the body writes
 them in place. A tensor allocated inside the body never leaves it: where
 the device runs the body no time, that memory holds whatever it held
-before. The bodies capture on one stream per device and allocate from one
-memory pool per device that every captured loop shares, so graphs that
-hold loops must be replayed one at a time (the port replays each on the
-caller's stream).
+before. Each captured graph has its own `Bodies`: the stream its loops'
+bodies capture on and the memory pool they allocate from, kept as long as
+the graph (graphs.py). The loops of one graph run one after another and
+may share that pool; no two graphs share one, so graphs replayed at once
+on several streams of a card (parallel/sharding.py) never write each
+other's loop memory.
 """
 
 from __future__ import annotations
@@ -35,9 +37,6 @@ import torch
 from smartedgesensor3dhumanpose_tpu_torch import _kernels
 from smartedgesensor3dhumanpose_tpu_torch.ops import linalg
 
-# device index -> (the stream loop bodies capture on, their memory pool)
-_BODIES: dict = {}
-
 # None, or a list to which every WHILE node captured while it is set
 # appends (trips, stamps): the trips the node's last replay ran (int32) and
 # the device clock at the loop's start and at the end of each trip run (ns,
@@ -46,26 +45,53 @@ _BODIES: dict = {}
 # replay may miss some of a loop body's kernels.
 trip_log = None
 
+# The Bodies of the graph being captured (`capturing_into`), else None.
+_current = None
 
-def prepare(device: torch.device):
-    """The body stream and memory pool of `device`, made on first use, and
-    the kernel library loaded: before a capture, so that nothing of that
-    is first done while a stream captures."""
-    if device.index not in _BODIES:
+
+class Bodies:
+    """The stream that the loop bodies of one graph capture on and the
+    memory pool they allocate from (its own, released when the last
+    reference to this object goes). Made before the graph's capture, with
+    the kernel library loaded, so that none of it is first done while a
+    stream captures."""
+
+    def __init__(self, device: torch.device, capture_stream: torch.cuda.Stream):
         _kernels.library()
-        _BODIES[device.index] = (torch.cuda.Stream(device), torch.cuda.graph_pool_handle())
-    return _BODIES[device.index]
+        self.device = device
+        with torch.cuda.device(device):
+            # torch hands out its streams round robin from a fixed set: the
+            # body must not capture on the stream that captures the graph.
+            self.stream = torch.cuda.Stream(device)
+            while self.stream.cuda_stream == capture_stream.cuda_stream:
+                self.stream = torch.cuda.Stream(device)
+            self.pool = torch.cuda.MemPool()
+
+
+@contextlib.contextmanager
+def capturing_into(bodies: Bodies):
+    """The loops captured in this block take their bodies' stream and
+    memory from `bodies`."""
+    global _current
+    saved, _current = _current, bodies
+    try:
+        yield
+    finally:
+        _current = saved
 
 
 @contextlib.contextmanager
 def _allocating_to(pool, device: torch.device):
     """Route the current stream's allocations to `pool` (the graph's own
-    pool does not serve a stream that captures into another graph)."""
-    torch._C._cuda_beginAllocateCurrentStreamToPool(device.index, pool)
+    pool does not serve a stream that captures into another graph). Each
+    routing holds a reference to the pool until it ends, as
+    `torch.cuda.use_mem_pool` does."""
+    torch._C._cuda_beginAllocateCurrentStreamToPool(device.index, pool.id)
     try:
         yield
     finally:
-        torch._C._cuda_endAllocateToPool(device.index, pool)
+        torch._C._cuda_endAllocateToPool(device.index, pool.id)
+        torch._C._cuda_releasePool(device.index, pool.id)
 
 
 class _Trip:
@@ -91,7 +117,11 @@ def _while_node(pred: torch.Tensor, max_trips: int):
     enters while `pred` (0-d bool, computed before the node) holds; the
     block ends with `repeat_while(next pred)` on the yielded _Trip."""
     dev = pred.device
-    stream, pool = prepare(dev)
+    bodies = _current
+    if bodies is None or bodies.device != dev:
+        raise RuntimeError(f"a loop on {dev} captured outside graphs.CapturedFunction's capture "
+                           "for that device")
+    stream, pool = bodies.stream, bodies.pool
     lib = _kernels.library()
     trips = torch.empty((), dtype=torch.int32, device=dev)
     stamps = None

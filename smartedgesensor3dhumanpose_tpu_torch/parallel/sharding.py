@@ -6,18 +6,24 @@ inserts the collectives. The port stays one process with explicit
 placement:
 
 * every split stage runs its shards in turn in the caller's thread, each
-  under its device and, on a card, on a CUDA stream of its own kept for
-  that (device, entry), so the cards compute at once while the host
-  dispatches; host threads made every stage slower (PERF.md, PR 7);
+  under its device. On a card each shard is the replay of a CUDA graph
+  (graphs.py) of its own (stage, device, entry), on a CUDA stream kept for
+  that (device, entry), so the shards compute at once while the host
+  dispatches, and a loop inside one (the LM) stops on the device as
+  `lax.while_loop` does. Host threads made every stage slower (PERF.md;
+  sharding_ab.py);
 * the collectives are device-to-device copies onto the mesh's home device
-  (`Tensor.to(home, non_blocking=True)`). Before a gather the home stream
-  waits on an event recorded at the end of each shard's stream, and
-  `record_stream` tells the caching allocator about every tensor that
-  crosses streams. On the CPU the same code runs with no streams.
+  (`Tensor.to(home, non_blocking=True)`), outside the graphs. Before a
+  gather the home stream waits on an event recorded at the end of each
+  shard's stream, and `record_stream` tells the caching allocator about
+  every tensor that crosses streams. On the CPU the same code runs
+  eagerly with no streams.
 
 A mesh may name one device several times: `[torch.device("cpu")] * 8`
 stands for the JAX tests' virtual 8-device CPU mesh, `[cuda:0] * 4` for a
-4-entry mesh on one card.
+4-entry mesh on one card. Each entry of a card has graphs of its own:
+entries of one card replay at once, and a graph's static buffers and
+memory pools serve one replay at a time.
 
 `run_offline_sharded` is the offline replay (JAX :104-217):
   1. fusion over the time axis, one contiguous shard per data row, on the
@@ -34,17 +40,21 @@ stands for the JAX tests' virtual 8-device CPU mesh, `[cuda:0] * 4` for a
 :70-101, the stages that fusion.py's `sharding_hook` tags): normalisation
 split over the cameras, association on the home device (K2),
 triangulation split over the hypotheses, the gate and merge on home.
+Each stage on home is a graph too. The rig goes into every graph as an
+input (copied to each device on each call), so a graph reads no tensor
+that a later call frees.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import cameras, fusion, pipeline
+from smartedgesensor3dhumanpose_tpu_torch import cameras, fusion, graphs, pipeline
 from smartedgesensor3dhumanpose_tpu_torch.config import (
     FusionConfig,
     PipelineConfig,
@@ -176,18 +186,65 @@ def _stream(device: torch.device, k: int):
         return _STREAMS[(device, k)]
 
 
-def _run(fn, jobs: list, home: torch.device) -> list:
-    """`fn(device, *args)` for each `(device, args)` of `jobs`; returns the
-    results, gathered on `home`, in job order.
+@dataclasses.dataclass(frozen=True)
+class _Stage:
+    """One stage of a sharded path: `body`, a function of tensors only, and
+    `key`, its name and every value `body` depends on besides its
+    arguments (a config, a chunk size). `stage(device, *args)` runs it
+    eagerly, as the CPU does (and sharding_ab.py's host threads)."""
 
-    The jobs run in turn in the caller's thread, each under its device and,
-    on a card, on a stream of its own, so a job's kernels run on while the
-    next job is dispatched, and every card at once. The stages are bound by
-    host dispatch: host threads, one per card or one per job, made them
-    several times slower (PERF.md, PR 7). The args (tensors on `home`) are
-    copied to their device on the caller's streams, and each job's stream
-    first waits for those copies. Every gather waits on an event recorded
-    at the end of the job's stream."""
+    key: tuple
+    body: Callable
+
+    def __call__(self, device, *args):
+        return self.body(*args)
+
+
+# (stage key..., device, entry) -> graphs.CapturedFunction, least recently
+# used first.
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# Captured functions kept; each keeps the graphs of its
+# `CapturedFunction.max_graphs` most recent input signatures (shards of
+# unequal length are several signatures of one function).
+MAX_CAPTURED = 64
+
+
+def _captured(stage: _Stage, device: torch.device, k: int) -> graphs.CapturedFunction:
+    """The captured function of `stage` for entry k of `device` (the k-th
+    job on that device), made on first use; the least recently used
+    beyond MAX_CAPTURED is dropped with its graphs."""
+    key = (*stage.key, device, k)
+    captured = _GRAPHS.pop(key, None)
+    if captured is None:
+        captured = graphs.CapturedFunction(stage.body, f"sharded {stage.key[0]} on {device} "
+                                                       f"entry {k}")
+    _GRAPHS[key] = captured
+    while len(_GRAPHS) > MAX_CAPTURED:
+        _GRAPHS.popitem(last=False)
+    return captured
+
+
+def _on_home(stage: _Stage, home: torch.device, *args):
+    """A stage that needs every shard's result, on `home`: eagerly on the
+    CPU, else the replay of its graph on home's current stream."""
+    if home.type != "cuda":
+        return stage(home, *args)
+    return _captured(stage, home, 0)(*args)
+
+
+def _run(fn: _Stage, jobs: list, home: torch.device) -> list:
+    """`fn` on each `(device, args)` of `jobs`; returns the results,
+    gathered on `home`, in job order.
+
+    The jobs run in turn in the caller's thread, each under its device. On
+    a card job j is the replay of the graph of (fn, device, k), k counting
+    the jobs on that device, on a stream of its own, so a job's kernels
+    run on while the next job is dispatched, and every card at once. The
+    stages are bound by host dispatch: host threads, one per card or one
+    per job, made them several times slower (PERF.md; sharding_ab.py). The args
+    (tensors on `home`) are copied to their device on the caller's
+    streams, and each job's stream first waits for those copies. Every
+    gather waits on an event recorded at the end of the job's stream."""
     if home.type != "cuda":
         return [fn(dev, *args) for dev, args in jobs]
     per_device: dict = {}
@@ -196,12 +253,13 @@ def _run(fn, jobs: list, home: torch.device) -> list:
         args = _to(args, dev)
         ready = torch.cuda.current_stream(dev).record_event()
         k = per_device[dev] = per_device.get(dev, -1) + 1
+        run = _captured(fn, dev, k)
         with torch.cuda.device(dev):
             stream = _stream(dev, k)
             stream.wait_event(ready)
             _mark(args, stream)
             with torch.cuda.stream(stream):
-                out = fn(dev, *args)
+                out = run(*args)
             results.append((dev, out, stream.record_event()))
     gathered = []
     for dev, out, done in results:
@@ -211,11 +269,6 @@ def _run(fn, jobs: list, home: torch.device) -> list:
         _mark(out, local)
         gathered.append(_to(out, home))
     return gathered
-
-
-def _rig_copies(rig: CameraRig, devices, home: torch.device) -> dict:
-    """The rig on each distinct device (the caller's own on `home`)."""
-    return {d: rig if d == home else _to(rig, d) for d in dict.fromkeys(devices)}
 
 
 def _check_inputs(home: torch.device, **tensors) -> None:
@@ -241,16 +294,14 @@ def run_offline_sharded(rig: CameraRig, config: PipelineConfig, mesh: Mesh,
     _check_inputs(home, rig=rig.P, frames=frames.kp2d, state=state.alive)
     if fusion_batch < 1:
         raise ValueError(f"fusion_batch must be >= 1, got {fusion_batch}")
-    rigs = _rig_copies(rig, [d for row in mesh.devices for d in row], home)
     n = frames.kp2d.shape[0]
     rows = [(r, lo, hi) for r, (lo, hi) in enumerate(_split(n, mesh.shape["data"])) if hi > lo]
 
     # 1. Fusion: one contiguous time shard per data row.
-    def fuse(dev, shard):
-        return pipeline.fuse_offline(shard, rigs[dev], config, fusion_batch)
-
+    fuse = _Stage(("fuse", config, fusion_batch),
+                  lambda shard, rig_: pipeline.fuse_offline(shard, rig_, config, fusion_batch))
     persons, pivots, n_drop = pipeline._cat(_run(
-        fuse, [(mesh.devices[r][0], (_rows(frames, lo, hi),)) for r, lo, hi in rows], home
+        fuse, [(mesh.devices[r][0], (_rows(frames, lo, hi), rig)) for r, lo, hi in rows], home
     ))
 
     # 2. Cold-start LM: each row's persons, frames x hypotheses flattened,
@@ -263,19 +314,16 @@ def run_offline_sharded(rig: CameraRig, config: PipelineConfig, mesh: Mesh,
         for dev, (a, b) in zip(mesh.devices[r], _split((hi - lo) * h, mesh.shape["model"])):
             if b > a:
                 jobs.append((dev, (_rows(flat, lo * h + a, lo * h + b),)))
-
-    def smooth(dev, part):
-        return pipeline.smooth_offline(part, config, fusion_batch * h)
-
+    chunk = fusion_batch * h
+    smooth = _Stage(("smooth", config, chunk),
+                    lambda part: pipeline.smooth_offline(part, config, chunk))
     pre = _map(lambda x: x.reshape((n, h) + x.shape[1:]) if x.dim() else x,
                pipeline._cat(_run(smooth, jobs, home)))
-    return track_sharded(rig, config, mesh, frames, state, persons, pivots, n_drop, pre,
-                         rigs=rigs)
+    return track_sharded(rig, config, mesh, frames, state, persons, pivots, n_drop, pre)
 
 
 def track_sharded(rig: CameraRig, config: PipelineConfig, mesh: Mesh, frames: Frame,
-                  state: TrackerState, persons: Persons3D, pivots, n_dropped_hyp, pre,
-                  rigs: Optional[dict] = None):
+                  state: TrackerState, persons: Persons3D, pivots, n_dropped_hyp, pre):
     """Stages 3 and 4 of `run_offline_sharded` from the fusion's outputs
     (persons, pivots, n_dropped_hyp) and the stacked `smooth_cold` output
     `pre`, all on `mesh.home`: the tracker scan once on home, then the
@@ -283,23 +331,18 @@ def track_sharded(rig: CameraRig, config: PipelineConfig, mesh: Mesh, frames: Fr
     StepOutput)."""
     home = mesh.home
     _check_inputs(home, rig=rig.P, frames=frames.kp2d, state=state.alive,
-                     persons=persons.xyz)
-    if rigs is None:
-        rigs = _rig_copies(rig, mesh.axis("data"), home)
-    state_out, track = tracker.tracker_scan(
-        state, persons, pivots.to(persons.xyz.dtype), frames.fb_delay, pre,
-        config.prior, config.tracker,
-    )
+                  persons=persons.xyz)
+    scan = _Stage(("track", config), lambda st, ps, pv, fb, pr: tracker.tracker_scan(
+        st, ps, pv.to(ps.xyz.dtype), fb, pr, config.prior, config.tracker))
+    state_out, track = _on_home(scan, home, state, persons, pivots, frames.fb_delay, pre)
     n = frames.kp2d.shape[0]
     jobs = [
         (dev, (_rows(track.fused_pred, lo, hi), track.pred_delta_t[lo:hi],
-               frames.cam_stamp[lo:hi]))
+               frames.cam_stamp[lo:hi], rig))
         for dev, (lo, hi) in zip(mesh.axis("data"), _split(n, mesh.shape["data"])) if hi > lo
     ]
-
-    def reproject(dev, fused_pred, pred_delta_t, cam_stamp):
-        return pipeline.offline_feedback(fused_pred, pred_delta_t, cam_stamp, rigs[dev], config)
-
+    reproject = _Stage(("reproject", config), lambda fused_pred, pred_delta_t, cam_stamp, rig_:
+                       pipeline.offline_feedback(fused_pred, pred_delta_t, cam_stamp, rig_, config))
     feedback = pipeline._cat(_run(reproject, jobs, home))
     return state_out, pipeline.offline_outputs(
         frames, persons, pivots, n_dropped_hyp, track, rig, config, feedback=feedback
@@ -324,7 +367,6 @@ def fuse_frame_sharded(frame: Frame, rig: CameraRig, config: PipelineConfig, mes
     _check_inputs(home, rig=rig.P, frame=frame.kp2d)
     cfg = config.fusion
     devices = mesh.axis(axis)
-    rigs = _rig_copies(rig, devices, home)
 
     # 1. Normalisation split over the camera axis, then gathered.
     c = frame.kp2d.shape[0]
@@ -332,26 +374,29 @@ def fuse_frame_sharded(frame: Frame, rig: CameraRig, config: PipelineConfig, mes
         (dev, (_rows(frame, lo, hi), _camera_subset(rig, lo, hi)))
         for dev, (lo, hi) in zip(devices, _split(c, len(devices))) if hi > lo
     ]
-    normed = _run(lambda dev, part, sub: fusion.normalize_frame(part, sub, cfg), jobs, home)
-    kp_n, cov_n, det_ok = (torch.cat(x) for x in zip(*normed))
+    normalize = _Stage(("normalize", cfg), lambda part, sub: fusion.normalize_frame(part, sub, cfg))
+    kp_n, cov_n, det_ok = (torch.cat(x) for x in zip(*_run(normalize, jobs, home)))
 
     # 2. The greedy association over all cameras, on home.
-    hyps = fusion.associate(kp_n, cov_n, frame.det_score, det_ok, rig, cfg)
+    associate = _Stage(("associate", cfg), lambda kp, cov, score, ok, rig_:
+                       fusion.associate(kp, cov, score, ok, rig_, cfg))
+    hyps = _on_home(associate, home, kp_n, cov_n, frame.det_score, det_ok, rig)
 
     # 3. Triangulation split over the hypothesis axis, then gathered.
     h = hyps.cam_mask.shape[0]
     jobs = [
         (dev, (hyps._replace(kp=hyps.kp[lo:hi], cov=hyps.cov[lo:hi],
                              cam_mask=hyps.cam_mask[lo:hi],
-                             obs_score=hyps.obs_score[lo:hi]),))
+                             obs_score=hyps.obs_score[lo:hi]), rig))
         for dev, (lo, hi) in zip(devices, _split(h, len(devices))) if hi > lo
     ]
-    parts = _run(lambda dev, part: fusion.triangulate_hypotheses(part, rigs[dev], cfg),
-                 jobs, home)
-    persons = Persons3D(*(torch.cat(x) for x in zip(*parts)))
+    triangulate = _Stage(("triangulate", cfg), lambda part, rig_:
+                         fusion.triangulate_hypotheses(part, rig_, cfg))
+    persons = Persons3D(*(torch.cat(x) for x in zip(*_run(triangulate, jobs, home))))
 
     # 4. The gate and the merge, which need every hypothesis, on home.
-    persons = fusion.gate_and_merge(persons, hyps, cfg)
+    gate = _Stage(("gate_and_merge", cfg), lambda ps, hy: fusion.gate_and_merge(ps, hy, cfg))
+    persons = _on_home(gate, home, persons, hyps)
     return (persons, hyps.n_dropped) if with_stats else persons
 
 

@@ -11,8 +11,10 @@ graphs, so these tests emulate that form (`device_loops`): they patch
 node. As in a capture, the body runs once to be recorded; the stand-in
 then undoes that run, as a capture runs nothing, and replays the recorded
 operations while the test holds, as the device does. The capture and
-replay themselves are checked on the card by `chip_smoke.py` (phase 13).
-The JAX package runs on the CPU in float64.
+replay themselves are checked on the card by `chip_smoke.py` (phase 13);
+here, with torch.cuda's streams, pools and graphs stood in for and
+tensors faked on CUDA devices, which stream a graph captures on and the
+loop bodies each graph gets. The JAX package runs on the CPU in float64.
 """
 
 from __future__ import annotations
@@ -589,3 +591,126 @@ def test_graph_cache_keeps_the_most_recent(monkeypatch):
     use(1)
     assert [g for g in captured.graphs.values()] == [(3,), (1,)]
     assert graphs.CapturedFunction.max_graphs == 4
+
+
+class _FakeStream:
+    """A stand-in for torch.cuda.Stream: torch hands its streams out round
+    robin from a fixed set per device, here of `POOL` streams."""
+
+    POOL = 3
+    made: dict = {}
+
+    def __init__(self, device=None, priority=0):
+        self.device = torch.device(device)
+        n = _FakeStream.made[self.device] = _FakeStream.made.get(self.device, -1) + 1
+        self.cuda_stream = (self.device.index, n % self.POOL)
+
+    def wait_stream(self, other):
+        pass
+
+
+class _FakePool:
+    made = 0
+
+    def __init__(self):
+        _FakePool.made += 1
+        self.id = (0, _FakePool.made)
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """graphs.py's capture on the CPU, with torch.cuda's streams, pools and
+    graphs replaced by stand-ins and tensors faked on CUDA devices
+    (FakeTensorMode): yields the list of (graph, stream) each
+    `torch.cuda.graph` was entered with."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    entered = []
+
+    @contextlib.contextmanager
+    def cuda_graph(graph, pool=None, stream=None):
+        entered.append((graph, stream))
+        yield
+
+    _FakeStream.made = {}
+    current = {}
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "MemPool", _FakePool)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda keep_graph=False: object())
+    monkeypatch.setattr(torch.cuda, "graph", cuda_graph)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: current.setdefault(device, _FakeStream(device)))
+    monkeypatch.setattr(graphs, "_CAPTURE_STREAMS", {})
+    monkeypatch.setattr(loops._kernels, "library", lambda: None)
+    with FakeTensorMode():
+        yield entered
+
+
+def _fake_inputs(device: str):
+    leaves, spec = graphs.flatten((torch.empty(3, device=device),))
+    return leaves, spec
+
+
+def test_capture_runs_on_a_stream_of_the_inputs_device(fake_cuda):
+    """A graph captures on a stream of its inputs' device, one kept per
+    device, whichever device the process captured on first (torch's own
+    default capture stream belongs to the first one)."""
+    captured = graphs.CapturedFunction(lambda x: (x + 1,), "add_one")
+    cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    g0 = captured._capture(*_fake_inputs("cuda:0"))
+    g1 = captured._capture(*_fake_inputs("cuda:1"))
+    g1b = captured._capture(*_fake_inputs("cuda:1"))
+    (_, s0), (_, s1), (_, s1b) = fake_cuda
+    assert s0.device == cuda0 and s1.device == cuda1
+    assert s1b is s1 and s0 is not s1
+    assert [g.graph for g in (g0, g1, g1b)] == [graph for graph, _ in fake_cuda]
+    assert g1.outputs[0].device == cuda1
+
+
+def test_each_graph_has_its_own_loop_bodies(fake_cuda, monkeypatch):
+    """Two graphs of one device get two body streams and two memory pools
+    (graphs whose replays overlap never share a loop body's memory); a
+    body never captures on the graph's own capture stream, though torch's
+    streams repeat; the loops captured inside a graph take its bodies, and
+    the eager warm-up none."""
+    seen = []
+
+    def fn(x):
+        seen.append(loops._current)
+        return (x * 2,)
+
+    captured = graphs.CapturedFunction(fn, "double")
+    made = [captured._capture(*_fake_inputs("cuda:0")) for _ in range(4)]
+    capture_stream = graphs._CAPTURE_STREAMS[0]
+    bodies = [g.bodies for g in made]
+    assert len({id(b.pool) for b in bodies}) == len({b.pool.id for b in bodies}) == 4
+    assert len({id(b.stream) for b in bodies}) == 4
+    assert all(b.stream.cuda_stream != capture_stream.cuda_stream for b in bodies)
+    assert all(b.device == torch.device("cuda", 0) for b in bodies)
+    # Warm-up, then capture, per graph.
+    assert seen == [x for b in bodies for x in (None, b)]
+    assert loops._current is None
+
+    # A body's allocations go to its graph's pool, each routing balanced by
+    # a release of the pool's reference, as torch.cuda.use_mem_pool does
+    # (the card's torch has the stream's routing; this one need not).
+    calls = []
+    for name in ("_cuda_beginAllocateCurrentStreamToPool", "_cuda_endAllocateToPool",
+                 "_cuda_releasePool"):
+        monkeypatch.setattr(torch._C, name, lambda *a, name=name: calls.append((name, a)),
+                            raising=False)
+    with loops._allocating_to(bodies[1].pool, torch.device("cuda", 0)):
+        calls.append("body")
+    pool = bodies[1].pool.id
+    assert calls == [("_cuda_beginAllocateCurrentStreamToPool", (0, pool)), "body",
+                     ("_cuda_endAllocateToPool", (0, pool)), ("_cuda_releasePool", (0, pool))]
+
+
+def test_a_loop_outside_a_captured_function_is_refused():
+    """A WHILE node takes its body's stream and pool from the graph being
+    captured (graphs.CapturedFunction); none outside one."""
+    with pytest.raises(RuntimeError, match="outside graphs.CapturedFunction"):
+        with loops._while_node(torch.tensor(True), 4):
+            pass

@@ -6,7 +6,15 @@ The scenes are tests/test_sharding.py's, which pins the JAX sharded
 programs to those same single-device functions. JAX's sharded programs are
 not called here: they are slow to compile under load, and the single-device
 functions are the reference either way.
+
+On a card each shard's stages replay CUDA graphs (one per stage, device
+and mesh entry). Here the sharded replay runs with the loops of a capture
+(test_torch_graphs.device_loops) against the eager one, and the graphs'
+cache is checked with the card's streams and captures stood in for.
 """
+
+import collections
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -19,11 +27,12 @@ from smartedgesensor3dhumanpose_tpu import fusion as jax_fusion
 from smartedgesensor3dhumanpose_tpu import pipeline as jax_pipeline
 from smartedgesensor3dhumanpose_tpu.io import synthetic as jax_synthetic
 from smartedgesensor3dhumanpose_tpu.types import Frame as JaxFrame
-from smartedgesensor3dhumanpose_tpu_torch import cameras, config, fusion, pipeline
+from smartedgesensor3dhumanpose_tpu_torch import cameras, config, fusion, graphs, pipeline
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
 from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame, TrackerState
 from test_pipeline import small_config
+from test_torch_graphs import _equal_trees, device_loops, eager_trips
 
 pytestmark = pytest.mark.torch_port
 
@@ -220,3 +229,101 @@ def test_dryrun_on_eight_cpu_entries():
     assert report["mesh"] == {"data": 4, "model": 2}
     assert report["fusion_mesh"] == {"data": 1, "model": 8}
     assert report["joints_compared"] > 0 and report["worst_m"] < 1e-3
+
+
+# ------------------------------------------------- the captured form, CPU --
+
+@pytest.mark.parametrize("data,model", [(1, 1), (2, 2), (4, 1)])
+def test_run_offline_sharded_inside_device_loops_equals_eager(data, model):
+    """The sharded replay with the loops of a capture (`device_loops`, as
+    the card captures each shard's stages) equals the eager sharded replay
+    bit for bit on the 1 x 1, 2 x 2 and 4 x 1 meshes, 3 frames per fusion
+    chunk, and each loop (every shard's LM per chunk, then the tracker's
+    merges) runs the eager loop's trips."""
+    rig, arrays = _scene(REPLAY_SCENE, np.float32)
+    cfg = _port_config(8, 2)
+    frames = Frame.from_arrays(arrays, "cpu")
+    state0 = pipeline.Pipeline(rig, cfg, device="cpu").init_state()
+    mesh = _mesh(data, model)
+    with eager_trips() as trips:
+        eager = sharding.run_offline_sharded(rig, cfg, mesh, frames, state0, fusion_batch=3)
+    with device_loops() as nodes:
+        fixed = sharding.run_offline_sharded(rig, cfg, mesh, frames, state0, fusion_batch=3)
+    _equal_trees(fixed, eager, f"mesh {data}x{model}")
+    assert nodes.trips == trips
+    # One LM per fusion chunk of each entry's part; every LM runs a trip.
+    lms = len(trips) - REPLAY_SCENE["num_frames"]
+    assert lms >= data * model and all(t > 0 for t in trips[:lms])
+    assert bool(eager[0].alive.any()) and int(eager[1].persons_raw.valid.sum()) > 0
+
+
+class _NoStream:
+    """A stand-in for a CUDA stream or event of `_run`'s card branch."""
+
+    def record_event(self):
+        return self
+
+    def wait_event(self, event):
+        pass
+
+
+def test_one_captured_function_per_stage_device_and_entry(monkeypatch):
+    """On a card `_run` replays one CapturedFunction per (stage, device,
+    entry): entries that share a card get functions (and static buffers)
+    of their own, a later call reuses them and their graphs, shards of
+    another length add a graph to the same function, another stage key
+    (name, config, chunk) gets functions of its own, and the least
+    recently used function beyond MAX_CAPTURED is dropped. The card's
+    streams and the captures are stand-ins here (`_capture` patched)."""
+    captures = []
+
+    def capture(self, leaves, spec):
+        captures.append(self.name)
+        return (self.name, tuple(leaves[0].shape))
+
+    stream = _NoStream()
+    monkeypatch.setattr(graphs.CapturedFunction, "_capture", capture)
+    monkeypatch.setattr(graphs.CapturedFunction, "__call__",
+                        lambda self, *args: (self, self._graph_for(*graphs.flatten(args))))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: stream)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(sharding, "_stream", lambda device, k: stream)
+    monkeypatch.setattr(sharding, "_to", lambda tree, device: tree)
+    monkeypatch.setattr(sharding, "_mark", lambda tree, s: None)
+    monkeypatch.setattr(sharding, "_GRAPHS", collections.OrderedDict())
+
+    cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    cfg = _port_config(8, 2)
+    fuse = sharding._Stage(("fuse", cfg, 3), lambda x: (x,))
+
+    def run(stage, devices, n=4):
+        jobs = [(d, (torch.zeros(n),)) for d in devices]
+        return sharding._run(stage, jobs, cuda0)
+
+    first = run(fuse, [cuda0, cuda0, cuda1, cuda0])
+    fns = [fn for fn, _ in first]
+    assert len({id(f) for f in fns}) == 4
+    assert [f.name for f in fns] == [f"sharded fuse on {d} entry {k}" for d, k in
+                                     ((cuda0, 0), (cuda0, 1), (cuda1, 0), (cuda0, 2))]
+    assert list(sharding._GRAPHS) == [("fuse", cfg, 3, d, k) for d, k in
+                                      ((cuda0, 0), (cuda0, 1), (cuda1, 0), (cuda0, 2))]
+    assert len(captures) == 4
+    again = run(fuse, [cuda0, cuda0, cuda1, cuda0])
+    assert [fn for fn, _ in again] == fns and [g for _, g in again] == [g for _, g in first]
+    assert len(captures) == 4
+    shorter = run(fuse, [cuda0, cuda0, cuda1, cuda0], n=3)
+    assert [fn for fn, _ in shorter] == fns and len(captures) == 8
+    assert all(len(f.graphs) == 2 for f in fns)
+    # Another chunk size, and another stage on home.
+    other = run(sharding._Stage(("fuse", cfg, 4), lambda x: (x,)), [cuda0])
+    assert other[0][0] not in fns
+    fn, _ = sharding._on_home(sharding._Stage(("track", cfg), lambda x: (x,)), cuda0,
+                              torch.zeros(2))
+    assert fn.name == f"sharded track on {cuda0} entry 0" and len(sharding._GRAPHS) == 6
+    # The bound: the least recently used function goes first.
+    monkeypatch.setattr(sharding, "MAX_CAPTURED", 5)
+    run(fuse, [cuda1])
+    assert ("fuse", cfg, 3, cuda0, 0) not in sharding._GRAPHS
+    assert len(sharding._GRAPHS) == 5 and next(reversed(sharding._GRAPHS)) == ("fuse", cfg, 3,
+                                                                                cuda1, 0)
