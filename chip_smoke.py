@@ -99,6 +99,22 @@ Phases (each prints one line; any failure exits non-zero):
     the loops' own log (loops.trip_log), against the eager loops' trips
     (the LM's iters) and against lm_max_iterations, and the LM's ms per
     trip run and skipped against PR 8's fixed 32 trips
+ 14 every configuration the JAX package runs that no earlier phase reaches,
+    routed by shape (pipeline.routes): K1's wide routine (n > 120, one block
+    per problem) against its plain version bit for bit at n = 121 to 1024
+    (with row_active, batched, and the camera scan's discarded 128 x 8
+    solve) and against scipy's totals, its device time at n = 128, 256 and
+    1024 against its bound; the captured step with the camera scan
+    ("cond_while": one K1 per camera) over both golden scenes (every
+    decision exact, joints within 1 mm) and with the dense LM solver
+    (benign exact; the adversarial scene against the port's CPU dense run),
+    each against the eager step bit for bit, with its kernels per replay
+    on the device and its p50 beside the default step's; run_offline with
+    "pallas" (K1 per camera of each chunk on the device) equal to K2's run;
+    max_tracks=128, max_hypotheses=128 (online) and max_tracks=12 (offline,
+    K1 per frame) over 16 adversarial frames against the port's CPU float32
+    run of the same frames (computed in worker processes while phases 2-13
+    run), with their kernels counted on the device
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -232,7 +248,8 @@ def check_plans() -> int:
     """The wrappers' shared-memory plans (ops/hungarian.py::jv_plan,
     ops/tracker.py::scan_plan, ops/association.py::fold_plan) against the
     byte counts of the kernels' own sources, across K1's domain (R, C <= 120
-    at the batch sizes this script launches), K3's domain (P <= T <= 120,
+    at the batch sizes this script launches, and wide shapes up to
+    MAX_N_WIDE), K3's domain (P <= T <= 120,
     W = 3) and K2's shapes up to the scaled layout and the JV's limit.
     Returns the plans checked."""
     from smartedgesensor3dhumanpose_tpu_torch import _kernels
@@ -248,6 +265,14 @@ def check_plans() -> int:
                 if c_bytes != plan.smem_bytes or plan.smem_bytes > hungarian.SMEM_LIMIT:
                     raise AssertionError(f"K1 plan B={b} {rows}x{cols}: wrapper {plan}, kernel {c_bytes}")
                 checked += 1
+    # The wide routine's plans: one problem per block, past 120 columns.
+    for rows, cols in ((121, 121), (16, 128), (128, 8), (160, 150), (1024, 1024),
+                       (hungarian.MAX_N_WIDE, 3), (5, hungarian.MAX_N_WIDE)):
+        plan = hungarian.jv_plan(4, rows, cols)
+        c_bytes = lib.ses3d_jv_assign_smem_bytes(rows, cols, plan.per_block)
+        if plan.per_block != 1 or c_bytes != plan.smem_bytes or plan.smem_bytes > hungarian.SMEM_LIMIT:
+            raise AssertionError(f"K1 wide plan {rows}x{cols}: wrapper {plan}, kernel {c_bytes}")
+        checked += 1
     for t_slots in range(1, tracker.MAX_TRACKS + 1):
         for p in range(1, t_slots + 1):
             plan = tracker.scan_plan(p, t_slots, 3)
@@ -563,8 +588,18 @@ def read_counts():
     return hungarian.KERNEL_LAUNCHES, association.KERNEL_LAUNCHES, tracker.KERNEL_LAUNCHES
 
 
-# K1, K2 and K3 by name in a device trace.
-KERNEL_NAMES = ("jv_assign_kernel", "association_fold_kernel", "tracker_scan_kernel")
+# K1, K2 and K3 by name in a device trace: K1 is the warp kernel up to 120
+# columns or the wide kernel past them.
+KERNEL_NAMES = (("jv_assign_kernel", "jv_assign_wide_kernel"), ("association_fold_kernel",),
+                ("tracker_scan_kernel",))
+
+
+def kernel_index(name: str):
+    """0, 1 or 2 for a K1, K2 or K3 device event's name, else None."""
+    for i, keys in enumerate(KERNEL_NAMES):
+        if any(k in name for k in keys):
+            return i
+    return None
 # The wrappers count launches on the host. A captured entry point's first
 # call launches each kernel of its body twice there: once in its eager
 # warm-up (graphs.CapturedFunction) and once recorded by the capture. Its
@@ -587,7 +622,7 @@ def device_counts(fn):
         result = fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return result, tuple(sum(k in n for n in names) for k in KERNEL_NAMES)
+    return result, tuple(sum(kernel_index(n) == i for n in names) for i in range(3))
 
 
 def first_call(fn):
@@ -2576,7 +2611,7 @@ def profile_device(fn, reps: int) -> tuple:
     calls of `fn`, one trace each, after one untraced call."""
     fn()
     evs = [e for _ in range(reps) for e in traced(fn)]
-    counts = tuple(sum(k in e.name for e in evs) for k in KERNEL_NAMES)
+    counts = tuple(sum(kernel_index(e.name) == i for e in evs) for i in range(3))
     return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps, len(evs) / reps, counts
 
 
@@ -3208,6 +3243,381 @@ def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
         fixed_trips_graph_nodes=nodes_str(fixed_nodes))
 
 
+# --------------------------------------------------------------- phase 14 --
+# Every value of FusionConfig.assignment_impl and PriorConfig.solver that the
+# JAX package accepts, and the widths past the kernels' own, as routed by
+# pipeline.routes.
+WIDE_K1_SIZES = (121, 128, 160, 256, 1024)
+WIDE_K1_TIMED = (128, 256, 1024)
+WIDE_K1_BATCHED = ((5, 130, 140), (3, 128, 128))
+# Frames of the adversarial scene the beyond-domain configs run, each held to
+# the port's own CPU float32 run of the same frames.
+CONFIG_FRAMES = 16
+CONFIG_OFFLINE_BATCH = 8
+# Captured steps per p50 of a config, timed in turns with the default step.
+CONFIG_TIMED = 30
+
+
+def config_variants() -> dict:
+    """name -> the PipelineConfig phase 14 runs: demo_16cam with one knob
+    changed."""
+    from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig, PriorConfig, TrackerConfig
+
+    base = PipelineConfig.demo_16cam()
+    f = base.fusion
+    return {
+        "cond_while": dataclasses.replace(base, fusion=dataclasses.replace(f, assignment_impl="cond_while")),
+        "dense": dataclasses.replace(base, prior=PriorConfig(solver="dense")),
+        "pallas": dataclasses.replace(base, fusion=dataclasses.replace(f, assignment_impl="pallas")),
+        "max_tracks128": dataclasses.replace(base, tracker=TrackerConfig(max_tracks=128)),
+        "max_hypotheses128": dataclasses.replace(base, fusion=dataclasses.replace(f, max_hypotheses=128)),
+        "max_tracks12": dataclasses.replace(base, tracker=TrackerConfig(max_tracks=12)),
+    }
+
+
+def output_record(out) -> dict:
+    """The decisions and joints of a StepOutput (one frame, or stacked) as
+    numpy arrays."""
+    def np_(x):
+        return x.detach().cpu().numpy()
+
+    return {
+        "raw_valid": np_(out.persons_raw.valid), "fused_valid": np_(out.fused.valid),
+        "fused_id": np_(out.fused.person_id), "pred_valid": np_(out.fused_pred.valid),
+        "fb_kp_valid": np_(out.feedback.kp_valid),
+        "n_dropped_hyp": np_(out.n_dropped_hypotheses),
+        "n_dropped_spawns": np_(out.n_dropped_track_spawns),
+        "raw_xyz": np_(out.persons_raw.xyz), "fused_xyz": np_(out.fused.xyz),
+        "pred_xyz": np_(out.fused_pred.xyz),
+    }
+
+
+def record_diff(got: dict, want: dict) -> tuple:
+    """(decision fields that differ, worst joint difference in m over the
+    persons both sides publish)."""
+    bad = [k for k, v in got.items() if not k.endswith("xyz") and not np.array_equal(v, want[k])]
+    worst = 0.0
+    for key, valid in (("raw_xyz", "raw_valid"), ("fused_xyz", "fused_valid"), ("pred_xyz", "pred_valid")):
+        on = got[valid] & want[valid]
+        worst = max(worst, float(np.abs(got[key] - want[key])[on].max(initial=0.0)))
+    return bad, worst
+
+
+def config_run(name: str, device: str) -> list:
+    """One phase-14 config over the adversarial scene on `device`: the
+    online steps (one record per frame), or for max_tracks12 one offline
+    replay of CONFIG_FRAMES frames, and for dense every frame of the scene."""
+    from smartedgesensor3dhumanpose_tpu_torch import cameras, pipeline
+
+    cfg = config_variants()[name]
+    golden = np.load(GOLDEN)
+    data = scene_data(json.loads(str(golden["adversarial/scene"])), cfg.fusion.max_dets_per_cam)
+    frames = data["kp2d"].shape[0] if name == "dense" else CONFIG_FRAMES
+    dev = torch.device(device)
+    pipe = pipeline.Pipeline(cameras.hall_rig(16, device=dev), cfg, device=dev,
+                             fusion_batch=CONFIG_OFFLINE_BATCH)
+    if name == "max_tracks12":
+        stacked = stacked_frames({k: v[:frames] for k, v in data.items()}, dev)
+        return [output_record(pipe.run_offline(pipe.init_state(), stacked)[1])]
+    state, records = pipe.init_state(), []
+    for f in range(frames):
+        state, out = pipe.step(state, frame_at(data, f, dev))
+        records.append(output_record(out))
+    return records
+
+
+def cpu_reference(name: str) -> list:
+    """config_run on the CPU (the plain versions), in a worker process."""
+    sys.path.insert(0, _ROOT)
+    torch.set_num_threads(1)
+    return config_run(name, "cpu")
+
+
+CPU_REFERENCES = ("max_hypotheses128", "max_tracks128", "max_tracks12", "dense")
+
+
+def start_cpu_references():
+    """A pool of worker processes computing the CPU references of phase 14
+    while the earlier phases run on the card; (pool, {name: AsyncResult})."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(len(CPU_REFERENCES))
+    return pool, {name: pool.apply_async(cpu_reference, (name,)) for name in CPU_REFERENCES}
+
+
+def phase_wide_k1(dev, smi):
+    """K1's wide routine (n > 120, one block per problem) against its plain
+    version, bit for bit, and its totals against scipy; its device time
+    against its bound. Its matrices come from a seed of its own. Returns
+    {n: (device ms, bound ms, bound by)}."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian
+
+    rng = np.random.default_rng(14)
+
+    checked = 0
+    times = {}
+    for n in WIDE_K1_SIZES:
+        cases = [(f"rand{n}", rng.uniform(size=(n, n)), None)]
+        if n < 1024:
+            half = n // 2
+            track = rng.uniform(0.0, 8.0, size=(16, n))
+            act = rng.uniform(size=16) < 0.5
+            track[~act] = 1.0e3
+            clipped = rng.uniform(size=(half, n))
+            clipped[rng.uniform(size=clipped.shape) < 0.4] = association.ASSIGN_COST_CLIP
+            cases += [(f"rect{half}x{n}", rng.uniform(size=(half, n)), None),
+                      (f"tall{n}x{half}", rng.uniform(size=(n, half)), None),
+                      (f"ties{n}", rng.integers(0, 3, size=(n, n)).astype(np.float64), None),
+                      (f"clip{half}x{n}", clipped, None), (f"track16x{n}", track, act)]
+        for name, cost, act in cases:
+            cost = cost.astype(np.float32)
+            a = None if act is None else torch.from_numpy(act)
+            c_dev = torch.from_numpy(cost).to(dev)
+            got = hungarian.linear_sum_assignment(c_dev, None if a is None else a.to(dev)).cpu()
+            steps = hungarian.PLAIN_SEARCH_STEPS
+            want = hungarian.linear_sum_assignment_reference(torch.from_numpy(cost), a)
+            steps = hungarian.PLAIN_SEARCH_STEPS - steps
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 wide {name}: kernel != plain")
+            check_k1_total(f"wide {name}", cost, act, got.numpy())
+            checked += 1
+            if name == f"rand{n}" and n in WIDE_K1_TIMED:
+                # Device ms by CUDA events around back-to-back launches (a
+                # launch takes ~0.7-40 ms here, its host overhead µs); the
+                # bound as k1_bound counts it, from the steps this matrix
+                # took the plain version.
+                times[n] = (sync_time(lambda: hungarian.linear_sum_assignment(c_dev), 5),) + \
+                    bound_of(cost.nbytes + n * 4, n * n + steps * n * 4)
+    # The camera scan's discarded solve: H = 128 hypotheses x D = 8.
+    trivial = (np.arange(128)[:, None] != np.arange(8)[None, :]).astype(np.float32)
+    for b, r, c in WIDE_K1_BATCHED + ((2, 128, 8),):
+        cost = np.broadcast_to(trivial, (b, r, c)).copy() if c == 8 else \
+            rng.uniform(size=(b, r, c)).astype(np.float32)
+        act = rng.uniform(size=(b, r)) < 0.7 if r <= c else None
+        a = None if act is None else torch.from_numpy(act)
+        got = hungarian.linear_sum_assignment_batched(
+            torch.from_numpy(cost).to(dev), None if a is None else a.to(dev)).cpu()
+        want = hungarian.linear_sum_assignment_batched_reference(torch.from_numpy(cost), a)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 wide batched {b}x{r}x{c}: kernel != plain")
+        checked += b
+    c_dev = torch.from_numpy(trivial).to(dev)
+    trivial_ms = sync_time(lambda: hungarian.linear_sum_assignment(c_dev), 5)
+    # The same launches in a torch.profiler trace, as a cross-check of the
+    # events' times where the trace holds them.
+    traced_ms = kernel_durations(lambda: hungarian.linear_sum_assignment(c_dev),
+                                 "jv_assign_wide_kernel", 5)
+    traced_events = len(traced(lambda: hungarian.linear_sum_assignment(c_dev)))
+    plain_128 = sync_time(lambda: hungarian.linear_sum_assignment_reference(
+        torch.from_numpy(rng.uniform(size=(128, 128)).astype(np.float32)).to(dev)), 1)
+    log("14.1 K1 wide", gpu=repr(smi), problems=checked, vs_plain="equal bit for bit",
+        scipy_totals="equal", plan_1024=repr(hungarian.jv_plan(1, 1024, 1024)),
+        **{f"device_ms_n{n}": t[0] for n, t in times.items()},
+        **{f"bound_ms_n{n}": t[1] for n, t in times.items()},
+        bound_by=times[1024][2], timed_by="cuda_events", trivial_128x8_device_ms=trivial_ms,
+        trivial_128x8_profiler_ms=statistics.median(traced_ms) / 1e3 if traced_ms else "not_in_trace",
+        profiler_device_events_of_one_call=traced_events, plain_ms_n128_on_card=plain_128)
+    return times
+
+
+def replay_counts(fn):
+    """(fn(), (K1, K2, K3) kernels on the device during fn(), or None when
+    the profiler's trace of it holds no device event at all; then the
+    first call's host counts, which record the captured kernels, are the
+    evidence)."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        return result, None
+    return result, tuple(sum(kernel_index(n) == i for n in names) for i in range(3))
+
+
+# A replay's kernels where the profiler's trace held no device event:
+# null in the kernels line.
+NOT_IN_TRACE = (None, None, None)
+
+
+def check_replay_counts(what: str, counts, want) -> None:
+    if counts is not None and tuple(counts) != tuple(want):
+        raise AssertionError(f"{what}: {counts} kernels per replay on the device, expected {want}")
+
+
+def captured_config_steps(dev, pipe, golden, inputs, gate_scenes):
+    """A Pipeline's captured step over both golden scenes: every frame
+    against the golden (gated on `gate_scenes`, reported on the others),
+    captured against the eager step bit for bit on two frames per scene,
+    and one replay's kernels on the device. Returns (worst m on gated
+    scenes, {scene: departing frames}, (K1, K2, K3) of one replay)."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+
+    worst, departs, on_device = 0.0, {}, None
+    for scene in SCENES:
+        data = inputs[scene]
+        state = pipe.init_state()
+        departs[scene] = []
+        for f in range(data["kp2d"].shape[0]):
+            frame = frame_at(data, f, dev)
+            if f in (5, 40):
+                eager = pipeline.step(state, frame, pipe.rig, pipe.config)
+                reset_counts()
+                (new_state, out), counts = replay_counts(lambda: pipe.step(state, frame))
+                host_launches_none(f"{scene} {f}")
+                bad, diffs = tree_diff((new_state, out), eager)
+                if bad or any(diffs.values()):
+                    raise AssertionError(f"{scene} {f}: captured != eager: {bad} {diffs}")
+                on_device = counts
+            else:
+                new_state, out = pipe.step(state, frame)
+            state = new_state
+            if scene in gate_scenes:
+                worst = max(worst, *compare_step(out, golden, scene, f))
+            elif step_mismatch(out, golden, scene, f)[0]:
+                departs[scene].append(f)
+    return worst, departs, on_device
+
+
+def phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references):
+    """Phase 14. Returns the kernels' launches by path and K1 wide's times."""
+    from smartedgesensor3dhumanpose_tpu_torch import pipeline
+
+    variants = config_variants()
+    paths = {}
+
+    # 14.2 the camera scan online ("cond_while"): every golden decision.
+    scan = pipeline.Pipeline(rig, variants["cond_while"], device=dev)
+    if scan.routes != ("scan", "kernel"):
+        raise AssertionError(f"cond_while routes {scan.routes}")
+    reset_counts()
+    (_, _), first_s, first_mib = first_call(lambda: scan.step(scan.init_state(), frame_at(inputs["benign"], 0, dev)))
+    first_host = read_counts()
+    worst, _, on_device = captured_config_steps(dev, scan, golden, inputs, SCENES)
+    c = variants["cond_while"].fusion.num_cameras
+    check_replay_counts("cond_while step", on_device, (c + 1, 0, 0))
+    if first_host != (FIRST_CALL_HOST_LAUNCHES * (c + 1), 0, 0):
+        raise AssertionError(f"cond_while: first call's host launches {first_host}")
+    paths["step_cond_while"] = first_host
+    paths["step_cond_while_replay_on_device"] = on_device or NOT_IN_TRACE
+
+    # 14.3 the dense LM solver online: captured equals eager; the benign
+    # scene exact against the golden; the adversarial scene's departures
+    # reported and held to the port's CPU dense run (ROADMAP C2: its float32
+    # LM does not converge on the ghosts, and the golden is the tree's).
+    dense = pipeline.Pipeline(rig, variants["dense"], device=dev)
+    reset_counts()
+    first_call(lambda: dense.step(dense.init_state(), frame_at(inputs["benign"], 0, dev)))
+    paths["step_dense"] = read_counts()
+    if paths["step_dense"] != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,):
+        raise AssertionError(f"dense: first call's host launches {paths['step_dense']}")
+    dense_worst, departs, dense_dev = captured_config_steps(dev, dense, golden, inputs, ("benign",))
+    check_replay_counts("dense step", dense_dev, (1, 1, 0))
+    paths["step_dense_replay_on_device"] = dense_dev or NOT_IN_TRACE
+    cpu_dense = references["dense"].get()
+    card_dense = config_run("dense", str(dev))
+    dense_vs_cpu = [f for f, (g, w) in enumerate(zip(card_dense, cpu_dense)) if record_diff(g, w)[0]]
+    dense_vs_cpu_m = max(record_diff(g, w)[1] for g, w in zip(card_dense, cpu_dense))
+
+    # Step p50s in turns: the default (K2, tree), the scan, the dense solver.
+    state = pipe.init_state()
+    frames = [frame_at(inputs["benign"], f, dev) for f in range(CONFIG_TIMED)]
+    ms = {"default": [], "cond_while": [], "dense": []}
+    for _ in range(2):
+        for name, p in (("default", pipe), ("cond_while", scan), ("dense", dense)):
+            st = p.init_state()
+            for frame in frames:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = p.step(st, frame)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    p50 = {k: statistics.median(v) for k, v in ms.items()}
+    log("14.2 camera scan step", gpu=repr(smi), routes=repr(scan.routes), frames=128,
+        decisions="exact", worst_mm=worst * 1e3, captured_vs_eager="equal bit for bit",
+        first_call_s=first_s, first_call_reserved_mib=first_mib, host_launches_first_call=list(first_host),
+        device_launches_per_replay=on_device or "not_in_trace", step_p50_ms=p50["cond_while"],
+        default_step_p50_ms=p50["default"])
+    log("14.3 dense step", gpu=repr(smi), benign="exact", benign_worst_mm=dense_worst * 1e3,
+        captured_vs_eager="equal bit for bit", device_launches_per_replay=dense_dev or "not_in_trace",
+        adversarial_frames_departing_golden=",".join(map(str, departs["adversarial"])) or "none",
+        adversarial_frames_departing_cpu_dense=",".join(map(str, dense_vs_cpu)) or "none",
+        adversarial_worst_mm_vs_cpu_dense=dense_vs_cpu_m * 1e3,
+        step_p50_ms=p50["dense"], tree_step_p50_ms=p50["default"])
+    if dense_vs_cpu:
+        raise AssertionError(f"dense: the card departs from the CPU's dense run on frames {dense_vs_cpu}")
+
+    # 14.4 run_offline with "pallas": one batched K1 per camera of each chunk
+    # on the device, the association equal to K2's.
+    pallas = pipeline.Pipeline(rig, variants["pallas"], device=dev, fusion_batch=OFFLINE_FUSION_BATCH)
+    reset_counts()
+    first_call(lambda: pallas.run_offline(pallas.init_state(), stacked_frames(inputs["benign"], dev)))
+    paths["run_offline_pallas"] = read_counts()
+    for scene in SCENES:
+        frames = stacked_frames(inputs[scene], dev)
+        chunks = -(-frames.kp2d.shape[0] // OFFLINE_FUSION_BATCH)
+        if scene == SCENES[0] and paths["run_offline_pallas"] != tuple(
+                FIRST_CALL_HOST_LAUNCHES * k for k in (c * chunks, 0, 1)):
+            raise AssertionError(f"pallas run_offline: first call's host launches {paths['run_offline_pallas']}")
+        reset_counts()
+        (_, got), counts = replay_counts(lambda: pallas.run_offline(pallas.init_state(), frames))
+        host_launches_none(f"pallas run_offline {scene}")
+        check_replay_counts(f"pallas run_offline {scene}", counts, (c * chunks, 0, 1))
+        _, want = off_pipe.run_offline(off_pipe.init_state(), frames)
+        bad, diffs = tree_diff(got, want)
+        if bad or any(diffs.values()):
+            raise AssertionError(f"pallas run_offline {scene} != K2's run: {bad} {diffs}")
+        paths["run_offline_pallas_replay_on_device"] = counts or NOT_IN_TRACE
+    log("14.4 pallas run_offline", scenes=len(SCENES), device_launches_per_replay=counts or "not_in_trace",
+        vs_k2_run="equal bit for bit")
+
+    # 14.5 the beyond-domain configs against the port's CPU run.
+    # Kernels per replay: the step of max_tracks128 and max_hypotheses128,
+    # run_offline over CONFIG_FRAMES frames for max_tracks12.
+    expect = {"max_tracks128": (1, 1, 0), "max_hypotheses128": (c + 1, 0, 0),
+              "max_tracks12": (CONFIG_FRAMES, -(-CONFIG_FRAMES // CONFIG_OFFLINE_BATCH), 0)}
+    summary = {}
+    for name, want_dev in expect.items():
+        cfg = variants[name]
+        p = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=CONFIG_OFFLINE_BATCH)
+        reset_counts()
+        card = config_run(name, str(dev))
+        paths[name] = read_counts()
+        data = {k: v[:CONFIG_FRAMES] for k, v in inputs["adversarial"].items()}
+        # The card's run captured one graph: its first call's host counts
+        # are twice the kernels of a replay.
+        if paths[name] != tuple(FIRST_CALL_HOST_LAUNCHES * k for k in want_dev):
+            raise AssertionError(f"{name}: first call's host launches {paths[name]}, per replay {want_dev}")
+        if name == "max_tracks12":
+            stacked = stacked_frames(data, dev)
+            p.run_offline(p.init_state(), stacked)
+            reset_counts()
+            _, counts = replay_counts(lambda: p.run_offline(p.init_state(), stacked))
+        else:
+            state = p.init_state()
+            p.step(state, frame_at(data, 0, dev))
+            reset_counts()
+            _, counts = replay_counts(lambda: p.step(state, frame_at(data, 0, dev)))
+        host_launches_none(name)
+        check_replay_counts(name, counts, want_dev)
+        paths[f"{name}_replay_on_device"] = counts or NOT_IN_TRACE
+        cpu = references[name].get()
+        worst = 0.0
+        for f, (g, w) in enumerate(zip(card, cpu)):
+            bad, d = record_diff(g, w)
+            if bad or d > JOINT_TOL_M:
+                raise AssertionError(f"{name} record {f}: card vs CPU: {bad}, {d * 1e3:.4f} mm")
+            worst = max(worst, d)
+        summary[name] = f"{p.routes.association}/{p.routes.tracker}:{worst * 1e3:.4f}mm"
+    log("14.5 beyond the kernels' domains", frames=CONFIG_FRAMES, vs_cpu_float32="decisions exact",
+        routes_and_worst="'" + " ".join(f"{k}={v}" for k, v in summary.items()) + "'",
+        device_launches_per_replay="'" + " ".join(
+            f"{k}={list(paths[k + '_replay_on_device'])}" for k in expect) + "'")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="write a profiler table here")
@@ -3217,8 +3627,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, _ROOT)
-    from smartedgesensor3dhumanpose_tpu_torch import _kernels, cameras
-    from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
+    from smartedgesensor3dhumanpose_tpu_torch import _kernels
     from smartedgesensor3dhumanpose_tpu_torch.ops import linalg
 
     dev = torch.device("cuda", 0)
@@ -3242,6 +3651,19 @@ def main() -> int:
     log("1 build", seconds=round(build_s, 2),
         fresh_build_seconds=_kernels.build_seconds, flags=" ".join(_kernels.NVCC_FLAGS),
         plans_checked=check_plans(), k1_registers_no_local_memory=check_k1_ptxas(_kernels.build_log))
+    # Phase 14's CPU references run in worker processes meanwhile.
+    pool, references = start_cpu_references()
+    try:
+        return run_phases(args, dev, smi, references)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(args, dev, smi, references) -> int:
+    """Phases 2-14 and the result lines."""
+    from smartedgesensor3dhumanpose_tpu_torch import cameras
+    from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
 
     rng = np.random.default_rng(0)
     golden = np.load(GOLDEN)
@@ -3265,6 +3687,8 @@ def main() -> int:
     phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe)
     captured_launches.update(phase_captured_end_to_end(dev, smi, trained))
     phase_lm_trips(dev, smi, rig, cfg, inputs, pipe)
+    wide = phase_wide_k1(dev, smi)
+    config_launches = phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"
@@ -3284,7 +3708,7 @@ def main() -> int:
     # scenes on every mesh; one fusion per fusion mesh). No single PyTorch
     # call computes JV, the fold or the scan, so there is no library time.
     paths = {**launches, **step_on_device, **off_launches, **demo_launches, "end_to_end": e2e_launches,
-             **sharded_launches, **captured_launches}
+             **sharded_launches, **captured_launches, **config_launches}
     names = ("jv_assign", "association_fold", "tracker_scan")
     by_path = {name: {path: counts[i] for path, counts in paths.items()}
                for i, name in enumerate(names)}
@@ -3307,6 +3731,9 @@ def main() -> int:
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    # K1's wide routine (n > 120): device ms and bound per timed width.
+    kernels[0]["wide"] = {str(n): {"ms": t[0], "bound_ms": t[1], "bound_by": t[2]}
+                          for n, t in wide.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,31 @@ This package imports torch and numpy only; the JAX package
 `smartedgesensor3dhumanpose_tpu` is the reference it is tested against.
 """
 
-from smartedgesensor3dhumanpose_tpu_torch.config import (  # noqa: F401
+from smartedgesensor3dhumanpose_tpu_torch.config import (
     FusionConfig,
     PipelineConfig,
     PriorConfig,
     TrackerConfig,
 )
+from smartedgesensor3dhumanpose_tpu_torch.types import (
+    CameraRig,
+    Frame,
+    Persons3D,
+    Reprojection2D,
+    TrackerState,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CameraRig",
+    "Frame",
+    "FusionConfig",
+    "Persons3D",
+    "PipelineConfig",
+    "PriorConfig",
+    "Reprojection2D",
+    "TrackerConfig",
+    "TrackerState",
+    "__version__",
+]

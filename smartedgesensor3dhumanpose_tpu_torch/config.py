@@ -2,14 +2,30 @@
 
 The same knob tree as `smartedgesensor3dhumanpose_tpu.config`, with the
 defaults of the reference nodes (skeleton_3d_triang_mult_node.cpp:56-64,
-pose_prior_mult_node.cpp:46-66). Two fields narrow to what the port runs:
+pose_prior_mult_node.cpp:46-66). Every value the JAX package accepts runs
+here too:
 
-* `FusionConfig.assignment_impl`: "kernel" (default) folds the cameras through
-  `ops.association.associate_fold`, which launches the hand-written CUDA
-  kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors;
-  "reference" always runs the plain version.
-* `PriorConfig.solver`: "tree" only (the level-grouped block elimination of
-  `ops.tree_solve`).
+* `FusionConfig.assignment_impl` picks the cross-view association's route
+  (`fusion.association_route`, decided once per shape when a `Pipeline` is
+  built):
+  - "auto" (default, as in JAX): the association fold
+    (`ops.association.associate_fold`: kernel K2 on the card, its plain
+    version on the CPU) while it fits K2 (hypothesis slots and padded
+    detections <= 120, the fold's shared-memory plan), else the camera scan.
+    JAX's "auto" takes its fused Pallas fold on the TPU and the camera scan
+    elsewhere; the two give the same decisions (they differ only on exactly
+    tied solver optima), so the port keeps the fold on the CPU too;
+  - "cond_while", "pallas", "unrolled": the camera scan
+    (`ops.association.associate_scan`): one camera folded into the
+    hypotheses per step, one batched JV per step (kernel K1 on the card, the
+    plain JV on the CPU). In JAX the three differ only in how XLA schedules
+    the same function;
+  - "pallas_scan" (and its alias "kernel"): the fold; a `Pipeline` refuses
+    it outside K2's domain;
+  - "reference": the plain fold on any device (a test aid).
+* `PriorConfig.solver`: "tree" (the level-grouped block elimination of
+  `ops.tree_solve`) or "dense" (the equilibrated 63 x 63 Cholesky, JAX's
+  oracle / cross-check path).
 """
 
 from __future__ import annotations
@@ -17,7 +33,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-ASSIGNMENT_IMPLS = ("kernel", "reference")
+ASSIGNMENT_IMPLS = (
+    "auto", "cond_while", "pallas_scan", "pallas", "unrolled", "kernel", "reference",
+)
+SOLVERS = ("tree", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +71,8 @@ class FusionConfig:
     ut_kappa: float = 0.5
     # Cost assigned to infeasible pairings (MAX_COSTS, :43).
     max_cost: float = 1.0e6
-    # "kernel" or "reference" (see the module docstring).
-    assignment_impl: str = "kernel"
+    # One of ASSIGNMENT_IMPLS (see the module docstring).
+    assignment_impl: str = "auto"
 
     @property
     def num_input_joints(self) -> int:
@@ -87,7 +106,8 @@ class PriorConfig:
     lm_max_iterations: int = 32
     lm_relative_error_tol: float = 1.0e-5
     lm_absolute_error_tol: float = 1.0e-5
-    # Linear solver for the LM normal equations + marginals: "tree" only.
+    # Linear solver for the LM normal equations + marginals: "tree" or
+    # "dense" (see the module docstring).
     solver: str = "tree"
 
     @property
@@ -142,9 +162,9 @@ class PipelineConfig:
                 f"fusion.assignment_impl must be one of {ASSIGNMENT_IMPLS}, "
                 f"got {self.fusion.assignment_impl!r}"
             )
-        if self.prior.solver != "tree":
+        if self.prior.solver not in SOLVERS:
             raise ValueError(
-                f"prior.solver must be 'tree', got {self.prior.solver!r}"
+                f"prior.solver must be one of {SOLVERS}, got {self.prior.solver!r}"
             )
 
     @staticmethod

@@ -309,6 +309,214 @@ __device__ void jv_solve_block(const Cost& cost, int n, int n_rows,
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// The wide solve: kMaxN < n <= kMaxNWide columns, one block per problem.
+//
+// The warp routine keeps the n + 1 columns in registers and stops at four
+// slots of 32. Past that the solver state lives in shared memory (JvWide):
+// v, minv, way, used and roc per column, the row potentials u and the
+// pending flags per row. A block of kWideThreads threads stripes the
+// columns over its threads (thread t owns columns t, t + kWideThreads, ...
+// and alone reads or writes their v, minv, way and used), and the cost rows
+// are read from device memory through the functor (a 1024 x 1024 problem
+// is 4 MB, inside the L2).
+//
+// The row reduction gives each warp whole rows: its lanes scan a row's
+// columns in stripes and reduce the lexicographic (value, column) minimum
+// with two __reduce_min_sync. A search step: every thread relaxes its
+// columns and keeps its own lexicographic minimum in ascending column
+// order; each warp reduces with two __reduce_min_sync; lane 0 posts the
+// warp's winner to a double-buffered slot; one __syncthreads; every thread
+// then reduces the posted winners in warp order (the same answer in every
+// thread) and applies the dual update to its own columns: u[roc[j]] += delta
+// and v[j] -= delta on the search tree, minv[j] -= delta off it (a row is on
+// the tree exactly when its column is, so the owners' row updates never
+// collide). The augment is one thread's walk of the predecessor chain.
+//
+// Same semantics, tie rules, n + 1 step backstops and float operation
+// order as jv_solve_warp and ops/hungarian.py::_jv_plain, so the result
+// equals the plain version bit for bit. It is written to be simple and
+// right; each search step pays one block barrier.
+constexpr int kWideThreads = 256;
+constexpr int kMaxNWide = 8192;
+
+// Entries of each JvWide array for n columns: n + 1 rounded up to 16, so
+// every array starts 16-byte aligned.
+__host__ __device__ constexpr int jv_wide_entries(int n) { return (n + 1 + 15) / 16 * 16; }
+
+// Dynamic shared memory of the wide state: five 4-byte arrays and two byte
+// arrays of jv_wide_entries(n) entries.
+__host__ __device__ constexpr int jv_wide_smem_bytes(int n) {
+  return 22 * jv_wide_entries(n);
+}
+
+struct JvWide {
+  float* v;             // potential of each column (the virtual one too)
+  float* minv;          // least reduced cost reaching each column
+  float* u;             // potential of each row
+  int* way;             // predecessor column on the search tree; the row
+                        // reduction's argmin per row until the searches
+  int* roc;             // row matched to each column, -1 if free
+  unsigned char* used;  // column on the search tree
+  unsigned char* pend;  // row left free by the row reduction
+};
+
+__device__ inline JvWide jv_wide_layout(void* smem, int n) {
+  const int m = jv_wide_entries(n);
+  float* f = static_cast<float*>(smem);
+  JvWide s;
+  s.v = f;
+  s.minv = f + m;
+  s.u = f + 2 * m;
+  s.way = reinterpret_cast<int*>(f + 3 * m);
+  s.roc = reinterpret_cast<int*>(f + 4 * m);
+  s.used = reinterpret_cast<unsigned char*>(f + 5 * m);
+  s.pend = s.used + m;
+  return s;
+}
+
+// Solve the assignment of rows [0, n_rows) to columns [0, n) in one block
+// of kWideThreads threads, 1 <= n_rows <= n <= kMaxNWide; `cost` and
+// `row_active` as for jv_solve_warp. On return (after a block barrier)
+// s.roc[j] holds the row matched to column j, or -1. All threads of the
+// block must call it.
+template <class Cost, class Mask>
+__device__ void jv_solve_shared(const Cost& cost, int n, int n_rows,
+                                const Mask* row_active, const JvWide& s) {
+  constexpr int kWarps = kWideThreads / 32;
+  constexpr unsigned kNone = ~0u;  // a thread or warp without columns
+  __shared__ unsigned post_key[2][kWarps];
+  __shared__ unsigned post_col[2][kWarps];
+  __shared__ float post_val[2][kWarps];
+  const unsigned full = 0xffffffffu;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+
+  for (int j = t; j <= n; j += kWideThreads) {
+    s.roc[j] = n_rows;  // no claim yet
+    s.v[j] = 0.0f;
+  }
+  __syncthreads();
+
+  // Row reduction: u[i] = the row's minimum; each active row claims its
+  // first argmin column, the lowest claiming row wins (atomicMin).
+  for (int i = warp; i < n_rows; i += kWarps) {
+    float best = kInf;
+    int best_j = n;
+    for (int j = lane; j < n; j += 32) {
+      const float c = cost(i, j);
+      const bool lower = c < best;
+      best = lower ? c : best;
+      best_j = lower ? j : best_j;
+    }
+    const unsigned key = ordered_key(best);
+    const unsigned least = __reduce_min_sync(full, key);
+    const int amin = static_cast<int>(
+        __reduce_min_sync(full, key == least ? static_cast<unsigned>(best_j) : kNone));
+    const float umin = __shfl_sync(full, best, amin & 31);
+    if (lane == 0) {
+      s.u[i] = umin;
+      s.way[i] = amin;
+      const bool act = row_active == nullptr || row_active[i] != 0;
+      if (act && amin < n) atomicMin(&s.roc[amin], i);
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < n_rows; i += kWideThreads) {
+    const bool act = row_active == nullptr || row_active[i] != 0;
+    const int a = s.way[i];
+    s.pend[i] = act && !(a < n && s.roc[a] == i);
+  }
+  __syncthreads();
+  for (int j = t; j <= n; j += kWideThreads) {
+    if (s.roc[j] >= n_rows) s.roc[j] = -1;
+  }
+  __syncthreads();
+
+  // Rows left free by the reduction, in ascending order (as jv_solve_warp).
+  int parity = 0;
+  for (int r = 0; r < n_rows; ++r) {
+    if (!s.pend[r]) continue;
+    for (int j = t; j <= n; j += kWideThreads) {
+      s.minv[j] = kInf;
+      s.way[j] = n;
+      s.used[j] = 0;
+    }
+    if (t == 0) s.roc[n] = r;  // the virtual column holds row r
+    __syncthreads();
+    // Dijkstra search from the virtual column n.
+    int j0 = n;
+    for (int step = 0; step <= n + 1; ++step) {
+      const int i0 = s.roc[j0];
+      if (i0 < 0) break;
+      const float u_i0 = s.u[i0];
+      if (j0 % kWideThreads == t) s.used[j0] = 1;
+      float best = kInf;
+      unsigned best_j = kNone;
+      for (int j = t; j < n; j += kWideThreads) {
+        const bool live = !s.used[j];
+        const float cur = cost(i0, j) - u_i0 - s.v[j];
+        if (live && cur < s.minv[j]) {
+          s.minv[j] = cur;
+          s.way[j] = j0;
+        }
+        const float masked = live ? s.minv[j] : kInf;
+        const bool take = best_j == kNone || masked < best;
+        best = take ? masked : best;
+        best_j = take ? static_cast<unsigned>(j) : best_j;
+      }
+      // The lexicographic (value, column) argmin: within the warp, then
+      // across the posted warp winners; delta is the winning column's value.
+      const unsigned key = best_j == kNone ? kNone : ordered_key(best);
+      const unsigned least = __reduce_min_sync(full, key);
+      const unsigned col = __reduce_min_sync(full, key == least ? best_j : kNone);
+      const unsigned holder = __ballot_sync(full, key == least && best_j == col);
+      const float val = __shfl_sync(full, best, __ffs(holder) - 1);
+      if (lane == 0) {
+        post_key[parity][warp] = least;
+        post_col[parity][warp] = col;
+        post_val[parity][warp] = val;
+      }
+      __syncthreads();
+      unsigned k1 = post_key[parity][0];
+      unsigned j1 = post_col[parity][0];
+      float delta = post_val[parity][0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        const unsigned kw = post_key[parity][w];
+        const unsigned jw = post_col[parity][w];
+        const bool take = kw < k1 || (kw == k1 && jw < j1);
+        k1 = take ? kw : k1;
+        j1 = take ? jw : j1;
+        delta = take ? post_val[parity][w] : delta;
+      }
+      parity ^= 1;
+      for (int j = t; j <= n; j += kWideThreads) {
+        if (s.used[j]) {
+          const int i = s.roc[j];
+          s.u[i] = s.u[i] + delta;
+          s.v[j] = s.v[j] - delta;
+        } else if (j < n) {
+          s.minv[j] = s.minv[j] - delta;
+        }
+      }
+      j0 = static_cast<int>(j1);
+    }
+    __syncthreads();
+    // Augment along the predecessor chain back to the virtual column.
+    if (t == 0) {
+      int j = j0;
+      for (int step = 0; j != n && step <= n + 1; ++step) {
+        const int jp = s.way[j];
+        s.roc[j] = s.roc[jp];
+        j = jp;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // Inclusive prefix sum of `x` over the block's 128 threads; `total` gets
 // the block's sum. All 128 threads must call it.
 __device__ inline int block_inclusive_scan(int x, int* warp_sums, int& total) {

@@ -1,4 +1,5 @@
-// K1: batched rectangular linear-sum assignment, one warp per problem.
+// K1: batched rectangular linear-sum assignment, one warp per problem (one
+// block per problem past 120 columns).
 //
 // Replaces the TPU kernels of smartedgesensor3dhumanpose_tpu/ops/
 // hungarian_pallas.py: _jv_kernel (launched by _solve_padded, the single
@@ -21,8 +22,14 @@
 // A block holds up to kMaxPerBlock problems, one per warp (one per SM
 // sub-partition), as far as their tiles fit the block's shared memory.
 //
+// Past 120 columns the warp routine has no register slots left: a problem
+// of kMaxN < n <= kMaxNWide columns takes a block of its own and the wide
+// routine (jv.cuh::jv_solve_shared), which keeps the solver state in shared
+// memory and reads the cost rows from device memory
+// (jv_assign_wide_kernel).
+//
 // Contract (hungarian.py:179-205): cost [B, R, C] float32, row-major; the
-// problem is square-padded to n = max(R, C) <= 120 with zero-cost dummy
+// problem is square-padded to n = max(R, C) <= kMaxNWide with zero-cost dummy
 // columns (R > C); rows [0, R) are matched, skipping rows whose row_active
 // byte is 0 (row_active [B, R] bool, or null for all rows). Output
 // col_of_row [B, R] int32, -1 for unassigned rows and for rows matched to a
@@ -121,6 +128,52 @@ jv_assign_kernel(const float* __restrict__ cost,
   }
 }
 
+// The cost of problem b read from device memory; dummy columns are zero.
+struct GlobalCost {
+  const float* cost;
+  int cols;
+  __device__ float operator()(int i, int j) const {
+    return j < cols ? cost[static_cast<size_t>(i) * cols + j] : 0.0f;
+  }
+};
+
+// One problem of kMaxN < n <= kMaxNWide columns per block.
+__global__ void __launch_bounds__(ses3d::kWideThreads)
+jv_assign_wide_kernel(const float* __restrict__ cost,
+                      const unsigned char* __restrict__ row_active,
+                      int* __restrict__ col_of_row, int rows, int cols) {
+  extern __shared__ float4 dyn[];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int n = rows > cols ? rows : cols;
+  const ses3d::JvWide s = ses3d::jv_wide_layout(dyn, n);
+  ses3d::jv_solve_shared(
+      GlobalCost{cost + static_cast<size_t>(b) * rows * cols, cols}, n, rows,
+      row_active ? row_active + static_cast<size_t>(b) * rows : nullptr, s);
+  // Invert roc (row of column) into col_of_row.
+  int* out = col_of_row + static_cast<size_t>(b) * rows;
+  for (int i = t; i < rows; i += ses3d::kWideThreads) out[i] = -1;
+  __syncthreads();
+  for (int j = t; j < n; j += ses3d::kWideThreads) {
+    const int i = s.roc[j];
+    if (i >= 0 && i < rows) out[i] = j < cols ? j : -1;
+  }
+}
+
+cudaError_t launch_wide(const float* cost, const unsigned char* row_active,
+                        int* col_of_row, int batch, int rows, int cols,
+                        int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jv_assign_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  jv_assign_wide_kernel<<<batch, ses3d::kWideThreads, smem_bytes, stream>>>(
+      cost, row_active, col_of_row, rows, cols);
+  return cudaGetLastError();
+}
+
 template <int S>
 cudaError_t launch(const float* cost, const unsigned char* row_active,
                    int* col_of_row, int batch, int rows, int cols,
@@ -139,8 +192,12 @@ cudaError_t launch(const float* cost, const unsigned char* row_active,
 
 }  // namespace
 
-// The dynamic shared memory of a plan, as the wrapper must compute it.
+// The dynamic shared memory of a plan, as the wrapper must compute it: the
+// warp kernel's per_block tiles up to kMaxN columns, one wide state past it
+// (per_block must be 1 there).
 extern "C" int ses3d_jv_assign_smem_bytes(int rows, int cols, int per_block) {
+  const int n = rows > cols ? rows : cols;
+  if (n > ses3d::kMaxN) return per_block * ses3d::jv_wide_smem_bytes(n);
   return per_block * problem_bytes(rows, cols);
 }
 
@@ -151,12 +208,17 @@ extern "C" int ses3d_jv_assign(const float* cost,
                                int* col_of_row, int batch, int rows, int cols,
                                int per_block, int smem_bytes, void* stream) {
   const int n = rows > cols ? rows : cols;
-  if (batch < 1 || rows < 1 || cols < 0 || n > ses3d::kMaxN ||
+  if (batch < 1 || rows < 1 || cols < 0 || n > ses3d::kMaxNWide ||
       per_block < 1 || per_block > kMaxPerBlock ||
-      smem_bytes != per_block * problem_bytes(rows, cols)) {
+      (n > ses3d::kMaxN && per_block != 1) ||
+      smem_bytes != ses3d_jv_assign_smem_bytes(rows, cols, per_block)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
+  if (n > ses3d::kMaxN) {
+    return static_cast<int>(
+        launch_wide(cost, row_active, col_of_row, batch, rows, cols, smem_bytes, s));
+  }
   cudaError_t err;
   switch (ses3d::jv_slots(n)) {
     case 1:

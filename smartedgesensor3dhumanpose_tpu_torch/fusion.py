@@ -3,9 +3,11 @@
 Port of the JAX package's fusion.py, the reference skeleton_3d node's hot
 path (skeleton_3d_triang_mult_node.cpp triangulate_persons, :525-997):
 
-* the greedy association fold over cameras (:562-674), kernel K2
+* the greedy association over cameras (:562-674), routed by shape as the
+  JAX package routes it (`association_route`): the fold, kernel K2
   (ops.association) on the card, one launch for a whole chunk of frames
-  (`fuse_frames`; the online `fuse_frame` is a chunk of one),
+  (`fuse_frames`; the online `fuse_frame` is a chunk of one), or the
+  camera scan, one batched JV (kernel K1) per camera,
 * confidence-weighted DLT with 3-view / leave-one-out outlier rejection
   (:676-844), every leave-one-out variant computed as one batch axis,
 * unscented 3D covariance (:508-523), limb, root and feet gates, and the
@@ -26,6 +28,7 @@ from smartedgesensor3dhumanpose_tpu_torch.ops import (
     association,
     covariance,
     epipolar,
+    hungarian,
     linalg,
     triangulation,
 )
@@ -63,10 +66,45 @@ def fold_inputs(kp_n, det_score, rig: CameraRig, config: FusionConfig):
     return ctab.reshape(lead + (c, c * d, d)), conf_obs
 
 
+def association_route(config: FusionConfig, cameras: int, dets: int) -> str:
+    """The association's route for these shapes, as the JAX package's
+    fusion.associate picks it (see config.py): "fold" (kernel K2 on the
+    card, its plain version on the CPU), "reference" (the plain fold on any
+    device) or "scan" (the camera scan). It depends on the config and the
+    shapes only, so a `Pipeline` decides it once, at construction; a
+    "pallas_scan" (or "kernel") outside K2's domain raises here.
+
+    "auto" takes the fold where K2 takes the shapes (hypothesis slots and
+    padded detections <= 120, the fold's shared memory within a block),
+    else the scan: JAX's TPU rule (fusion.py:373) at the port's kernel
+    widths.
+    """
+    impl = config.assignment_impl
+    fits = association.fold_fits(cameras, dets, config.max_hypotheses)
+    if impl == "auto":
+        return "fold" if fits else "scan"
+    if impl in ("pallas_scan", "kernel"):
+        if not fits:
+            raise ValueError(
+                f"assignment_impl={impl!r} is the association fold, whose kernel "
+                f"takes hypothesis slots and padded detections <= "
+                f"{hungarian.MAX_N} within a block's shared memory; got "
+                f"cameras={cameras}, detections={dets}, "
+                f"max_hypotheses={config.max_hypotheses}. Use 'auto' or 'cond_while'."
+            )
+        return "fold"
+    if impl in ("cond_while", "pallas", "unrolled"):
+        return "scan"
+    if impl == "reference":
+        return "reference"
+    raise ValueError(f"unknown assignment_impl {impl!r}")
+
+
 def associate(kp_n, cov_n, det_score, det_ok, rig: CameraRig,
               config: FusionConfig) -> HypothesisSet:
-    """Greedy cross-view association over all cameras of a chunk of frames:
-    the fold (ops.association, one launch for the chunk) only gathers the
+    """Greedy cross-view association over all cameras of a chunk of frames,
+    by `association_route`: the fold (one launch for the chunk) or the
+    camera scan (one batched JV per camera); either only gathers the
     precomputed pair costs by the hypotheses' observation identities.
 
     kp_n, cov_n: [B, C, D, J, 3]; det_score [B, C, D]; det_ok [B, C, D]
@@ -78,11 +116,11 @@ def associate(kp_n, cov_n, det_score, det_ok, rig: CameraRig,
                          rig, config)
         return HypothesisSet(*(x[0] for x in hyps))
     ctab, conf_obs = fold_inputs(kp_n, det_score, rig, config)
-    fold = (
-        association.associate_fold_batched
-        if config.assignment_impl == "kernel"
-        else association.associate_fold_batched_reference
-    )
+    fold = {
+        "fold": association.associate_fold_batched,
+        "reference": association.associate_fold_batched_reference,
+        "scan": association.associate_scan,
+    }[association_route(config, kp_n.shape[1], kp_n.shape[2])]
     det_slot, n_hyp, n_dropped = fold(
         ctab, conf_obs, det_ok, config.max_hypotheses,
         config.max_epipolar_error, config.max_cost,

@@ -1,18 +1,32 @@
-"""The greedy cross-view association fold: kernel K2 and its plain PyTorch
-version.
+"""The greedy cross-view association: the fold (kernel K2 and its plain
+PyTorch version) and the camera scan.
 
-The fold (reference skeleton_3d_triang_mult_node.cpp:562-674) visits the
-cameras in order and matches each camera's detections against the
-hypotheses accumulated from the earlier cameras. It is the port of the JAX
-package's TPU kernel ops/association_pallas.py::_assoc_kernel and of the
-camera step fusion._associate_camera (fusion.py:96-311).
+The association (reference skeleton_3d_triang_mult_node.cpp:562-674) visits
+the cameras in order and matches each camera's detections against the
+hypotheses accumulated from the earlier cameras. Two routes compute it, as
+in the JAX package (fusion.associate there; the choice is
+fusion.association_route's):
 
-`associate_fold` launches the CUDA kernel (csrc/association_fold.cu) for
-CUDA tensors and runs `associate_fold_reference` for CPU tensors. Both
-follow the TPU kernel's orientation: the JV solve has detections as rows
-and hypotheses as columns, n = max(h_cap, dp) with dp = D rounded up to a
-multiple of 8, and skips unusable detection rows only when h_cap >= dp. In
-float32 the two agree bit for bit.
+* the fold, the port of the TPU kernel ops/association_pallas.py::
+  _assoc_kernel: `associate_fold` launches the CUDA kernel
+  (csrc/association_fold.cu) for CUDA tensors and runs
+  `associate_fold_reference` for CPU tensors. Both follow the TPU kernel's
+  orientation: the JV solve has detections as rows and hypotheses as
+  columns, n = max(h_cap, dp) with dp = D rounded up to a multiple of 8,
+  and skips unusable detection rows only when h_cap >= dp. In float32 the
+  two agree bit for bit. The kernel takes h_cap, dp <= 120; the plain
+  version any width;
+* the camera scan, the port of the JAX package's fusion._associate_camera
+  (fusion.py:96-313) and of the scan branch of its associate: `associate_scan`,
+  one camera per step over a batch of frames, the JV of each step (hypotheses
+  as rows, detections as columns) one batched `hungarian.
+  linear_sum_assignment_batched` call: kernel K1 on the card (its wide
+  routine past 120 columns), the plain JV on the CPU. It runs at any
+  width K1 takes and never reads a device value on the host, so it
+  captures.
+
+The two give the same decisions except on exactly tied solver optima (the
+tie tiers below make those rare).
 """
 
 from __future__ import annotations
@@ -73,13 +87,18 @@ def fold_smem_bytes(c: int, d: int, h_cap: int, prefetch: bool) -> int:
     return slices + c * 128 * 4 + 2 * c * d * 4 + dp * n_jv * 4 + dp * 128
 
 
-def fold_plan(c: int, d: int, h_cap: int) -> FoldPlan:
-    """The layout K2 takes at these shapes: prefetch the table slices when
-    two of them fit in PREFETCH_MAX_BYTES (and a slice is a whole number of
-    16-byte units, as the bulk copy needs); raise if even the fold's state
-    does not fit in a block."""
+def _prefetch(c: int, d: int) -> bool:
+    """Whether K2 prefetches the table slices: two of them fit in
+    PREFETCH_MAX_BYTES and a slice is a whole number of 16-byte units, as
+    the bulk copy needs."""
     slice_bytes = 4 * c * d * d
-    prefetch = slice_bytes % 16 == 0 and 2 * slice_bytes <= PREFETCH_MAX_BYTES
+    return slice_bytes % 16 == 0 and 2 * slice_bytes <= PREFETCH_MAX_BYTES
+
+
+def fold_plan(c: int, d: int, h_cap: int) -> FoldPlan:
+    """The layout K2 takes at these shapes (`_prefetch`); raise if even the
+    fold's state does not fit in a block."""
+    prefetch = _prefetch(c, d)
     smem = fold_smem_bytes(c, d, h_cap, prefetch)
     budget = SMEM_PER_BLOCK - STATIC_SMEM_RESERVE
     if smem > budget:
@@ -88,6 +107,15 @@ def fold_plan(c: int, d: int, h_cap: int) -> FoldPlan:
             f"detections={d}, h_cap={h_cap}; a block holds {budget}"
         )
     return FoldPlan(prefetch, smem)
+
+
+def fold_fits(c: int, d: int, h_cap: int) -> bool:
+    """Whether kernel K2 takes these shapes: h_cap and the padded detection
+    count within the JV's register width (hungarian.MAX_N) and the fold's
+    state within a block's shared memory (`fold_plan`)."""
+    return (max(h_cap, padded_dets(d)) <= hungarian.MAX_N
+            and fold_smem_bytes(c, d, h_cap, _prefetch(c, d))
+            <= SMEM_PER_BLOCK - STATIC_SMEM_RESERVE)
 
 
 def associate_fold_reference(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
@@ -108,8 +136,6 @@ def associate_fold_reference(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     c_cams, x_len, d = ctab.shape
     dp = padded_dets(d)
     n_jv = max(h_cap, dp)
-    if n_jv > hungarian.MAX_N:
-        raise ValueError(f"fold supports h_cap, dp <= {hungarian.MAX_N}")
     ct_all = ctab.reshape(c_cams, c_cams, d, d)  # [c, c1, d1, d2]
     conf = conf_obs.reshape(c_cams, d)
     hyps = torch.arange(h_cap, device=dev)
@@ -282,3 +308,115 @@ def associate_fold_batched(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     if ctab.device.type != "cuda":
         raise ValueError(f"unsupported device {ctab.device}")
     return _launch(ctab, conf_obs, det_ok, h_cap, gate, max_cost)
+
+
+def _scan_camera(det_slot, n_hyp, n_dropped, ctab_c, conf_obs, det_ok, c,
+                 gate, max_cost):
+    """One step of the camera scan: fold camera c's detections into the
+    hypotheses of a batch of frames (the JAX package's
+    fusion._associate_camera). det_slot [B, H, C] int64 (-1 where
+    unobserved), n_hyp and n_dropped [B] int64, ctab_c [B, C*D, D],
+    conf_obs [B, C*D], det_ok [B, D] bool. Returns the three updated."""
+    b, h, c_cams = det_slot.shape
+    d = det_ok.shape[1]
+    dev, dt = ctab_c.device, ctab_c.dtype
+    observed = det_slot >= 0  # [B, H, C]
+    # Each hypothesis' observation rows (c1 * D + d1) of the pair-cost table:
+    # one gather, unobserved cameras read as the -1 sentinel.
+    rows = (torch.arange(c_cams, device=dev) * d + det_slot.clamp(min=0)).reshape(b, h * c_cams)
+    obs = torch.gather(ctab_c, 1, rows[..., None].expand(b, h * c_cams, d))
+    obs = torch.where(observed[..., None], obs.reshape(b, h, c_cams, d), -1.0)
+    conf = torch.gather(conf_obs, 1, rows).reshape(b, h, c_cams)
+    usable = obs >= 0
+    big = obs > gate
+    # The mean per-observation cost over observations sharing joints
+    # (:344-366), summed in camera order as the fold sums it; the counts are
+    # exact in any order.
+    total = torch.zeros((b, h, d), dtype=dt, device=dev)
+    for c1 in range(c_cams):
+        total = total + torch.where(usable[:, :, c1], obs[:, :, c1], 0.0)
+    n_used = usable.sum(dim=2).to(dt)
+    votes_all = big.sum(dim=2).to(dt)
+    votes_conf = torch.where(big, conf[..., None], 0.0).sum(dim=2)
+    n_obs = observed.sum(dim=2)  # [B, H]
+    cost = total / torch.clamp(n_used, min=1.0)
+    # Vetoes (:344-381): only confident observations vote, except the lone
+    # observation of a one-observation hypothesis; each adds 1 / n_obs.
+    n_votes = torch.where((n_obs == 1)[..., None], votes_all, votes_conf)
+    n_obs_f = torch.clamp(n_obs, min=1).to(dt)[..., None]
+    veto = n_votes / n_obs_f > 1.0 - 1.0 / (2.0 * n_obs_f)
+    unusable = (n_used < 0.5) | (n_obs == 0)[..., None]
+    cost = torch.where(unusable, max_cost, cost)
+    veto = veto | unusable
+    ok = det_ok[:, None, :]
+    cost = torch.where(ok, cost, max_cost)
+    veto = veto | ~ok
+    mask = ~veto & (cost < gate)  # [B, H, D] feasible pairings
+
+    # Solve where a detection or hypothesis has more than one feasible
+    # pairing (:628); elsewhere the mask is the unique assignment. The solve
+    # runs for every frame (on a trivial matrix where its answer is
+    # discarded), so no host test decides anything.
+    need = ((mask.sum(dim=1) > 1).any(dim=1) | (mask.sum(dim=2) > 1).any(dim=1))
+    from_mask = torch.where(mask.any(dim=2), torch.argmax(mask.to(torch.int32), dim=2), -1)
+    hyps = torch.arange(h, device=dev)
+    dets = torch.arange(d, device=dev)
+    # Infeasible entries on the clip tier plus eps (h+1)(d+1); unusable
+    # detections on a higher tier.
+    tie = SOLVER_TIE_EPS * (hyps + 1).to(dt)[:, None] * (dets + 1).to(dt)[None, :]
+    clipped = torch.clamp(cost, max=ASSIGN_COST_CLIP)
+    tiered = torch.where(clipped >= ASSIGN_COST_CLIP, ASSIGN_COST_CLIP + tie, clipped)
+    tiered = torch.where(ok, tiered, INVALID_DET_COST)
+    trivial = (hyps[:, None] != dets[None, :]).to(dt)
+    solved = hungarian.linear_sum_assignment_batched(
+        torch.where(need[:, None, None], tiered, trivial).contiguous()
+    )
+    assign = torch.where(need[:, None], solved.to(torch.int64), from_mask)  # [B, H]
+
+    # Extend or spawn (reference :636-673): an assigned valid detection
+    # extends the hypothesis if the pairing is feasible and spawns a new one
+    # otherwise; unassigned valid detections spawn too.
+    A = assign[..., None] == dets  # [B, H, D]
+    assigned_valid = (A & ok).any(dim=2)
+    pair_ok = (A & mask).any(dim=2)
+    extend = assigned_valid & pair_ok
+    spawn_from_hyp = assigned_valid & ~pair_ok
+    handled = (A & assigned_valid[..., None]).any(dim=1)  # [B, D]
+    spawn_unhandled = det_ok & ~handled
+    # Solver spawns in hypothesis order, then unhandled detections in
+    # detection order.
+    slot1 = n_hyp[:, None] + torch.cumsum(spawn_from_hyp.to(torch.int64), 1) - 1
+    n1 = n_hyp + spawn_from_hyp.sum(dim=1)
+    slot2 = n1[:, None] + torch.cumsum(spawn_unhandled.to(torch.int64), 1) - 1
+    n2 = n1 + spawn_unhandled.sum(dim=1)
+    det_to_slot = torch.where(A & spawn_from_hyp[..., None], slot1[..., None], -1).amax(dim=1)
+    det_to_slot = torch.where(spawn_unhandled, slot2, det_to_slot)  # [B, D]
+    S = det_to_slot[:, None, :] == hyps[None, :, None]  # [B, H, D]
+    spawn_on = S.any(dim=2)
+    spawn_det = torch.where(S, dets, 0).sum(dim=2)
+    det_of_hyp = torch.where(A, dets, 0).sum(dim=2)
+    col = torch.where(extend, det_of_hyp, torch.where(spawn_on, spawn_det, det_slot[:, :, c]))
+    cam = torch.arange(c_cams, device=dev) == c
+    det_slot = torch.where(cam, col[..., None], det_slot)
+    # n_hyp was clipped to h already, so this step's overflow is n2 - h.
+    return det_slot, torch.clamp(n2, max=h), n_dropped + torch.clamp(n2 - h, min=0)
+
+
+def associate_scan(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
+    """The camera scan over a batch of frames (the JAX package's scan branch
+    of fusion.associate, its cameras unrolled): ctab [B, C, C*D, D],
+    conf_obs [B, C*D], det_ok [B, C, D] -> (det_slot [B, h_cap, C] int32,
+    n_hyp [B] int32, n_dropped [B] int32), as `associate_fold_batched`.
+    One batched JV per camera: kernel K1 for CUDA tensors, the plain JV for
+    CPU tensors."""
+    b, c_cams = ctab.shape[:2]
+    dev = ctab.device
+    det_slot = torch.full((b, h_cap, c_cams), -1, dtype=torch.int64, device=dev)
+    n_hyp = torch.zeros(b, dtype=torch.int64, device=dev)
+    n_dropped = torch.zeros(b, dtype=torch.int64, device=dev)
+    for c in range(c_cams):
+        det_slot, n_hyp, n_dropped = _scan_camera(
+            det_slot, n_hyp, n_dropped, ctab[:, c], conf_obs, det_ok[:, c], c,
+            gate, max_cost,
+        )
+    return det_slot.to(torch.int32), n_hyp.to(torch.int32), n_dropped.to(torch.int32)

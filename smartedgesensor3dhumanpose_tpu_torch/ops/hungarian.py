@@ -12,6 +12,12 @@ for a CPU tensor; there is no other path. The plain version is the same
 algorithm with the same tie rules, written as a Python loop over tensor
 ops, so in float32 the two agree bit for bit.
 
+Widths: the plain version takes any n = max(R, C). The kernel solves
+n <= MAX_N = 120 with one warp per problem (its columns in registers) and
+MAX_N < n <= MAX_N_WIDE with one block per problem (its columns in shared
+memory, csrc/jv.cuh::jv_solve_shared); it refuses wider problems. The JAX
+package's XLA JV (ops/hungarian.py there) has no width limit.
+
 Precision note: in float32, keep infeasible placeholder costs at a moderate
 ceiling (callers clip at 1e3) so reduced costs stay accurate.
 """
@@ -26,6 +32,9 @@ import torch
 from smartedgesensor3dhumanpose_tpu_torch import _kernels
 
 MAX_N = 120  # columns + the virtual column fit 4 register slots of 32 lanes
+# The wide routine's limit: its state for n columns, 22 bytes per column
+# (jv_wide_smem_bytes), fits one block's shared memory up to here.
+MAX_N_WIDE = 8192
 _INF = 3.0e38
 # The kernel's layout: one warp per problem, up to WARPS_PER_BLOCK problems
 # per block (one per SM sub-partition), within the H100's shared memory per
@@ -44,19 +53,31 @@ PLAIN_SEARCH_STEPS = 0
 class JvPlan(NamedTuple):
     """K1's launch layout for B problems of [R, C] (csrc/jv_assign.cu)."""
 
-    slots: int       # register slots per lane: the n + 1 columns in groups of 32
+    slots: int       # register slots per lane: the n + 1 columns in groups
+                     # of 32; 0 = the wide routine (one block per problem)
     stride: int      # words of one staged cost row (odd: no bank conflicts)
-    per_block: int   # problems per block, one warp each
+    per_block: int   # problems per block, one warp each (1 when wide)
     smem_bytes: int  # dynamic shared memory per block
     blocks: int
 
 
+def wide_smem_bytes(n: int) -> int:
+    """The wide routine's shared memory for n columns (jv.cuh::
+    jv_wide_smem_bytes): five 4-byte arrays and two byte arrays of n + 1
+    entries rounded up to 16."""
+    return 22 * (-(-(n + 1) // 16) * 16)
+
+
 @functools.lru_cache(maxsize=256)
 def jv_plan(batch: int, rows: int, cols: int) -> JvPlan:
-    """Every problem's cost tile [R, stride] float32 and one int per column
-    slot (the claims, then the inverse map) in shared memory; as many
-    problems per block as WARPS_PER_BLOCK and SMEM_LIMIT allow."""
+    """Up to MAX_N columns: every problem's cost tile [R, stride] float32
+    and one int per column slot (the claims, then the inverse map) in shared
+    memory, as many problems per block as WARPS_PER_BLOCK and SMEM_LIMIT
+    allow. Past it: one problem per block, the wide routine's state in
+    shared memory, the cost read from device memory."""
     n = _check_shape(rows, cols)
+    if n > MAX_N:
+        return JvPlan(0, cols, 1, wide_smem_bytes(n), batch)
     slots = n // 32 + 1
     stride = cols | 1
     problem = 4 * (rows * stride + 32 * slots)
@@ -129,16 +150,20 @@ def _jv_plain(cost: torch.Tensor, n: int, n_rows: int, row_active=None):
 
 
 def _check_shape(r: int, c: int) -> int:
+    """n = max(R, C) if the kernel takes it, else raise."""
     n = max(r, c)
-    if n > MAX_N:
-        raise ValueError(f"assignment supports up to {MAX_N} rows/cols, got {n}")
+    if n > MAX_N_WIDE:
+        raise ValueError(
+            f"the assignment kernel supports up to {MAX_N_WIDE} rows/cols, got {n}"
+        )
     return n
 
 
 def linear_sum_assignment_reference(cost: torch.Tensor, row_active=None):
-    """Plain PyTorch K1 for one [R, C] problem: col_of_row [R] int32."""
+    """Plain PyTorch K1 for one [R, C] problem, of any size: col_of_row [R]
+    int32."""
     r, c = cost.shape
-    n = _check_shape(r, c)
+    n = max(r, c)
     padded = torch.zeros((r, n), dtype=cost.dtype, device=cost.device)
     padded[:, :c] = cost
     roc = _jv_plain(padded, n, r, row_active)
@@ -211,7 +236,8 @@ def linear_sum_assignment(cost: torch.Tensor, row_active=None) -> torch.Tensor:
     row's entries, and only with R <= C.
 
     Returns col_of_row [R] int32, -1 for unassigned rows. CUDA tensors go to
-    kernel K1, CPU tensors to the plain version.
+    kernel K1 (one warp up to MAX_N columns, one block up to MAX_N_WIDE;
+    wider raises), CPU tensors to the plain version (any width).
     """
     if cost.dim() != 2:
         raise ValueError(f"cost must be [R, C], got {tuple(cost.shape)}")
@@ -225,7 +251,8 @@ def linear_sum_assignment(cost: torch.Tensor, row_active=None) -> torch.Tensor:
 
 def linear_sum_assignment_batched(cost: torch.Tensor, row_active=None) -> torch.Tensor:
     """`linear_sum_assignment` over a batch: cost [B, R, C] -> [B, R] int32;
-    one warp per problem on the card (`jv_plan`)."""
+    one launch on the card, one warp (or past MAX_N one block) per problem
+    (`jv_plan`)."""
     if cost.dim() != 3:
         raise ValueError(f"cost must be [B, R, C], got {tuple(cost.shape)}")
     if cost.device.type == "cpu":

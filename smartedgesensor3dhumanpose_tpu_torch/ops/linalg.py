@@ -89,6 +89,55 @@ def adjugate4(a: torch.Tensor) -> torch.Tensor:
     return torch.stack(adj_cols, dim=-1)
 
 
+# Cyclic order of the six off-diagonal (p, q) pivots of a 4x4 Jacobi sweep.
+_JACOBI_PAIRS_4 = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+
+
+def _jacobi_rotation(app, aqq, apq, eps):
+    """Jacobi rotation (c, s) annihilating the (p, q) off-diagonal entry,
+    t = sign(tau) / (|tau| + sqrt(1 + tau^2)); the identity when
+    |apq| <= eps."""
+    small = torch.abs(apq) <= eps
+    safe_apq = torch.where(small, 1.0, apq)
+    tau = (aqq - app) / (2.0 * safe_apq)
+    t = torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(tau == 0.0, 1.0, t)  # tau == 0: a 45-degree rotation
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    s = t * c
+    return torch.where(small, 1.0, c), torch.where(small, 0.0, s)
+
+
+def eigh4(a: torch.Tensor, sweeps: int = 8):
+    """Eigendecomposition of symmetric 4x4 batches by `sweeps` cyclic Jacobi
+    sweeps (6-8 reach machine precision at 4x4). Returns (w [..., 4]
+    eigenvalues, unsorted; v [..., 4, 4] eigenvectors in columns)."""
+    eps = 1e-36 if a.dtype == torch.float64 else 1e-18
+    v = torch.eye(4, dtype=a.dtype, device=a.device).expand(a.shape).clone()
+    a = a.clone()
+    for _ in range(sweeps):
+        for p, q in _JACOBI_PAIRS_4:
+            c, s = _jacobi_rotation(a[..., p, p], a[..., q, q], a[..., p, q], eps)
+            c_, s_ = c[..., None], s[..., None]
+            # A <- G^T A G as a row update, then a column update; V <- V G.
+            row_p = c_ * a[..., p, :] - s_ * a[..., q, :]
+            row_q = s_ * a[..., p, :] + c_ * a[..., q, :]
+            a[..., p, :], a[..., q, :] = row_p, row_q
+            col_p = c_ * a[..., :, p] - s_ * a[..., :, q]
+            col_q = s_ * a[..., :, p] + c_ * a[..., :, q]
+            a[..., :, p], a[..., :, q] = col_p, col_q
+            v_p = c_ * v[..., :, p] - s_ * v[..., :, q]
+            v_q = s_ * v[..., :, p] + c_ * v[..., :, q]
+            v[..., :, p], v[..., :, q] = v_p, v_q
+    return torch.diagonal(a, dim1=-2, dim2=-1), v
+
+
+def smallest_eigvec4(a: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric 4x4 batches."""
+    w, v = eigh4(a, sweeps=sweeps)
+    idx = torch.argmin(w, dim=-1)
+    return torch.take_along_dim(v, idx[..., None, None], dim=-1)[..., 0]
+
+
 def smallest_eigvec4_psd(a: torch.Tensor, iters: int = 3) -> torch.Tensor:
     """Near-nullspace eigenvector of symmetric PSD 4x4 batches by adjugate
     power iteration: start from the dominant column of adj(A), apply adj(A)

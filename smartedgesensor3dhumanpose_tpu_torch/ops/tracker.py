@@ -14,8 +14,13 @@ port of the JAX package's ops/tracker_pallas.py:
 * `tracker_scan_reference`: the plain version, a loop over frames of
   `tracking.step(..., precomputed=pre_t)` with the plain JV;
 * `tracker_scan`: kernel K3 (csrc/tracker_scan.cu) for CUDA float32
-  tensors, one launch for all frames with the track state resident on
-  chip; the plain version for CPU tensors. There is no other path.
+  tensors whose shapes K3 takes (`kernel_takes`: persons <= track slots <=
+  MAX_TRACKS, 21 joints), one launch for all frames with the track state
+  resident on chip; for other shapes on CUDA, the same loop as the plain
+  version with kernel K1 solving each frame's assignment (JAX's `lax.scan`
+  of tracking.step beyond its kernel's domain, pipeline.py:231-262 there);
+  the plain version for CPU tensors. The route depends on the shapes and
+  the device only.
 
 Layout of the kernel's inputs (`_pack`): one record per frame
 (`frame_layout`: the persons' joints, flags and the frame scalars, each
@@ -117,31 +122,36 @@ def stack_frames(items):
     return _rebuild(first, [stack_frames(list(xs)) for xs in zip(*items)])
 
 
-def tracker_scan_reference(state0: TrackerState, persons: Persons3D, pivots,
-                           fb_delay, pre, prior_cfg, cfg):
-    """Plain PyTorch K3: `tracking.step(..., precomputed=pre_t)` frame by
-    frame, with the plain JV. Arguments and returns as `tracker_scan`."""
+def tracker_scan_steps(state0: TrackerState, persons: Persons3D, pivots,
+                       fb_delay, pre, prior_cfg, cfg, assign):
+    """`tracking.step(..., precomputed=pre_t)` frame by frame, each frame's
+    assignment solved by `assign`. Arguments and returns as
+    `tracker_scan`."""
     dtype = persons.xyz.dtype
     state = state0
     outs = []
     for f in range(pivots.shape[0]):
         state, out = tracking.step(
             state, _frame(persons, f), pivots[f].to(dtype), fb_delay[f],
-            prior_cfg, cfg, precomputed=_frame(pre, f),
-            assign=hungarian.linear_sum_assignment_reference,
+            prior_cfg, cfg, precomputed=_frame(pre, f), assign=assign,
         )
         outs.append(out)
     return state, stack_frames(outs)
 
 
-def check_domain(p: int, t_slots: int, k_j: int) -> None:
-    """Raise unless K3 takes these shapes: P <= T <= MAX_TRACKS, K = 21."""
-    if not (p <= t_slots <= MAX_TRACKS and k_j == K_JOINTS):
-        raise ValueError(
-            f"the tracker-scan kernel takes persons <= track slots <= "
-            f"{MAX_TRACKS} (the JV's limit) and {K_JOINTS} joints; got "
-            f"persons={p}, track slots={t_slots}, joints={k_j}"
-        )
+def tracker_scan_reference(state0: TrackerState, persons: Persons3D, pivots,
+                           fb_delay, pre, prior_cfg, cfg):
+    """Plain PyTorch K3: `tracker_scan_steps` with the plain JV. Arguments
+    and returns as `tracker_scan`."""
+    return tracker_scan_steps(state0, persons, pivots, fb_delay, pre, prior_cfg,
+                              cfg, hungarian.linear_sum_assignment_reference)
+
+
+def kernel_takes(p: int, t_slots: int, k_j: int) -> bool:
+    """Whether K3 takes these shapes: P <= T <= MAX_TRACKS, K = 21 (JAX's
+    rule for its tracker kernel, pipeline.py:231-236 there, at the port's
+    JV width)."""
+    return p <= t_slots <= MAX_TRACKS and k_j == K_JOINTS
 
 
 # Shared memory one thread block may hold on an H100 (static + dynamic,
@@ -339,9 +349,9 @@ def tracker_scan(state0: TrackerState, persons: Persons3D, pivots, fb_delay,
     (the stacked `tracking.smooth_cold` output) carry a leading frame axis.
     Returns (final TrackerState, TrackStepOutput stacked over frames), the
     same as `lax.scan(tracking.step(..., precomputed=pre_t))`; `state0` is
-    left as it was. CUDA float32 tensors go to kernel K3 (one launch,
-    persons <= track slots <= MAX_TRACKS and 21 joints, else it raises);
-    CPU tensors to the plain version.
+    left as it was. CUDA float32 tensors go to kernel K3 (one launch) where
+    it takes the shapes (`kernel_takes`), else to the per-frame loop with
+    kernel K1; CPU tensors to the plain version.
     """
     dev = persons.xyz.device
     if dev.type == "cpu":
@@ -350,13 +360,15 @@ def tracker_scan(state0: TrackerState, persons: Persons3D, pivots, fb_delay,
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    f, p, k_j, _ = persons.xyz.shape
+    t_slots = state0.alive.shape[0]
+    if not kernel_takes(p, t_slots, k_j):
+        return tracker_scan_steps(state0, persons, pivots, fb_delay, pre, prior_cfg,
+                                  cfg, hungarian.linear_sum_assignment)
     dtype = persons.xyz.dtype
     if dtype != torch.float32:
         raise TypeError(f"the CUDA tracker-scan kernel takes float32, got {dtype}")
-    f, p, k_j, _ = persons.xyz.shape
-    t_slots = state0.alive.shape[0]
     w = state0.vel_buffer.shape[2]
-    check_domain(p, t_slots, k_j)
 
     g_in, _, xyz_out, cov_out = pre
     has_dets = persons.valid.any(dim=1)

@@ -42,6 +42,28 @@ def _levels() -> list[np.ndarray]:
 LEVELS = _levels()
 
 
+def _elimination_order() -> np.ndarray:
+    """Bones ordered children first (decreasing depth of the child joint)."""
+    parents = {}
+    for b in range(_B):
+        parents.setdefault(int(skeleton.BONE_J[b]), []).append(
+            int(skeleton.BONE_I[b])
+        )
+
+    def depth(n):
+        if n not in parents:
+            return 0
+        return 1 + max(depth(p) for p in parents[n])
+
+    return np.array(
+        sorted(range(_B), key=lambda b: -depth(int(skeleton.BONE_J[b]))),
+        dtype=np.int64,
+    )
+
+
+ELIMINATION_ORDER = _elimination_order()
+
+
 def _m3(a, b):
     """Batched 3x3 @ 3x3 as componentwise multiply-adds."""
     return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
@@ -127,4 +149,42 @@ def tree_solve_levels(hdiag, bone_coup, bone_active, rhs, want_sigma=False):
         k_m = _m3(d_inv[:, c_idx], c_m)
         s_c = d_inv[:, c_idx] + _m3t(_m3(k_m, sigma[:, p_idx]), k_m)
         sigma = put(sigma, c_idx, on, s_c)
+    return x, sigma
+
+
+def tree_solve(hdiag, bone_coup, bone_active, rhs, want_sigma=False):
+    """`tree_solve_levels` one bone at a time, in ELIMINATION_ORDER: the
+    sequential elimination the level-grouped form is checked against.
+    Arguments and returns as `tree_solve_levels`."""
+    d = hdiag.clone()
+    r = rhs.clone()
+
+    def coup(b):
+        return torch.where(bone_active[:, b, None, None], bone_coup[:, b], 0.0)
+
+    order = [int(b) for b in ELIMINATION_ORDER]
+    for b in order:
+        p_idx, c_idx = int(skeleton.BONE_I[b]), int(skeleton.BONE_J[b])
+        c_m = coup(b)
+        cdinv = _m3(c_m, _inv3(d[:, c_idx]))
+        d[:, p_idx] = d[:, p_idx] - _m3(cdinv, c_m)
+        r[:, p_idx] = r[:, p_idx] - _mv3(cdinv, r[:, c_idx])
+
+    d_inv = _inv3(d)  # the children's blocks as at their elimination
+    x = _mv3(d_inv, r)
+    for b in order[::-1]:
+        p_idx, c_idx = int(skeleton.BONE_I[b]), int(skeleton.BONE_J[b])
+        on = bone_active[:, b]
+        xc = _mv3(d_inv[:, c_idx], r[:, c_idx] - _mv3(coup(b), x[:, p_idx]))
+        x[:, c_idx] = torch.where(on[:, None], xc, x[:, c_idx])
+
+    if not want_sigma:
+        return x, torch.eye(3, dtype=hdiag.dtype, device=hdiag.device).expand(hdiag.shape)
+    sigma = d_inv.clone()
+    for b in order[::-1]:
+        p_idx, c_idx = int(skeleton.BONE_I[b]), int(skeleton.BONE_J[b])
+        on = bone_active[:, b]
+        k_m = _m3(d_inv[:, c_idx], coup(b))
+        s_c = d_inv[:, c_idx] + _m3t(_m3(k_m, sigma[:, p_idx]), k_m)
+        sigma[:, c_idx] = torch.where(on[:, None, None], s_c, sigma[:, c_idx])
     return x, sigma

@@ -13,6 +13,24 @@ import torch
 from smartedgesensor3dhumanpose_tpu_torch.ops import linalg
 
 
+def dlt_rows(P, kp, view_mask, weight_by_conf: bool):
+    """The two DLT rows per view, r1 = x P[2] - P[0] and r2 = y P[2] - P[1],
+    each L2-normalized and optionally scaled by the confidence (reference
+    :443-454); masked-out views' rows are zero. P [C, 3, 4] (or batched),
+    kp [..., C, 3], view_mask [..., C] -> (r1, r2) [..., C, 4] each."""
+    x, y, conf = kp[..., 0:1], kp[..., 1:2], kp[..., 2:3]
+
+    def norm_rows(r):
+        n = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
+        r = r / torch.where(n > 0, n, 1.0)
+        if weight_by_conf:
+            r = r * conf
+        return torch.where(view_mask[..., None], r, 0.0)
+
+    return (norm_rows(x * P[..., 2, :] - P[..., 0, :]),
+            norm_rows(y * P[..., 2, :] - P[..., 1, :]))
+
+
 def coeff_constants(P: torch.Tensor, dtype) -> torch.Tensor:
     """The five constant per-camera 4x4 outer products of the coefficient
     form: [C, 5, 4, 4]."""
@@ -76,6 +94,23 @@ def view_contribs(P, kp, view_mask, weight_by_conf: bool) -> torch.Tensor:
     return linalg.heinsum("...ck,ckij->...cij", coeff, const)
 
 
+def triangulate(P, kp, view_mask, weight_by_conf: bool = True, sweeps: int = 8):
+    """One 3D point per batch element from its masked views: the smallest
+    eigenvector of A^T A (the reference's smallest singular vector, :456),
+    de-homogenized. A static rig P [C, 3, 4] takes the coefficient form, a
+    batched P the DLT rows. Fewer than 2 views give 0. kp [..., C, 3],
+    view_mask [..., C] -> [..., 3]. `sweeps` is accepted for the JAX
+    signature; the eigenvector comes from `linalg.smallest_eigvec4_psd`."""
+    if P.dim() == 3:
+        coeff = view_coeffs(P, kp, view_mask, weight_by_conf)
+        m = linalg.heinsum("...ck,ckij->...ij", coeff, coeff_constants(P, kp.dtype))
+    else:
+        r1, r2 = dlt_rows(P, kp, view_mask, weight_by_conf)
+        m = (linalg.heinsum("...ci,...cj->...ij", r1, r1)
+             + linalg.heinsum("...ci,...cj->...ij", r2, r2))
+    return solve_normal(m, torch.sum(view_mask, dim=-1))
+
+
 def solve_normal(m: torch.Tensor, n_views: torch.Tensor) -> torch.Tensor:
     """min ||A x||, ||x|| = 1 from the normal matrix m = A^T A [..., 4, 4],
     de-homogenized to [..., 3]. Lanes with fewer than 2 views are biased by
@@ -111,3 +146,10 @@ def reprojection_error(xyz, P, kp, view_mask) -> torch.Tensor:
     norm = torch.sum(conf, dim=-1)
     total = torch.sum(conf * torch.where(view_mask, err, 0.0), dim=-1)
     return total / torch.where(norm > 0, norm, 1.0)
+
+
+def triangulate_with_error(P, kp, view_mask, weight_by_conf: bool = True,
+                           sweeps: int = 8):
+    """`triangulate` and the weighted reprojection error of its points."""
+    xyz = triangulate(P, kp, view_mask, weight_by_conf, sweeps)
+    return xyz, reprojection_error(xyz, P, kp, view_mask)

@@ -36,9 +36,9 @@ from typing import NamedTuple
 
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, reprojection, tracking
+from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, reprojection, skeleton, tracking
 from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
-from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tracker
+from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian, linalg, tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import (
     CameraRig,
     Frame,
@@ -219,13 +219,48 @@ def run_offline(state: TrackerState, frames: Frame, rig: CameraRig,
     return state, offline_outputs(frames, persons, pivots, n_drop, track, rig, config)
 
 
+class Routes(NamedTuple):
+    """How a Pipeline runs its solvers, decided from the config, the shapes
+    and the device only (never from a failure)."""
+
+    association: str  # fusion.association_route: "fold", "scan" or "reference"
+    tracker: str      # offline: "kernel" (K3), "steps" (per frame, K1) or
+                      # "plain" (the CPU's plain version)
+
+
+def routes(config: PipelineConfig, device: torch.device) -> Routes:
+    """The solvers' routes of a Pipeline (see `Routes`); raises where the
+    config names a route its shapes cannot take: "pallas_scan" outside K2's
+    domain, or, on CUDA, an assignment wider than kernel K1 takes
+    (hungarian.MAX_N_WIDE; the JAX package's XLA JV has no such limit)."""
+    f, t = config.fusion, config.tracker
+    association = fusion.association_route(f, f.num_cameras, f.max_dets_per_cam)
+    if device.type != "cuda":
+        return Routes(association, "plain")
+    # Kernel K1's problems: the track assignment [H, T] and, on the scan,
+    # each camera's [H, D].
+    width = max(f.max_hypotheses, t.max_tracks)
+    if association == "scan":
+        width = max(width, f.max_dets_per_cam)
+    if width > hungarian.MAX_N_WIDE:
+        raise ValueError(
+            f"the assignment kernel solves up to {hungarian.MAX_N_WIDE} rows/cols; "
+            f"this config needs {width} (max_hypotheses={f.max_hypotheses}, "
+            f"max_tracks={t.max_tracks}, max_dets_per_cam={f.max_dets_per_cam})"
+        )
+    takes = tracker.kernel_takes(f.max_hypotheses, t.max_tracks, skeleton.NUM_FUSION_JOINTS)
+    return Routes(association, "kernel" if takes else "steps")
+
+
 class Pipeline:
     """The rig and config with the online and offline entry points.
 
     `device` places every tensor the pipeline creates; the rig and the
     frames must already live there. It is the card unless the caller asks
     for the CPU. On CUDA the solvers run as kernels K1/K2/K3 and the hot path
-    is float32; matrix products are pinned to IEEE fp32 (no TF32). On CUDA
+    is float32; matrix products are pinned to IEEE fp32 (no TF32). The
+    solvers' routes (`routes`) are decided here, once, from the config and
+    the device; a config whose shapes no route takes raises here. On CUDA
     `step`, `run_per_frame_chain` and `run_offline` replay CUDA graphs,
     captured at the first call of each input shape (graphs.py), which
     read the rig by address: the rig and config are fixed at construction.
@@ -245,6 +280,7 @@ class Pipeline:
             raise ValueError(f"rig is on {rig.P.device}, pipeline on {self.device}")
         if fusion_batch < 1:
             raise ValueError(f"fusion_batch must be >= 1, got {fusion_batch}")
+        self.routes = routes(config, self.device)
         self.rig = rig
         self.config = config
         self.fusion_batch = fusion_batch

@@ -5,7 +5,14 @@ graph, pose_prior_mult_node.cpp): per person, identity-Jacobian 3D priors
 on every measured joint (root shrunk by root_sigma_factor^2, :690) and
 bone-length range factors (:384-481), optimized by LM from a warm start
 (:483-503) with marginals from the final Hessian (:760-767). The normal
-equations are solved along the bone tree (ops.tree_solve).
+equations are solved along the bone tree (ops.tree_solve, `solver="tree"`)
+or, as the JAX package's oracle / cross-check path (`solver="dense"`), as
+one equilibrated 63 x 63 Cholesky solve per person with the marginals from
+the equilibrated inverse (`_solve_dense`, `_marginals_dense`). The JAX
+package leaves that factorization to XLA's library call (a Pallas version
+was slower and was removed, prior.py:40-48 there); here it is cuSOLVER's,
+through torch.linalg.cholesky_ex and torch.cholesky_solve, which check no
+error on the host, so the LM still captures.
 
 The LM is `ops.loops.while_loop` over one trip body, as the JAX package's
 is a `lax.while_loop`: eagerly it tests `all(done)` on the host once per
@@ -215,6 +222,78 @@ def _linearize_tree(x, g_in: GraphInputs, bones: _Bones):
     return hdiag, -uu, g, err
 
 
+def _linearize(x, g_in: GraphInputs, bones: _Bones):
+    """The dense normal equations: (H [P, K, 3, K, 3] undamped, g [P, K, 3],
+    err [P]); the same blocks as `_linearize_tree`, laid out in full."""
+    w_r, act, err, u, r_b, wb = _residual_terms(x, g_in, bones)
+    g = act[..., None] * w_r
+    # Diagonal blocks: the information matrices (unmeasured joints keep
+    # their unit anchors, so H stays positive definite).
+    eye_k = torch.eye(_K, dtype=x.dtype, device=x.device)
+    h = linalg.heinsum("kl,pkij->pkilj", eye_k, g_in.inv_cov)
+    g_b = (wb * r_b)[..., None] * u
+    g = g + linalg.heinsum("bk,pbi->pki", bones.inc, g_b)
+    uu = wb[..., None, None] * u[..., :, None] * u[..., None, :]
+    h = h + linalg.heinsum("bk,bl,pbij->pkilj", bones.inc, bones.inc, uu)
+    return h, g, err
+
+
+def _spd_solve(h_eq, rhs):
+    """Batched SPD solve of the equilibrated system, rhs [P, N, R]: a
+    Cholesky factor and two triangular solves, with no error check on the
+    host (cholesky_ex), so a capture records it. cuSOLVER is pinned on the
+    card: torch may give a batched factorization to MAGMA, which does not
+    capture."""
+    if h_eq.is_cuda:
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+    chol, _ = torch.linalg.cholesky_ex(h_eq)
+    return torch.cholesky_solve(rhs, chol)
+
+
+def _equilibrate(h2):
+    """Jacobi equilibration S H S of [P, N, N] with S = diag(1 / sqrt(H_ii)):
+    the root's shrunk covariance puts its information ~1e8 above the unit
+    anchors', a condition number beyond float32 unscaled. Returns (S H S,
+    the diagonal of S)."""
+    sc = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(h2, dim1=-2, dim2=-1), min=1e-30))
+    return h2 * sc[:, :, None] * sc[:, None, :], sc
+
+
+def _solve_dense(x, lam, g_in: GraphInputs, bones: _Bones):
+    """The damped LM step from the dense equations (JAX prior.py:405-421)."""
+    p = x.shape[0]
+    n = 3 * _K
+    h, g, _ = _linearize(x, g_in, bones)
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    h_eq, sc = _equilibrate(h.reshape(p, n, n) + lam[:, None, None] * eye)
+    delta = sc * _spd_solve(h_eq, (-g.reshape(p, n) * sc)[..., None])[..., 0]
+    return delta.reshape(p, _K, 3)
+
+
+def _marginals_dense(x, g_in: GraphInputs, bones: _Bones, bad):
+    """The marginal blocks from the equilibrated inverse of the undamped
+    Hessian, H^-1 = S (S H S)^-1 S (JAX prior.py:499-519): (marg [P, K, 3,
+    3], marg_ok [P]); a person whose inverse is not finite gets identity
+    blocks and marg_ok False."""
+    p = x.shape[0]
+    n = 3 * _K
+    h, _, _ = _linearize(x, g_in, bones)
+    h_eq, sc = _equilibrate(h.reshape(p, n, n))
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    cov = _spd_solve(h_eq, eye.expand(p, n, n)) * sc[:, :, None] * sc[:, None, :]
+    marg_ok = torch.isfinite(cov.reshape(p, -1)).all(dim=-1) & ~bad
+    cov = torch.where(marg_ok[:, None, None], cov, eye)
+    k = torch.arange(_K, device=x.device)
+    return cov.reshape(p, _K, 3, _K, 3)[:, k, :, k, :].transpose(0, 1), marg_ok
+
+
+def _solve_tree(x, lam, g_in: GraphInputs, bones: _Bones, eye3):
+    """The damped LM step along the bone tree."""
+    hdiag, coup, g, _ = _linearize_tree(x, g_in, bones)
+    damped = hdiag + lam[:, None, None, None] * eye3
+    return tree_solve.tree_solve_levels(damped, coup, g_in.bone_active, -g)[0]
+
+
 def _lm_trip(carry, g_in: GraphInputs, bones: _Bones, eye3, cfg: PriorConfig):
     """One LM iteration over every person: carry (x, err, lam, done, iters)
     in, the next carry out. Finished persons stay frozen: `x` and `err` move
@@ -223,9 +302,10 @@ def _lm_trip(carry, g_in: GraphInputs, bones: _Bones, eye3, cfg: PriorConfig):
     the trips that started with a person still running (JAX's count)."""
     x, err, lam, done, iters = carry
     iters = iters + (~done.all()).to(torch.int32)
-    hdiag, coup, g, _ = _linearize_tree(x, g_in, bones)
-    damped = hdiag + lam[:, None, None, None] * eye3
-    delta, _ = tree_solve.tree_solve_levels(damped, coup, g_in.bone_active, -g)
+    if cfg.solver == "dense":
+        delta = _solve_dense(x, lam, g_in, bones)
+    else:
+        delta = _solve_tree(x, lam, g_in, bones, eye3)
     delta = torch.where(torch.isfinite(delta), delta, 0.0)
     x_new = x + delta
     err_new = _residual_terms(x_new, g_in, bones)[2]
@@ -282,6 +362,9 @@ def optimize(g_in: GraphInputs, warm_start, cfg: PriorConfig) -> PriorResult:
     x = torch.where(bad[:, None, None], g_in.meas, x)
 
     # Marginals: diagonal blocks of the inverse undamped Hessian (:760-767).
+    if cfg.solver == "dense":
+        marg, marg_ok = _marginals_dense(x, g_in, bones, bad)
+        return PriorResult(x=x, marg_cov=marg, marg_ok=marg_ok, iters=iters)
     hdiag_f, coup_f, _, _ = _linearize_tree(x, g_in, bones)
     _, marg = tree_solve.tree_solve_levels(
         hdiag_f, coup_f, g_in.bone_active, torch.zeros_like(x), want_sigma=True

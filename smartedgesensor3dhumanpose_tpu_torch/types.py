@@ -27,6 +27,10 @@ class Frame(NamedTuple):
     cam_stamp: torch.Tensor  # [C] per-camera timestamp (s), float32
     fb_delay: torch.Tensor   # [C] measured feedback delay (s), -1 = unmeasured
 
+    @property
+    def num_cameras(self) -> int:
+        return self.kp2d.shape[0]
+
     @classmethod
     def from_arrays(cls, data, device) -> "Frame":
         """Frame on `device` from a dict of host arrays in field layout (as
@@ -58,6 +62,10 @@ class CameraRig(NamedTuple):
     F: torch.Tensor           # [C, C, 3, 3] fundamental matrices (i -> j)
     image_size: torch.Tensor  # [C, 2] (width, height) in pixels
 
+    @property
+    def num_cameras(self) -> int:
+        return self.P.shape[0]
+
 
 class Persons3D(NamedTuple):
     """3D skeletons with per-joint Gaussian uncertainty."""
@@ -67,6 +75,19 @@ class Persons3D(NamedTuple):
     cov: torch.Tensor        # [P, K, 3, 3] per-joint covariance
     valid: torch.Tensor      # [P] bool
     person_id: torch.Tensor  # [P] int32 track id (-1 before tracking)
+
+    @staticmethod
+    def empty(num_persons: int, dtype=torch.float32, device="cuda") -> "Persons3D":
+        """No persons: every slot invalid, ids -1 (on the card unless the
+        caller asks for the CPU)."""
+        k = skeleton.NUM_FUSION_JOINTS
+        return Persons3D(
+            xyz=torch.zeros((num_persons, k, 3), dtype=dtype, device=device),
+            score=torch.zeros((num_persons, k), dtype=dtype, device=device),
+            cov=torch.zeros((num_persons, k, 3, 3), dtype=dtype, device=device),
+            valid=torch.zeros((num_persons,), dtype=torch.bool, device=device),
+            person_id=torch.full((num_persons,), -1, dtype=torch.int32, device=device),
+        )
 
 
 class Reprojection2D(NamedTuple):

@@ -171,8 +171,11 @@ def test_wrapper_contract():
     cost = torch.rand(4, 4)
     with pytest.raises(ValueError):
         hungarian.linear_sum_assignment(torch.rand(2, 3, 4))
-    with pytest.raises(ValueError):
-        hungarian.linear_sum_assignment(torch.rand(121, 121))
+    # The plain version takes any width (the wide parity cases below); the
+    # kernel's plan refuses past MAX_N_WIDE.
+    assert hungarian.linear_sum_assignment(torch.rand(121, 121)).shape == (121,)
+    with pytest.raises(ValueError, match="up to 8192"):
+        hungarian.jv_plan(1, 8193, 8)
     with pytest.raises(ValueError):
         hungarian.linear_sum_assignment(cost.to("meta"))
     # The CPU path never touches the kernel or its launch count.
@@ -181,3 +184,40 @@ def test_wrapper_contract():
     assert hungarian.KERNEL_LAUNCHES == before
     empty = hungarian.linear_sum_assignment_batched(torch.rand(0, 3, 4))
     assert empty.shape == (0, 3) and empty.dtype == torch.int32
+
+
+@pytest.mark.parametrize("shape", [(121, 121), (128, 128), (160, 150), (140, 160)])
+def test_wide_matches_jax_xla_jv(rng, shape):
+    """Past the warp kernel's 120 columns (the wide routine's range on the
+    card), the plain JV against the JAX package's XLA JV, its route there
+    beyond its TPU kernel: the same decisions on untied costs, the same
+    optimal total on tied ones (the two searches break ties differently)."""
+    import jax
+
+    from smartedgesensor3dhumanpose_tpu.ops import hungarian as jax_hungarian
+
+    solve = jax.jit(lambda c: jax_hungarian.linear_sum_assignment(c, use_pallas=False))
+    untied = rng.uniform(size=shape)
+    got = hungarian.linear_sum_assignment(torch.from_numpy(untied)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(solve(jnp.asarray(untied))))
+    check_against_scipy(untied)
+    tied = rng.integers(0, 4, size=shape).astype(np.float64)
+    got = hungarian.linear_sum_assignment(torch.from_numpy(tied)).numpy()
+    want = np.asarray(solve(jnp.asarray(tied)))
+
+    def total(col_of_row):
+        rows = np.nonzero(col_of_row >= 0)[0]
+        assert len(rows) == min(shape) and len(np.unique(col_of_row[rows])) == len(rows)
+        return tied[rows, col_of_row[rows]].sum()
+
+    assert total(got) == total(want)
+
+
+def test_jv_plan_past_the_warp_width():
+    """Past MAX_N: one problem per block, the wide state's bytes (the C
+    entry recomputes them on the card)."""
+    for n in (121, 128, 256, 1024, hungarian.MAX_N_WIDE):
+        plan = hungarian.jv_plan(5, n, n)
+        assert plan == hungarian.JvPlan(0, n, 1, 22 * (-(-(n + 1) // 16) * 16), 5)
+        assert plan.smem_bytes <= hungarian.SMEM_LIMIT - 1024
+    assert hungarian.jv_plan(1, 16, 130).smem_bytes == hungarian.wide_smem_bytes(130)

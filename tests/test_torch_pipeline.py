@@ -180,7 +180,8 @@ def test_skeleton_tables_identical():
 
 
 def test_config_defaults_identical():
-    """Every knob equal, except the two narrowed to what the port runs."""
+    """Every knob equal, assignment_impl and solver included; a name the
+    port does not know is refused."""
     pairs = [
         (jax_config.PipelineConfig.demo_16cam(), config.PipelineConfig.demo_16cam()),
         (jax_config.PipelineConfig.scaled_64cam(), config.PipelineConfig.scaled_64cam()),
@@ -189,14 +190,12 @@ def test_config_defaults_identical():
         for section in ("fusion", "prior", "tracker"):
             w = dataclasses.asdict(getattr(want, section))
             g = dataclasses.asdict(getattr(got, section))
-            w.pop("assignment_impl", None)
-            assert g.pop("assignment_impl", "kernel") == "kernel"
             assert g == w, section
         assert got.dtype == want.dtype
     with pytest.raises(ValueError):
-        config.PipelineConfig(fusion=config.FusionConfig(assignment_impl="pallas"))
+        config.PipelineConfig(fusion=config.FusionConfig(assignment_impl="hungarian"))
     with pytest.raises(ValueError):
-        config.PipelineConfig(prior=config.PriorConfig(solver="dense"))
+        config.PipelineConfig(prior=config.PriorConfig(solver="cholesky"))
 
 
 # ------------------------------------------------------------ fusion + step --

@@ -213,11 +213,14 @@ def test_smooth_cold_matches_jax_f64():
 
 
 def test_tracker_scan_domain_is_checked():
-    tracker.check_domain(16, 24, 21)
-    tracker.check_domain(40, 64, 21)
+    """K3 takes persons <= track slots <= 120 with 21 joints; other shapes
+    take the per-frame loop with K1 on the card (tracker_scan routes by
+    kernel_takes)."""
+    assert tracker.kernel_takes(16, 24, 21)
+    assert tracker.kernel_takes(40, 64, 21)
+    assert tracker.kernel_takes(120, 120, 21)
     for p, t_slots, k in ((25, 24, 21), (16, 121, 21), (16, 24, 17)):
-        with pytest.raises(ValueError, match="track slots <= 120"):
-            tracker.check_domain(p, t_slots, k)
+        assert not tracker.kernel_takes(p, t_slots, k)
 
 
 def test_state_buffers_round_trip():
