@@ -248,10 +248,10 @@ def check_plans() -> int:
     """The wrappers' shared-memory plans (ops/hungarian.py::jv_plan,
     ops/tracker.py::scan_plan, ops/association.py::fold_plan) against the
     byte counts of the kernels' own sources, across K1's domain (R, C <= 120
-    at the batch sizes this script launches, and wide shapes up to
-    MAX_N_WIDE), K3's domain (P <= T <= 120,
-    W = 3) and K2's shapes up to the scaled layout and the JV's limit.
-    Returns the plans checked."""
+    at the batch sizes this script launches; past it n x n, n x 8 and 16 x n
+    for every n up to 1024 and wider shapes up to MAX_N_WIDE), K3's domain
+    (P <= T <= 120, W = 3) and K2's shapes up to the scaled layout and the
+    JV's limit. Returns the plans checked."""
     from smartedgesensor3dhumanpose_tpu_torch import _kernels
     from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, tracker
 
@@ -265,14 +265,18 @@ def check_plans() -> int:
                 if c_bytes != plan.smem_bytes or plan.smem_bytes > hungarian.SMEM_LIMIT:
                     raise AssertionError(f"K1 plan B={b} {rows}x{cols}: wrapper {plan}, kernel {c_bytes}")
                 checked += 1
-    # The wide routine's plans: one problem per block, past 120 columns.
-    for rows, cols in ((121, 121), (16, 128), (128, 8), (160, 150), (1024, 1024),
-                       (hungarian.MAX_N_WIDE, 3), (5, hungarian.MAX_N_WIDE)):
-        plan = hungarian.jv_plan(4, rows, cols)
-        c_bytes = lib.ses3d_jv_assign_smem_bytes(rows, cols, plan.per_block)
-        if plan.per_block != 1 or c_bytes != plan.smem_bytes or plan.smem_bytes > hungarian.SMEM_LIMIT:
-            raise AssertionError(f"K1 wide plan {rows}x{cols}: wrapper {plan}, kernel {c_bytes}")
-        checked += 1
+    # Past 120 columns: register slots up to 255, the block routine past it,
+    # the tile staged where it fits.
+    wide = [s for n in range(hungarian.MAX_N + 1, 1025) for s in ((n, n), (n, 8), (16, n))]
+    wide += [(hungarian.MAX_N_WIDE, 3), (5, hungarian.MAX_N_WIDE),
+             (hungarian.MAX_N_WIDE, hungarian.MAX_N_WIDE)]
+    for rows, cols in wide:
+        for b in (1, 16):
+            plan = hungarian.jv_plan(b, rows, cols)
+            c_bytes = lib.ses3d_jv_assign_smem_bytes(rows, cols, plan.per_block)
+            if c_bytes != plan.smem_bytes or plan.smem_bytes > hungarian.SMEM_LIMIT:
+                raise AssertionError(f"K1 wide plan B={b} {rows}x{cols}: wrapper {plan}, kernel {c_bytes}")
+            checked += 1
     for t_slots in range(1, tracker.MAX_TRACKS + 1):
         for p in range(1, t_slots + 1):
             plan = tracker.scan_plan(p, t_slots, 3)
@@ -294,10 +298,15 @@ def check_plans() -> int:
     return checked
 
 
+# K1's kernel instances: the register routine at 1-8 slots (8 also with the
+# cost read from device memory) and the block routine, staged or not.
+K1_INSTANCES = 11
+
+
 def check_k1_ptxas(build_log) -> str:
-    """K1's instances (one per register slot count) keep their state in
-    registers: no stack frame and no spill in `nvcc -Xptxas -v`. Returns
-    their register counts, or why nothing was checked."""
+    """K1's instances keep their state in registers or shared memory: no
+    stack frame and no spill in `nvcc -Xptxas -v`. Returns their register
+    counts, or why nothing was checked."""
     if build_log is None:
         return "'not checked: the library was already built'"
     found = {}
@@ -305,7 +314,7 @@ def check_k1_ptxas(build_log) -> str:
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1) if "jv_assign_kernel" in m.group(1) else None
+            name = m.group(1) if re.search(r"jv_assign_(wide_)?kernel", m.group(1)) else None
         elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                                       r"(\d+) bytes spill loads", line)):
             if any(int(x) for x in m.groups()):
@@ -313,8 +322,8 @@ def check_k1_ptxas(build_log) -> str:
             found.setdefault(name, "")
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             found[name] = m.group(1)
-    if len(found) != 4:
-        raise AssertionError(f"K1: expected 4 jv_assign_kernel instances in ptxas output, got {found}")
+    if len(found) != K1_INSTANCES:
+        raise AssertionError(f"K1: expected {K1_INSTANCES} instances in ptxas output, got {found}")
     return ",".join(v for _, v in sorted(found.items()))
 
 
@@ -588,8 +597,8 @@ def read_counts():
     return hungarian.KERNEL_LAUNCHES, association.KERNEL_LAUNCHES, tracker.KERNEL_LAUNCHES
 
 
-# K1, K2 and K3 by name in a device trace: K1 is the warp kernel up to 120
-# columns or the wide kernel past them.
+# K1, K2 and K3 by name in a device trace: K1 is the register-state kernel
+# up to 255 columns or the block routine's past them.
 KERNEL_NAMES = (("jv_assign_kernel", "jv_assign_wide_kernel"), ("association_fold_kernel",),
                 ("tracker_scan_kernel",))
 
@@ -3247,15 +3256,94 @@ def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
 # Every value of FusionConfig.assignment_impl and PriorConfig.solver that the
 # JAX package accepts, and the widths past the kernels' own, as routed by
 # pipeline.routes.
-WIDE_K1_SIZES = (121, 128, 160, 256, 1024)
-WIDE_K1_TIMED = (128, 256, 1024)
-WIDE_K1_BATCHED = ((5, 130, 140), (3, 128, 128))
+# K1 past 120 columns: square widths at each routine's boundaries (register
+# slots 4 | 5 at 128, 5 | 6 at 160, 7 | 8 at 224, the tile staged up to 240,
+# the block routine from 256).
+WIDE_K1_SIZES = (121, 127, 128, 159, 160, 223, 224, 255, 256, 257, 1024)
+# Batched launches: (B, R, C, share of rows active or None).
+WIDE_K1_BATCHED = ((5, 130, 140, None), (3, 128, 128, None), (6, 300, 290, None), (8, 16, 600, 0.5))
+# The camera scan's batched solve at max_hypotheses=128: B frames x H
+# hypotheses x D detections, a share of the frames needing the solve.
+SCAN_SHAPE = (16, 128, 8)
+SCAN_NEED = 0.5
+# Phase 14.1's cases timed on the card (device ms beside the bound).
+WIDE_K1_TIMED = ("rand128", "rand256", "rand1024", "tall128x8", "trivial128x8",
+                 "discarded128x8", "scan16x128x8")
 # Frames of the adversarial scene the beyond-domain configs run, each held to
 # the port's own CPU float32 run of the same frames.
 CONFIG_FRAMES = 16
 CONFIG_OFFLINE_BATCH = 8
 # Captured steps per p50 of a config, timed in turns with the default step.
 CONFIG_TIMED = 30
+
+
+def scan_costs(rng, b: int, h: int, d: int) -> np.ndarray:
+    """[B, H, D] float32 costs shaped as the camera scan solves them
+    (ops/association.py::_scan_camera): feasible pairs below the gate,
+    the rest on the clip tier plus eps (h+1)(d+1)."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association
+
+    cost = (0.1 * rng.uniform(size=(b, h, d))).astype(np.float32)
+    tie = (np.float32(association.SOLVER_TIE_EPS) * (np.arange(h, dtype=np.float32) + 1)[:, None]
+           * (np.arange(d, dtype=np.float32) + 1)[None, :])
+    tier = np.float32(association.ASSIGN_COST_CLIP) + tie
+    return np.where(rng.uniform(size=(b, h, d)) < 0.7, tier[None], cost).astype(np.float32)
+
+
+def wide_k1_cases() -> list:
+    """Phase 14.1's K1 problems past 120 columns, from a seed of their own:
+    (name, cost [B, R, C] float32, row_active [B, R] bool or None)."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association
+
+    rng = np.random.default_rng(14)
+    cases = []
+    for n in WIDE_K1_SIZES:
+        cases.append((f"rand{n}", rng.uniform(size=(1, n, n)), None))
+        if n == 1024:
+            continue
+        half = n // 2
+        track = rng.uniform(0.0, 8.0, size=(1, 16, n))
+        act = rng.uniform(size=(1, 16)) < 0.5
+        track[~act] = 1.0e3
+        clipped = rng.uniform(size=(1, half, n))
+        clipped[rng.uniform(size=clipped.shape) < 0.4] = association.ASSIGN_COST_CLIP
+        cases += [(f"ties{n}", rng.integers(0, 3, size=(1, n, n)).astype(np.float64), None),
+                  (f"clip{half}x{n}", clipped, None),
+                  (f"tall{n}x{half}", rng.uniform(size=(1, n, half)), None),
+                  (f"track16x{n}", track, act),
+                  (f"act{n}", rng.uniform(size=(1, n, n)), rng.uniform(size=(1, n)) < 0.7)]
+    for b, r, c, share in WIDE_K1_BATCHED:
+        act = None if share is None else rng.uniform(size=(b, r)) < share
+        cases.append((f"batched{b}x{r}x{c}", rng.uniform(size=(b, r, c)), act))
+    # The camera scan's shapes: a needed 128 x 8 solve, the trivial matrix of
+    # a discarded one with no mask (every row but the first 9 searches) and
+    # with its rows off, and the batched launch with need per frame.
+    b, h, d = SCAN_SHAPE
+    trivial = (np.arange(h)[:, None] != np.arange(d)[None, :]).astype(np.float32)[None]
+    cases += [(f"tall{h}x{d}", scan_costs(rng, 1, h, d), None),
+              (f"trivial{h}x{d}", trivial, None),
+              (f"discarded{h}x{d}", trivial, np.zeros((1, h), bool))]
+    need = rng.uniform(size=b) < SCAN_NEED
+    scan = np.where(need[:, None, None], scan_costs(rng, b, h, d), trivial)
+    cases.append((f"scan{b}x{h}x{d}", scan, np.repeat(need[:, None], h, axis=1)))
+    return [(name, cost.astype(np.float32), act) for name, cost, act in cases]
+
+
+def wide_k1_reference() -> list:
+    """The plain JV's answer to each of wide_k1_cases() on the CPU, and the
+    search steps it took: [(col_of_row [B, R] int32, steps)], in a worker
+    process."""
+    sys.path.insert(0, _ROOT)
+    torch.set_num_threads(1)
+    from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian
+
+    out = []
+    for _, cost, act in wide_k1_cases():
+        before = hungarian.PLAIN_SEARCH_STEPS
+        want = hungarian.linear_sum_assignment_batched_reference(
+            torch.from_numpy(cost), None if act is None else torch.from_numpy(act))
+        out.append((want.numpy(), hungarian.PLAIN_SEARCH_STEPS - before))
+    return out
 
 
 def config_variants() -> dict:
@@ -3338,85 +3426,63 @@ CPU_REFERENCES = ("max_hypotheses128", "max_tracks128", "max_tracks12", "dense")
 
 def start_cpu_references():
     """A pool of worker processes computing the CPU references of phase 14
-    while the earlier phases run on the card; (pool, {name: AsyncResult})."""
+    while the earlier phases run on the card: each config's run and
+    ("wide_k1") the plain JV on phase 14.1's problems; (pool, {name:
+    AsyncResult})."""
     import multiprocessing
 
-    pool = multiprocessing.get_context("spawn").Pool(len(CPU_REFERENCES))
-    return pool, {name: pool.apply_async(cpu_reference, (name,)) for name in CPU_REFERENCES}
+    pool = multiprocessing.get_context("spawn").Pool(len(CPU_REFERENCES) + 1)
+    refs = {name: pool.apply_async(cpu_reference, (name,)) for name in CPU_REFERENCES}
+    refs["wide_k1"] = pool.apply_async(wide_k1_reference)
+    return pool, refs
 
 
-def phase_wide_k1(dev, smi):
-    """K1's wide routine (n > 120, one block per problem) against its plain
-    version, bit for bit, and its totals against scipy; its device time
-    against its bound. Its matrices come from a seed of its own. Returns
-    {n: (device ms, bound ms, bound by)}."""
-    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian
+def phase_wide_k1(dev, smi, references):
+    """K1 past 120 columns (register slots up to 255, the block routine past
+    it) against its plain version on wide_k1_cases(), bit for bit, and its
+    totals against scipy; its device time against its bound on the
+    WIDE_K1_TIMED cases. Returns {case: (device ms, bound ms, bound by)}."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian
 
-    rng = np.random.default_rng(14)
-
+    cases = wide_k1_cases()
+    wants = references["wide_k1"].get()
     checked = 0
-    times = {}
-    for n in WIDE_K1_SIZES:
-        cases = [(f"rand{n}", rng.uniform(size=(n, n)), None)]
-        if n < 1024:
-            half = n // 2
-            track = rng.uniform(0.0, 8.0, size=(16, n))
-            act = rng.uniform(size=16) < 0.5
-            track[~act] = 1.0e3
-            clipped = rng.uniform(size=(half, n))
-            clipped[rng.uniform(size=clipped.shape) < 0.4] = association.ASSIGN_COST_CLIP
-            cases += [(f"rect{half}x{n}", rng.uniform(size=(half, n)), None),
-                      (f"tall{n}x{half}", rng.uniform(size=(n, half)), None),
-                      (f"ties{n}", rng.integers(0, 3, size=(n, n)).astype(np.float64), None),
-                      (f"clip{half}x{n}", clipped, None), (f"track16x{n}", track, act)]
-        for name, cost, act in cases:
-            cost = cost.astype(np.float32)
-            a = None if act is None else torch.from_numpy(act)
-            c_dev = torch.from_numpy(cost).to(dev)
-            got = hungarian.linear_sum_assignment(c_dev, None if a is None else a.to(dev)).cpu()
-            steps = hungarian.PLAIN_SEARCH_STEPS
-            want = hungarian.linear_sum_assignment_reference(torch.from_numpy(cost), a)
-            steps = hungarian.PLAIN_SEARCH_STEPS - steps
-            if not torch.equal(got, want):
-                raise AssertionError(f"K1 wide {name}: kernel != plain")
-            check_k1_total(f"wide {name}", cost, act, got.numpy())
-            checked += 1
-            if name == f"rand{n}" and n in WIDE_K1_TIMED:
-                # Device ms by CUDA events around back-to-back launches (a
-                # launch takes ~0.7-40 ms here, its host overhead µs); the
-                # bound as k1_bound counts it, from the steps this matrix
-                # took the plain version.
-                times[n] = (sync_time(lambda: hungarian.linear_sum_assignment(c_dev), 5),) + \
-                    bound_of(cost.nbytes + n * 4, n * n + steps * n * 4)
-    # The camera scan's discarded solve: H = 128 hypotheses x D = 8.
-    trivial = (np.arange(128)[:, None] != np.arange(8)[None, :]).astype(np.float32)
-    for b, r, c in WIDE_K1_BATCHED + ((2, 128, 8),):
-        cost = np.broadcast_to(trivial, (b, r, c)).copy() if c == 8 else \
-            rng.uniform(size=(b, r, c)).astype(np.float32)
-        act = rng.uniform(size=(b, r)) < 0.7 if r <= c else None
-        a = None if act is None else torch.from_numpy(act)
-        got = hungarian.linear_sum_assignment_batched(
-            torch.from_numpy(cost).to(dev), None if a is None else a.to(dev)).cpu()
-        want = hungarian.linear_sum_assignment_batched_reference(torch.from_numpy(cost), a)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 wide batched {b}x{r}x{c}: kernel != plain")
-        checked += b
-    c_dev = torch.from_numpy(trivial).to(dev)
-    trivial_ms = sync_time(lambda: hungarian.linear_sum_assignment(c_dev), 5)
-    # The same launches in a torch.profiler trace, as a cross-check of the
-    # events' times where the trace holds them.
-    traced_ms = kernel_durations(lambda: hungarian.linear_sum_assignment(c_dev),
-                                 "jv_assign_wide_kernel", 5)
-    traced_events = len(traced(lambda: hungarian.linear_sum_assignment(c_dev)))
+    times, traced_ms = {}, {}
+    for (name, cost, act), (want, steps) in zip(cases, wants):
+        c_dev = torch.from_numpy(cost).to(dev)
+        a_dev = None if act is None else torch.from_numpy(act).to(dev)
+        got = hungarian.linear_sum_assignment_batched(c_dev, a_dev).cpu().numpy()
+        if not np.array_equal(got, want):
+            bad = [i for i in range(len(got)) if not np.array_equal(got[i], want[i])]
+            raise AssertionError(f"K1 wide {name} {hungarian.jv_plan(*cost.shape)}: kernel != plain "
+                                 f"on problems {bad}")
+        for i in range(cost.shape[0]):
+            check_k1_total(f"wide {name}[{i}]", cost[i], None if act is None else act[i], got[i])
+        checked += cost.shape[0]
+        if name not in WIDE_K1_TIMED:
+            continue
+        # Device ms by CUDA events around back-to-back launches (the host
+        # overhead is µs); the profiler's per-launch time beside it where its
+        # trace holds the launches; the bound as k1_bound counts it, from the
+        # steps these inputs took the plain version.
+        b, r, c = cost.shape
+        n = max(r, c)
+        fn = lambda c_dev=c_dev, a_dev=a_dev: hungarian.linear_sum_assignment_batched(c_dev, a_dev)
+        nbytes = cost.nbytes + (0 if act is None else act.nbytes) + b * r * 4
+        times[name] = (sync_time(fn, 5),) + bound_of(nbytes, b * r * n + steps * n * 4)
+        durs = kernel_durations(fn, "jv_assign", 5)
+        traced_ms[name] = statistics.median(durs) / 1e3 if durs else "not_in_trace"
     plain_128 = sync_time(lambda: hungarian.linear_sum_assignment_reference(
-        torch.from_numpy(rng.uniform(size=(128, 128)).astype(np.float32)).to(dev)), 1)
+        torch.from_numpy(next(c for nm, c, _ in cases if nm == "rand128")[0]).to(dev)), 1)
     log("14.1 K1 wide", gpu=repr(smi), problems=checked, vs_plain="equal bit for bit",
-        scipy_totals="equal", plan_1024=repr(hungarian.jv_plan(1, 1024, 1024)),
-        **{f"device_ms_n{n}": t[0] for n, t in times.items()},
-        **{f"bound_ms_n{n}": t[1] for n, t in times.items()},
-        bound_by=times[1024][2], timed_by="cuda_events", trivial_128x8_device_ms=trivial_ms,
-        trivial_128x8_profiler_ms=statistics.median(traced_ms) / 1e3 if traced_ms else "not_in_trace",
-        profiler_device_events_of_one_call=traced_events, plain_ms_n128_on_card=plain_128)
+        scipy_totals="equal", plans="'" + " ".join(
+            f"{nm}:{tuple(hungarian.jv_plan(*cs.shape))}" for nm, cs, _ in cases
+            if nm in WIDE_K1_TIMED) + "'",
+        **{f"device_ms_{k}": t[0] for k, t in times.items()},
+        **{f"profiler_ms_{k}": v for k, v in traced_ms.items()},
+        **{f"bound_ms_{k}": t[1] for k, t in times.items()},
+        bound_by="'" + " ".join(f"{k}:{t[2]}" for k, t in times.items()) + "'",
+        timed_by="cuda_events", plain_ms_n128_on_card=plain_128)
     return times
 
 
@@ -3578,10 +3644,10 @@ def phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references):
     # run_offline over CONFIG_FRAMES frames for max_tracks12.
     expect = {"max_tracks128": (1, 1, 0), "max_hypotheses128": (c + 1, 0, 0),
               "max_tracks12": (CONFIG_FRAMES, -(-CONFIG_FRAMES // CONFIG_OFFLINE_BATCH), 0)}
-    summary = {}
+    summary, pipes = {}, {}
     for name, want_dev in expect.items():
         cfg = variants[name]
-        p = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=CONFIG_OFFLINE_BATCH)
+        p = pipes[name] = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=CONFIG_OFFLINE_BATCH)
         reset_counts()
         card = config_run(name, str(dev))
         paths[name] = read_counts()
@@ -3611,10 +3677,29 @@ def phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references):
                 raise AssertionError(f"{name} record {f}: card vs CPU: {bad}, {d * 1e3:.4f} mm")
             worst = max(worst, d)
         summary[name] = f"{p.routes.association}/{p.routes.tracker}:{worst * 1e3:.4f}mm"
-    log("14.5 beyond the kernels' domains", frames=CONFIG_FRAMES, vs_cpu_float32="decisions exact",
+    # Step p50s in turns: the default step and the two 128-slot configs
+    # (K1 past 120 columns: once per step with max_tracks=128, once per
+    # camera and once for the tracker with max_hypotheses=128).
+    timed = {"default": pipe, "max_tracks128": pipes["max_tracks128"],
+             "max_hypotheses128": pipes["max_hypotheses128"]}
+    frames = [frame_at(inputs["benign"], f, dev) for f in range(CONFIG_TIMED)]
+    ms = {k: [] for k in timed}
+    for _ in range(2):
+        for name, p in timed.items():
+            st = p.init_state()
+            for frame in frames:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = p.step(st, frame)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    log("14.5 beyond the kernels' domains", gpu=repr(smi), frames=CONFIG_FRAMES,
+        vs_cpu_float32="decisions exact",
         routes_and_worst="'" + " ".join(f"{k}={v}" for k, v in summary.items()) + "'",
         device_launches_per_replay="'" + " ".join(
-            f"{k}={list(paths[k + '_replay_on_device'])}" for k in expect) + "'")
+            f"{k}={list(paths[k + '_replay_on_device'])}" for k in expect) + "'",
+        **{f"step_p50_ms_{k}": statistics.median(v) for k, v in ms.items()},
+        **{f"step_p90_ms_{k}": quantiles(v)["p90"] for k, v in ms.items()})
     return paths
 
 
@@ -3687,7 +3772,7 @@ def run_phases(args, dev, smi, references) -> int:
     phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe)
     captured_launches.update(phase_captured_end_to_end(dev, smi, trained))
     phase_lm_trips(dev, smi, rig, cfg, inputs, pipe)
-    wide = phase_wide_k1(dev, smi)
+    wide = phase_wide_k1(dev, smi, references)
     config_launches = phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
@@ -3731,9 +3816,9 @@ def run_phases(args, dev, smi, references) -> int:
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-    # K1's wide routine (n > 120): device ms and bound per timed width.
-    kernels[0]["wide"] = {str(n): {"ms": t[0], "bound_ms": t[1], "bound_by": t[2]}
-                          for n, t in wide.items()}
+    # K1 past 120 columns: device ms and bound per timed case.
+    kernels[0]["wide"] = {name: {"ms": t[0], "bound_ms": t[1], "bound_by": t[2]}
+                          for name, t in wide.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

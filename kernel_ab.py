@@ -26,6 +26,16 @@ and golden scene descriptions (chip_smoke.py's helpers), and times:
   k1_64x40x40       the batched K1 at B = 64 problems of 40 x 40
   k1_8x120x120      the batched K1 at B = 8 problems of 120 x 120
   k1_120            K1 on one 120 x 120 problem
+  k1w_N             K1 past 120 columns on one random N x N problem (N = 128,
+                    256, 512, 1024; 2048 and 4096 without a bound, whose
+                    plain search takes minutes on the CPU)
+  k1w_128x8         K1 on the camera scan's needed 128 x 8 problem
+                    (max_hypotheses=128, D 8; chip_smoke.py::scan_costs)
+  k1w_16x128x8      the scan's batched launch, B = 16 frames with need per
+                    frame as row_active (ops/association.py::_scan_camera);
+                    k1w_16x128x8_nomask, the same launch without the mask,
+                    as the scan launched it before it passed one;
+                    k1w_16x512x8, the same launch at max_hypotheses=512
 
 Per case: `ms`, CUDA events over back-to-back wrapper calls (the wrapper's
 host work shows where it is longer than the device's), and `device_ms`, the
@@ -250,6 +260,32 @@ def worker(pkg_root: str, label: str, only=None) -> dict:
         if name == "k1b":
             res[name]["plain_ms"] = cs.sync_time(
                 lambda: hungarian.linear_sum_assignment_batched_reference(c_dev), 2)
+
+    # K1 past 120 columns, each version's kernels by the name they share.
+    b, h, d = cs.SCAN_SHAPE
+    wide = (("k1w_128", 1, 128, 128, 5), ("k1w_256", 1, 256, 256, 6), ("k1w_1024", 1, 1024, 1024, 7),
+            ("k1w_2048", 1, 2048, 2048, 8), ("k1w_4096", 1, 4096, 4096, 9),
+            ("k1w_512", 1, 512, 512, 12), ("k1w_128x8", 1, h, d, 10), ("k1w_16x128x8", b, h, d, 11),
+            ("k1w_16x128x8_nomask", b, h, d, 11), ("k1w_16x512x8", b, 512, d, 13))
+    for name, b, r, c, seed in wide:
+        if not want(name):
+            continue
+        rng = np.random.default_rng(seed)
+        act = None
+        if r == c:
+            cost = rng.uniform(size=(b, r, c)).astype(np.float32)
+        elif b == 1:
+            cost = cs.scan_costs(rng, b, r, c)
+        else:
+            need = rng.uniform(size=b) < cs.SCAN_NEED
+            triv = (np.arange(r)[:, None] != np.arange(c)[None, :]).astype(np.float32)
+            cost = np.where(need[:, None, None], cs.scan_costs(rng, b, r, c), triv).astype(np.float32)
+            act = None if name.endswith("nomask") else np.repeat(need[:, None], r, axis=1)
+        c_dev = torch.from_numpy(cost).to(dev)
+        a_dev = None if act is None else torch.from_numpy(act).to(dev)
+        fn = lambda c_dev=c_dev, a_dev=a_dev: hungarian.linear_sum_assignment_batched(c_dev, a_dev)
+        bound = cs.k1_bound(cost, act) if max(r, c) <= 1024 else None
+        res[name] = measure(cs, fn, "jv_assign", 2 if max(r, c) > 1024 else 10, bound)
     return res
 
 

@@ -16,8 +16,8 @@
 //
 // Design: one warp per problem, at every n. Lane t holds columns t + 32 k
 // and rows t + 32 k for k < S = n / 32 + 1 slots (the n + 1 columns, the
-// virtual one included, in groups of 32; 1 <= S <= 4), and the whole solver
-// state lives in its registers: v, minv, way, used, roc and uc (the
+// virtual one included, in groups of 32; 1 <= S <= 4 in K2 and K3, up to 8
+// in K1), and up to 8 slots the whole solver state lives in its registers: v, minv, way, used, roc and uc (the
 // potential of the row matched to the column) per column, the row minima
 // per row. One template per S with every slot loop unrolled; a slot is
 // picked by comparison (pick), never by a runtime index into a register
@@ -33,7 +33,8 @@
 // shuffles. Both data-dependent loops keep the n + 1 step backstop of the
 // TPU kernel, so no step goes back to the host. The TPU kernel's 8-sublane
 // problem packing and scalar-only loop carries were Mosaic limits and are
-// not carried over.
+// not carried over. Past 8 slots (K1 only) a block solves the problem with
+// the state in shared memory (jv_solve_block_smem, below).
 //
 // Semantics (reproduced exactly, including every tie rule):
 //  * row reduction: u[i] = min_j cost(i, j); each active row i < n_rows is
@@ -83,7 +84,8 @@ __device__ __forceinline__ unsigned ordered_key(float x) {
 }
 
 // Solve the assignment of rows [0, n_rows) to columns [0, n) in one warp,
-// 1 <= n_rows <= n <= kMaxN, jv_slots(n) <= S. `cost(i, j)` returns the
+// 1 <= n_rows <= n, jv_slots(n) <= S (n <= kMaxN in K2 and K3, n <=
+// kMaxNReg in K1). `cost(i, j)` returns the
 // float cost of row i, column j, for any i < n_rows and j < n; `row_active`
 // (may be null) is read as row_active[i] != 0. `claim` is shared memory of
 // at least n ints that the warp may overwrite. On return lane t holds in
@@ -310,209 +312,290 @@ __device__ void jv_solve_block(const Cost& cost, int n, int n_rows,
 }
 
 // ---------------------------------------------------------------------------
-// The wide solve: kMaxN < n <= kMaxNWide columns, one block per problem.
+// The wide solve: past kMaxNReg columns (K1 only), one block per problem
+// with the solver state in shared memory.
 //
-// The warp routine keeps the n + 1 columns in registers and stops at four
-// slots of 32. Past that the solver state lives in shared memory (JvWide):
-// v, minv, way, used and roc per column, the row potentials u and the
-// pending flags per row. A block of kWideThreads threads stripes the
-// columns over its threads (thread t owns columns t, t + kWideThreads, ...
-// and alone reads or writes their v, minv, way and used), and the cost rows
-// are read from device memory through the functor (a 1024 x 1024 problem
-// is 4 MB, inside the L2).
+// jv_solve_warp keeps a lane's columns in registers; K1 instantiates it up
+// to 8 slots (n <= kMaxNReg = 255). Past that the state lives in shared
+// memory (JvWideState): one float4 per column (v; minv, NaN once the column
+// is used: a used column's minv is never read again in that search; uc, the
+// potential of the matched row as in jv_solve_warp; way) and roc, then the
+// row minimum and a pending flag per row. One block of jv_block_warps(n)
+// warps solves the problem (jv_solve_block_smem), thread t owning columns
+// t + T k, ~4 of them: a step's column work is shared by the block's warps,
+// and their winners meet in shared memory at one block barrier per step.
+// One warp per problem with the same state in shared memory measured slower
+// at every width from 256 to 4096 (it issues every column's work itself).
 //
-// The row reduction gives each warp whole rows: its lanes scan a row's
-// columns in stripes and reduce the lexicographic (value, column) minimum
-// with two __reduce_min_sync. A search step: every thread relaxes its
-// columns and keeps its own lexicographic minimum in ascending column
-// order; each warp reduces with two __reduce_min_sync; lane 0 posts the
-// warp's winner to a double-buffered slot; one __syncthreads; every thread
-// then reduces the posted winners in warp order (the same answer in every
-// thread) and applies the dual update to its own columns: u[roc[j]] += delta
-// and v[j] -= delta on the search tree, minv[j] -= delta off it (a row is on
-// the tree exactly when its column is, so the owners' row updates never
-// collide). The augment is one thread's walk of the predecessor chain.
-//
-// Same semantics, tie rules, n + 1 step backstops and float operation
-// order as jv_solve_warp and ops/hungarian.py::_jv_plain, so the result
-// equals the plain version bit for bit. It is written to be simple and
-// right; each search step pays one block barrier.
-constexpr int kWideThreads = 256;
+// A search step is one pass over a thread's columns (jv_wide_pass) that
+// applies the previous step's dual update (used: uc + delta and v - delta;
+// else minv - delta), marks j0 used, relaxes row i0 (cost - u[i0] - v) and
+// keeps the thread's lexicographic argmin in ascending column order; then
+// the lexicographic argmin over the warp and over the warps' posts. Each
+// column gets the same float operations in the same order as in
+// ops/hungarian.py::_jv_plain, only one pass later; the search's last update
+// is applied by one more pass before the augment, which one thread walks.
+// The pass loads the cost of a chunk of columns ahead of the chunk it
+// relaxes, branch-free, so a cost row read from device memory pays about one
+// latency per step; where the R x C tile fits the block, K1 stages it in
+// shared memory instead.
+constexpr int kMaxNReg = 255;  // K1's register routine: jv_slots(255) = 8
 constexpr int kMaxNWide = 8192;
+constexpr int kMaxBlockWarps = 16;
 
-// Entries of each JvWide array for n columns: n + 1 rounded up to 16, so
-// every array starts 16-byte aligned.
-__host__ __device__ constexpr int jv_wide_entries(int n) { return (n + 1 + 15) / 16 * 16; }
-
-// Dynamic shared memory of the wide state: five 4-byte arrays and two byte
-// arrays of jv_wide_entries(n) entries.
-__host__ __device__ constexpr int jv_wide_smem_bytes(int n) {
-  return 22 * jv_wide_entries(n);
+// Warps of the block routine for n columns: ~4 columns per thread (n + 1
+// columns over 128 threads per warp group), 2 to kMaxBlockWarps.
+__host__ __device__ constexpr int jv_block_warps(int n) {
+  const int w = (n + 128) / 128;
+  return w < 2 ? 2 : (w > kMaxBlockWarps ? kMaxBlockWarps : w);
 }
 
-struct JvWide {
-  float* v;             // potential of each column (the virtual one too)
-  float* minv;          // least reduced cost reaching each column
-  float* u;             // potential of each row
-  int* way;             // predecessor column on the search tree; the row
-                        // reduction's argmin per row until the searches
+// Entries of each per-column array for n columns: n + 1 rounded up to 16.
+__host__ __device__ constexpr int jv_wide_entries(int n) { return (n + 1 + 15) / 16 * 16; }
+
+// Bytes of the shared state for n columns (rows <= n): a float4 and an int
+// per column, a float and a byte per row; a multiple of 16.
+__host__ __device__ constexpr int jv_wide_state_bytes(int n) {
+  return 25 * jv_wide_entries(n);
+}
+
+struct JvWideState {
+  float4* col;          // per column: v, minv (NaN once used), uc, way (int bits)
   int* roc;             // row matched to each column, -1 if free
-  unsigned char* used;  // column on the search tree
+  float* u;             // row minimum of each row
   unsigned char* pend;  // row left free by the row reduction
 };
 
-__device__ inline JvWide jv_wide_layout(void* smem, int n) {
+__device__ inline JvWideState jv_wide_layout(void* smem, int n) {
   const int m = jv_wide_entries(n);
-  float* f = static_cast<float*>(smem);
-  JvWide s;
-  s.v = f;
-  s.minv = f + m;
-  s.u = f + 2 * m;
-  s.way = reinterpret_cast<int*>(f + 3 * m);
-  s.roc = reinterpret_cast<int*>(f + 4 * m);
-  s.used = reinterpret_cast<unsigned char*>(f + 5 * m);
-  s.pend = s.used + m;
+  JvWideState s;
+  s.col = static_cast<float4*>(smem);
+  s.roc = reinterpret_cast<int*>(s.col + m);
+  s.u = reinterpret_cast<float*>(s.roc + m);
+  s.pend = reinterpret_cast<unsigned char*>(s.u + m);
   return s;
 }
 
-// Solve the assignment of rows [0, n_rows) to columns [0, n) in one block
-// of kWideThreads threads, 1 <= n_rows <= n <= kMaxNWide; `cost` and
-// `row_active` as for jv_solve_warp. On return (after a block barrier)
-// s.roc[j] holds the row matched to column j, or -1. All threads of the
-// block must call it.
+// One thread's share of a search step: its columns j = t0 + stride k,
+// k < slots, j <= n (the virtual column n included). kFirst: the search's
+// first step (minv and way start afresh, no update to apply). Updates the
+// thread's lexicographic (value, column) argmin in best, best_j.
+template <bool kFirst, int kChunk, class Cost>
+__device__ __forceinline__ void jv_wide_pass(const Cost& cost, const JvWideState& s, int n,
+                                             int t0, int stride, int slots, int i0,
+                                             float u_i0, int j0, float delta, float& best,
+                                             int& best_j) {
+  const float used_mark = __int_as_float(0x7fffffff);  // a NaN
+  float next[kChunk];
+#pragma unroll
+  for (int q = 0; q < kChunk; ++q) {
+    const int j = t0 + stride * q;
+    next[q] = cost(i0, j < n ? j : 0);
+  }
+  for (int k0 = 0; k0 < slots; k0 += kChunk) {
+    float c[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) c[q] = next[q];
+    if (k0 + kChunk < slots) {
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q) {
+        const int j = t0 + stride * (k0 + kChunk + q);
+        next[q] = cost(i0, j < n ? j : 0);
+      }
+    }
+    float4 x[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int j = t0 + stride * (k0 + q);
+      x[q] = s.col[j <= n ? j : n];
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (k0 + q >= slots) break;
+      const int j = t0 + stride * (k0 + q);
+      float v = x[q].x;
+      float mv = kFirst ? kInf : x[q].y;
+      float uc = x[q].z;
+      int way = kFirst ? n : __float_as_int(x[q].w);
+      bool was_used = false;
+      if (!kFirst) {  // the previous step's dual update
+        was_used = mv != mv;
+        uc = was_used ? uc + delta : uc;
+        v = was_used ? v - delta : v;
+        mv = was_used ? mv : mv - delta;
+      }
+      const bool used = was_used || j == j0;
+      const bool live = j < n && !used;
+      const float cur = c[q] - u_i0 - v;
+      const bool better = live && cur < mv;
+      mv = better ? cur : mv;
+      way = better ? j0 : way;
+      const float masked = live ? mv : kInf;
+      const bool take = masked < best;
+      best = take ? masked : best;
+      best_j = take ? j : best_j;
+      if (j <= n) s.col[j] = make_float4(v, used ? used_mark : mv, uc, __int_as_float(way));
+    }
+  }
+}
+
+// The last step's dual update on the search tree, over a thread's columns
+// (minv is reset by the next search).
+__device__ __forceinline__ void jv_wide_flush(const JvWideState& s, int n, int t0, int stride,
+                                              float delta) {
+  for (int j = t0; j <= n; j += stride) {
+    float4 x = s.col[j];
+    if (x.y != x.y) {
+      x.x = x.x - delta;
+      x.z = x.z + delta;
+      s.col[j] = x;
+    }
+  }
+}
+
+// Augment along the predecessor chain back to the virtual column; the row's
+// potential moves with it. One thread.
+__device__ __forceinline__ void jv_wide_augment(const JvWideState& s, int n, int j0) {
+  int j = j0;
+  for (int step = 0; j != n && step <= n + 1; ++step) {
+    const int jp = __float_as_int(s.col[j].w);
+    s.roc[j] = s.roc[jp];
+    s.col[j].z = s.col[jp].z;
+    j = jp;
+  }
+}
+
+// The lexicographic (value, column) minimum of a row over the warp's column
+// stripes j = lane + 32 k: (first argmin, minimum).
+template <class Cost>
+__device__ __forceinline__ int jv_wide_row_min(const Cost& cost, int i, int n, float& umin) {
+  const unsigned full = 0xffffffffu;
+  const int t = threadIdx.x & 31;
+  float best = kInf;
+  int best_j = n;
+#pragma unroll 16
+  for (int j = t; j < n; j += 32) {
+    const float c = cost(i, j);
+    const bool lower = c < best;
+    best = lower ? c : best;
+    best_j = lower ? j : best_j;
+  }
+  const unsigned key = ordered_key(best);
+  const unsigned least = __reduce_min_sync(full, key);
+  const int amin = static_cast<int>(
+      __reduce_min_sync(full, key == least ? static_cast<unsigned>(best_j) : ~0u));
+  umin = __shfl_sync(full, best, amin & 31);
+  return amin;
+}
+
+// The block routine's meeting place: each warp's winner of a search step,
+// double-buffered so one barrier per step suffices.
+struct JvPosts {
+  unsigned key[2][kMaxBlockWarps];
+  unsigned col[2][kMaxBlockWarps];
+  float val[2][kMaxBlockWarps];
+};
+
+// Solve the assignment of rows [0, n_rows) to columns [0, n) in one block of
+// T = 32 jv_block_warps(n) threads (blockDim.x), 1 <= n_rows <= n,
+// kMaxNReg < n <= kMaxNWide, the state in `s`; `cost` and `row_active` as for
+// jv_solve_warp. Thread t owns columns t + T k; one block barrier per search
+// step. On return (after a block barrier) s.roc[j] holds the row matched to
+// column j, or -1. All threads of the block must call it.
 template <class Cost, class Mask>
-__device__ void jv_solve_shared(const Cost& cost, int n, int n_rows,
-                                const Mask* row_active, const JvWide& s) {
-  constexpr int kWarps = kWideThreads / 32;
-  constexpr unsigned kNone = ~0u;  // a thread or warp without columns
-  __shared__ unsigned post_key[2][kWarps];
-  __shared__ unsigned post_col[2][kWarps];
-  __shared__ float post_val[2][kWarps];
+__device__ void jv_solve_block_smem(const Cost& cost, int n, int n_rows,
+                                    const Mask* row_active, const JvWideState& s,
+                                    JvPosts& post) {
+  constexpr int kChunk = 4;
   const unsigned full = 0xffffffffu;
   const int t = threadIdx.x;
+  const int T = blockDim.x;
   const int lane = t & 31;
   const int warp = t >> 5;
+  const int warps = T >> 5;
+  const int slots = (n + T) / T;  // columns j <= n per thread, rounded up
 
-  for (int j = t; j <= n; j += kWideThreads) {
+  for (int j = t; j <= n; j += T) {
     s.roc[j] = n_rows;  // no claim yet
-    s.v[j] = 0.0f;
+    s.col[j] = make_float4(0.0f, kInf, 0.0f, __int_as_float(n));
   }
   __syncthreads();
-
-  // Row reduction: u[i] = the row's minimum; each active row claims its
-  // first argmin column, the lowest claiming row wins (atomicMin).
-  for (int i = warp; i < n_rows; i += kWarps) {
-    float best = kInf;
-    int best_j = n;
-    for (int j = lane; j < n; j += 32) {
-      const float c = cost(i, j);
-      const bool lower = c < best;
-      best = lower ? c : best;
-      best_j = lower ? j : best_j;
-    }
-    const unsigned key = ordered_key(best);
-    const unsigned least = __reduce_min_sync(full, key);
-    const int amin = static_cast<int>(
-        __reduce_min_sync(full, key == least ? static_cast<unsigned>(best_j) : kNone));
-    const float umin = __shfl_sync(full, best, amin & 31);
+  // Row reduction, a row per warp at a time; the lowest claiming row wins a
+  // column (atomicMin). Each row's argmin waits in its way slot.
+  for (int i = warp; i < n_rows; i += warps) {
+    float umin;
+    const int amin = jv_wide_row_min(cost, i, n, umin);
     if (lane == 0) {
       s.u[i] = umin;
-      s.way[i] = amin;
       const bool act = row_active == nullptr || row_active[i] != 0;
       if (act && amin < n) atomicMin(&s.roc[amin], i);
+      s.col[i].w = __int_as_float(amin);
     }
   }
   __syncthreads();
-  for (int i = t; i < n_rows; i += kWideThreads) {
+  for (int i = t; i < n_rows; i += T) {
     const bool act = row_active == nullptr || row_active[i] != 0;
-    const int a = s.way[i];
+    const int a = __float_as_int(s.col[i].w);
     s.pend[i] = act && !(a < n && s.roc[a] == i);
   }
   __syncthreads();
-  for (int j = t; j <= n; j += kWideThreads) {
-    if (s.roc[j] >= n_rows) s.roc[j] = -1;
+  for (int j = t; j <= n; j += T) {
+    const int w = s.roc[j];
+    if (w >= n_rows) {
+      s.roc[j] = -1;
+    } else {
+      s.col[j].z = s.u[w];
+    }
   }
   __syncthreads();
 
-  // Rows left free by the reduction, in ascending order (as jv_solve_warp).
   int parity = 0;
   for (int r = 0; r < n_rows; ++r) {
     if (!s.pend[r]) continue;
-    for (int j = t; j <= n; j += kWideThreads) {
-      s.minv[j] = kInf;
-      s.way[j] = n;
-      s.used[j] = 0;
+    if (t == n % T) {  // the virtual column holds row r
+      s.roc[n] = r;
+      s.col[n].z = s.u[r];
     }
-    if (t == 0) s.roc[n] = r;  // the virtual column holds row r
     __syncthreads();
-    // Dijkstra search from the virtual column n.
     int j0 = n;
+    float delta = 0.0f;
     for (int step = 0; step <= n + 1; ++step) {
       const int i0 = s.roc[j0];
+      const float u_i0 = s.col[j0].z;
       if (i0 < 0) break;
-      const float u_i0 = s.u[i0];
-      if (j0 % kWideThreads == t) s.used[j0] = 1;
       float best = kInf;
-      unsigned best_j = kNone;
-      for (int j = t; j < n; j += kWideThreads) {
-        const bool live = !s.used[j];
-        const float cur = cost(i0, j) - u_i0 - s.v[j];
-        if (live && cur < s.minv[j]) {
-          s.minv[j] = cur;
-          s.way[j] = j0;
-        }
-        const float masked = live ? s.minv[j] : kInf;
-        const bool take = best_j == kNone || masked < best;
-        best = take ? masked : best;
-        best_j = take ? static_cast<unsigned>(j) : best_j;
+      int best_j = t;
+      if (step == 0) {
+        jv_wide_pass<true, kChunk>(cost, s, n, t, T, slots, i0, u_i0, j0, delta, best, best_j);
+      } else {
+        jv_wide_pass<false, kChunk>(cost, s, n, t, T, slots, i0, u_i0, j0, delta, best, best_j);
       }
-      // The lexicographic (value, column) argmin: within the warp, then
-      // across the posted warp winners; delta is the winning column's value.
-      const unsigned key = best_j == kNone ? kNone : ordered_key(best);
-      const unsigned least = __reduce_min_sync(full, key);
-      const unsigned col = __reduce_min_sync(full, key == least ? best_j : kNone);
-      const unsigned holder = __ballot_sync(full, key == least && best_j == col);
-      const float val = __shfl_sync(full, best, __ffs(holder) - 1);
+      // The lexicographic argmin within the warp, posted; then over the
+      // posts, by every warp alike. delta is the winning column's value.
+      unsigned key = ordered_key(best);
+      unsigned least = __reduce_min_sync(full, key);
+      unsigned col = __reduce_min_sync(full, key == least ? static_cast<unsigned>(best_j) : ~0u);
+      float val = __shfl_sync(full, best, col & 31);
       if (lane == 0) {
-        post_key[parity][warp] = least;
-        post_col[parity][warp] = col;
-        post_val[parity][warp] = val;
+        post.key[parity][warp] = least;
+        post.col[parity][warp] = col;
+        post.val[parity][warp] = val;
       }
       __syncthreads();
-      unsigned k1 = post_key[parity][0];
-      unsigned j1 = post_col[parity][0];
-      float delta = post_val[parity][0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) {
-        const unsigned kw = post_key[parity][w];
-        const unsigned jw = post_col[parity][w];
-        const bool take = kw < k1 || (kw == k1 && jw < j1);
-        k1 = take ? kw : k1;
-        j1 = take ? jw : j1;
-        delta = take ? post_val[parity][w] : delta;
-      }
+      const bool mine = lane < warps;
+      key = mine ? post.key[parity][lane] : ~0u;
+      col = mine ? post.col[parity][lane] : ~0u;
+      val = mine ? post.val[parity][lane] : 0.0f;
+      least = __reduce_min_sync(full, key);
+      const unsigned j1 = __reduce_min_sync(full, key == least ? col : ~0u);
+      const unsigned holder = __ballot_sync(full, key == least && col == j1);
+      delta = __shfl_sync(full, val, __ffs(holder) - 1);
       parity ^= 1;
-      for (int j = t; j <= n; j += kWideThreads) {
-        if (s.used[j]) {
-          const int i = s.roc[j];
-          s.u[i] = s.u[i] + delta;
-          s.v[j] = s.v[j] - delta;
-        } else if (j < n) {
-          s.minv[j] = s.minv[j] - delta;
-        }
-      }
       j0 = static_cast<int>(j1);
     }
+    jv_wide_flush(s, n, t, T, delta);
     __syncthreads();
-    // Augment along the predecessor chain back to the virtual column.
-    if (t == 0) {
-      int j = j0;
-      for (int step = 0; j != n && step <= n + 1; ++step) {
-        const int jp = s.way[j];
-        s.roc[j] = s.roc[jp];
-        j = jp;
-      }
-    }
+    if (t == 0) jv_wide_augment(s, n, j0);
     __syncthreads();
   }
 }

@@ -1,5 +1,5 @@
 // K1: batched rectangular linear-sum assignment, one warp per problem (one
-// block per problem past 120 columns).
+// block per problem past 255 columns).
 //
 // Replaces the TPU kernels of smartedgesensor3dhumanpose_tpu/ops/
 // hungarian_pallas.py: _jv_kernel (launched by _solve_padded, the single
@@ -14,19 +14,18 @@
 //    coalesced loads (16-byte vectors where the pointer and C allow), at an
 //    odd row stride, so the lanes that scan 32 different rows in the row
 //    reduction hit 32 different banks; dummy columns (R > C) read as zero by
-//    predicate and take no space;
-//  * the solve (jv.cuh::jv_solve_warp) keeps its state in registers and
-//    synchronises within the warp only (shuffles, warp reductions,
-//    __syncwarp): there is no block barrier in K1;
-//  * the inversion to col_of_row goes through the warp's own shared memory.
-// A block holds up to kMaxPerBlock problems, one per warp (one per SM
-// sub-partition), as far as their tiles fit the block's shared memory.
-//
-// Past 120 columns the warp routine has no register slots left: a problem
-// of kMaxN < n <= kMaxNWide columns takes a block of its own and the wide
-// routine (jv.cuh::jv_solve_shared), which keeps the solver state in shared
-// memory and reads the cost rows from device memory
-// (jv_assign_wide_kernel).
+//    predicate and take no space. Where the tile does not fit the block
+//    (full squares past ~235 columns) the cost is read from device memory;
+//  * up to n = kMaxNReg = 255 columns the solve keeps its state in
+//    registers (jv.cuh::jv_solve_warp, 1-8 slots) and synchronises within
+//    the warp only (shuffles, warp reductions, __syncwarp): no block
+//    barrier; the inversion to col_of_row goes through the warp's own
+//    shared memory. A block holds up to kMaxPerBlock problems, one per warp
+//    (one per SM sub-partition), as far as they fit its shared memory;
+//  * past 255 columns, up to kMaxNWide, one block of ~n / 128 warps solves
+//    a problem with its state in shared memory (jv.cuh::
+//    jv_solve_block_smem), one block barrier per search step: one warp per
+//    problem there measured slower at every width from 256 to 4096.
 //
 // Contract (hungarian.py:179-205): cost [B, R, C] float32, row-major; the
 // problem is square-padded to n = max(R, C) <= kMaxNWide with zero-cost dummy
@@ -46,15 +45,37 @@ namespace {
 
 constexpr int kMaxPerBlock = 4;          // warps (problems) per block
 constexpr int kDefaultSmem = 48 * 1024;  // above this, the opt-in is needed
+constexpr int kSmemLimit = 232448;       // an H100 block's shared memory
 
 // Words of one staged cost row: the smallest odd count >= cols.
 __host__ __device__ inline int tile_stride(int cols) { return cols | 1; }
 
-// Shared memory of one problem: its staged cost tile, then one int per
-// column slot for the claims and the inverse map.
+// Shared memory of one problem without its tile: up to kMaxNReg columns one
+// int per register column slot (the claims, then the inverse map), past it
+// the block's posts and the solver state.
+__host__ __device__ inline int fixed_bytes(int n) {
+  return n <= ses3d::kMaxNReg
+             ? 4 * 32 * ses3d::jv_slots(n)
+             : static_cast<int>(sizeof(ses3d::JvPosts)) + ses3d::jv_wide_state_bytes(n);
+}
+
+// Bytes of the staged R x C tile.
+__host__ __device__ inline int tile_bytes(int rows, int cols) {
+  return 4 * rows * tile_stride(cols);
+}
+
+// The tile is staged where one problem with it fits a block.
+__host__ __device__ inline bool staged(int rows, int cols) {
+  const int n = rows > cols ? rows : cols;
+  return fixed_bytes(n) + tile_bytes(rows, cols) <= kSmemLimit;
+}
+
+// Shared memory of one problem: its staged tile (if staged) and the fixed
+// part. Up to kMaxNReg the tile comes first; past it (one problem per
+// block) last.
 __host__ __device__ inline int problem_bytes(int rows, int cols) {
   const int n = rows > cols ? rows : cols;
-  return 4 * (rows * tile_stride(cols) + 32 * ses3d::jv_slots(n));
+  return fixed_bytes(n) + (staged(rows, cols) ? tile_bytes(rows, cols) : 0);
 }
 
 struct TileCost {
@@ -65,26 +86,22 @@ struct TileCost {
   }
 };
 
-template <int S>
-__global__ void __launch_bounds__(32 * kMaxPerBlock)
-jv_assign_kernel(const float* __restrict__ cost,
-                 const unsigned char* __restrict__ row_active,
-                 int* __restrict__ col_of_row, int batch, int rows, int cols,
-                 int per_block) {
-  extern __shared__ float4 dyn[];
-  const int w = threadIdx.x >> 5;
-  const int t = threadIdx.x & 31;
-  const int b = blockIdx.x * per_block + w;
-  if (b >= batch) return;  // a whole warp; no block barrier follows
-  const int n = rows > cols ? rows : cols;
-  const int stride = tile_stride(cols);
-  float* tile = reinterpret_cast<float*>(dyn) + w * (problem_bytes(rows, cols) / 4);
-  int* scratch = reinterpret_cast<int*>(tile + rows * stride);
+// The cost of one problem read from device memory; dummy columns are zero.
+struct GlobalCost {
+  const float* cost;
+  int cols;
+  __device__ float operator()(int i, int j) const {
+    return j < cols ? cost[static_cast<size_t>(i) * cols + j] : 0.0f;
+  }
+};
 
-  // Stage the problem's cost rows, coalesced.
-  const float* src = cost + static_cast<size_t>(b) * rows * cols;
+// Copy a problem's rows x cols cost into the tile at `stride`, coalesced, by
+// one warp (16-byte loads where `vec` says cols and the pointer allow).
+__device__ __forceinline__ void stage_tile(const float* src, float* tile, int rows,
+                                           int cols, int stride, bool vec) {
+  const int t = threadIdx.x & 31;
   const int count = rows * cols;
-  if (cols % 4 == 0 && reinterpret_cast<uintptr_t>(cost) % 16 == 0) {
+  if (vec) {
     const float4* src4 = reinterpret_cast<const float4*>(src);
     for (int q = t; q < count / 4; q += 32) {
       const float4 x = src4[q];
@@ -102,12 +119,36 @@ jv_assign_kernel(const float* __restrict__ cost,
     }
   }
   __syncwarp();
+}
+
+// Up to kMaxNReg columns: the state in registers, S = jv_slots(n) slots;
+// the tile staged (kStaged) or the cost read from device memory.
+template <int S, bool kStaged>
+__global__ void __launch_bounds__(32 * kMaxPerBlock)
+jv_assign_kernel(const float* __restrict__ cost,
+                 const unsigned char* __restrict__ row_active,
+                 int* __restrict__ col_of_row, int batch, int rows, int cols,
+                 int per_block) {
+  extern __shared__ float4 dyn[];
+  const int w = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int b = blockIdx.x * per_block + w;
+  if (b >= batch) return;  // a whole warp; no block barrier follows
+  const int n = rows > cols ? rows : cols;
+  const int stride = tile_stride(cols);
+  float* tile = reinterpret_cast<float*>(dyn) + w * (problem_bytes(rows, cols) / 4);
+  int* scratch = reinterpret_cast<int*>(tile + (kStaged ? rows * stride : 0));
+  const float* src = cost + static_cast<size_t>(b) * rows * cols;
+  const unsigned char* act = row_active ? row_active + static_cast<size_t>(b) * rows : nullptr;
 
   int roc[S];
-  ses3d::jv_solve_warp<S>(
-      TileCost{tile, stride, cols}, n, rows,
-      row_active ? row_active + static_cast<size_t>(b) * rows : nullptr,
-      scratch, roc);
+  if constexpr (kStaged) {
+    stage_tile(src, tile, rows, cols, stride,
+               cols % 4 == 0 && reinterpret_cast<uintptr_t>(cost) % 16 == 0);
+    ses3d::jv_solve_warp<S>(TileCost{tile, stride, cols}, n, rows, act, scratch, roc);
+  } else {
+    ses3d::jv_solve_warp<S>(GlobalCost{src, cols}, n, rows, act, scratch, roc);
+  }
 
   // Invert roc (row of column) into col_of_row through the scratch.
 #pragma unroll
@@ -128,76 +169,80 @@ jv_assign_kernel(const float* __restrict__ cost,
   }
 }
 
-// The cost of problem b read from device memory; dummy columns are zero.
-struct GlobalCost {
-  const float* cost;
-  int cols;
-  __device__ float operator()(int i, int j) const {
-    return j < cols ? cost[static_cast<size_t>(i) * cols + j] : 0.0f;
-  }
-};
-
-// One problem of kMaxN < n <= kMaxNWide columns per block.
-__global__ void __launch_bounds__(ses3d::kWideThreads)
+// Past kMaxNReg columns: one problem per block of jv_block_warps(n) warps,
+// the posts, then the state, then the tile (kStaged) in shared memory.
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * ses3d::kMaxBlockWarps)
 jv_assign_wide_kernel(const float* __restrict__ cost,
                       const unsigned char* __restrict__ row_active,
-                      int* __restrict__ col_of_row, int rows, int cols) {
+                      int* __restrict__ col_of_row, int batch, int rows, int cols,
+                      int per_block) {
   extern __shared__ float4 dyn[];
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const int n = rows > cols ? rows : cols;
-  const ses3d::JvWide s = ses3d::jv_wide_layout(dyn, n);
-  ses3d::jv_solve_shared(
-      GlobalCost{cost + static_cast<size_t>(b) * rows * cols, cols}, n, rows,
-      row_active ? row_active + static_cast<size_t>(b) * rows : nullptr, s);
+  ses3d::JvPosts& post = *reinterpret_cast<ses3d::JvPosts*>(dyn);
+  char* state = reinterpret_cast<char*>(dyn) + sizeof(ses3d::JvPosts);
+  const ses3d::JvWideState s = ses3d::jv_wide_layout(state, n);
+  const float* src = cost + static_cast<size_t>(b) * rows * cols;
+  const unsigned char* act = row_active ? row_active + static_cast<size_t>(b) * rows : nullptr;
+  if constexpr (kStaged) {
+    const int stride = tile_stride(cols);
+    float* tile = reinterpret_cast<float*>(state + ses3d::jv_wide_state_bytes(n));
+    for (int e = t; e < rows * cols; e += blockDim.x) {
+      const int i = e / cols;
+      tile[i * stride + (e - i * cols)] = src[e];
+    }
+    __syncthreads();
+    ses3d::jv_solve_block_smem(TileCost{tile, stride, cols}, n, rows, act, s, post);
+  } else {
+    ses3d::jv_solve_block_smem(GlobalCost{src, cols}, n, rows, act, s, post);
+  }
   // Invert roc (row of column) into col_of_row.
   int* out = col_of_row + static_cast<size_t>(b) * rows;
-  for (int i = t; i < rows; i += ses3d::kWideThreads) out[i] = -1;
+  for (int i = t; i < rows; i += blockDim.x) out[i] = -1;
   __syncthreads();
-  for (int j = t; j < n; j += ses3d::kWideThreads) {
+  for (int j = t; j < n; j += blockDim.x) {
     const int i = s.roc[j];
     if (i >= 0 && i < rows) out[i] = j < cols ? j : -1;
   }
 }
 
-cudaError_t launch_wide(const float* cost, const unsigned char* row_active,
-                        int* col_of_row, int batch, int rows, int cols,
-                        int smem_bytes, cudaStream_t stream) {
-  if (smem_bytes > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        jv_assign_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return err;
-  }
-  jv_assign_wide_kernel<<<batch, ses3d::kWideThreads, smem_bytes, stream>>>(
-      cost, row_active, col_of_row, rows, cols);
-  return cudaGetLastError();
-}
-
-template <int S>
-cudaError_t launch(const float* cost, const unsigned char* row_active,
+template <class Kernel>
+cudaError_t launch(Kernel kernel, const float* cost, const unsigned char* row_active,
                    int* col_of_row, int batch, int rows, int cols,
                    int per_block, int smem_bytes, cudaStream_t stream) {
   if (smem_bytes > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        jv_assign_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
   }
+  const int n = rows > cols ? rows : cols;
   const int blocks = (batch + per_block - 1) / per_block;
-  jv_assign_kernel<S><<<blocks, 32 * per_block, smem_bytes, stream>>>(
+  const int threads = n > ses3d::kMaxNReg ? 32 * ses3d::jv_block_warps(n) : 32 * per_block;
+  kernel<<<blocks, threads, smem_bytes, stream>>>(
       cost, row_active, col_of_row, batch, rows, cols, per_block);
   return cudaGetLastError();
 }
 
+// The register routine's instance for S slots, staged or not. Up to 7
+// slots (n <= 223) one problem's tile always fits a block (223 x 223 is
+// 199 KB), so only 8 slots have an instance that reads device memory.
+template <int S>
+auto* register_kernel(bool tile) {
+  if constexpr (S < 8) {
+    return &jv_assign_kernel<S, true>;
+  } else {
+    return tile ? &jv_assign_kernel<S, true> : &jv_assign_kernel<S, false>;
+  }
+}
+
 }  // namespace
 
-// The dynamic shared memory of a plan, as the wrapper must compute it: the
-// warp kernel's per_block tiles up to kMaxN columns, one wide state past it
-// (per_block must be 1 there).
+// The dynamic shared memory of a plan, as the wrapper must compute it:
+// per_block problems, each its tile where it fits and the routine's fixed
+// part (ops/hungarian.py::jv_plan).
 extern "C" int ses3d_jv_assign_smem_bytes(int rows, int cols, int per_block) {
-  const int n = rows > cols ? rows : cols;
-  if (n > ses3d::kMaxN) return per_block * ses3d::jv_wide_smem_bytes(n);
   return per_block * problem_bytes(rows, cols);
 }
 
@@ -210,29 +255,28 @@ extern "C" int ses3d_jv_assign(const float* cost,
   const int n = rows > cols ? rows : cols;
   if (batch < 1 || rows < 1 || cols < 0 || n > ses3d::kMaxNWide ||
       per_block < 1 || per_block > kMaxPerBlock ||
-      (n > ses3d::kMaxN && per_block != 1) ||
-      smem_bytes != ses3d_jv_assign_smem_bytes(rows, cols, per_block)) {
+      (n > ses3d::kMaxNReg && per_block != 1) ||
+      smem_bytes != ses3d_jv_assign_smem_bytes(rows, cols, per_block) ||
+      smem_bytes > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  if (n > ses3d::kMaxN) {
-    return static_cast<int>(
-        launch_wide(cost, row_active, col_of_row, batch, rows, cols, smem_bytes, s));
+  const bool tile = staged(rows, cols);
+  const auto go = [&](auto kernel) {
+    return static_cast<int>(launch(kernel, cost, row_active, col_of_row, batch, rows,
+                                   cols, per_block, smem_bytes, s));
+  };
+  if (n > ses3d::kMaxNReg) {
+    return tile ? go(&jv_assign_wide_kernel<true>) : go(&jv_assign_wide_kernel<false>);
   }
-  cudaError_t err;
   switch (ses3d::jv_slots(n)) {
-    case 1:
-      err = launch<1>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
-      break;
-    case 2:
-      err = launch<2>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
-      break;
-    case 3:
-      err = launch<3>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
-      break;
-    default:
-      err = launch<4>(cost, row_active, col_of_row, batch, rows, cols, per_block, smem_bytes, s);
-      break;
+    case 1: return go(register_kernel<1>(tile));
+    case 2: return go(register_kernel<2>(tile));
+    case 3: return go(register_kernel<3>(tile));
+    case 4: return go(register_kernel<4>(tile));
+    case 5: return go(register_kernel<5>(tile));
+    case 6: return go(register_kernel<6>(tile));
+    case 7: return go(register_kernel<7>(tile));
+    default: return go(register_kernel<8>(tile));
   }
-  return static_cast<int>(err);
 }

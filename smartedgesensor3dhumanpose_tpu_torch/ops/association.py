@@ -356,7 +356,10 @@ def _scan_camera(det_slot, n_hyp, n_dropped, ctab_c, conf_obs, det_ok, c,
     # Solve where a detection or hypothesis has more than one feasible
     # pairing (:628); elsewhere the mask is the unique assignment. The solve
     # runs for every frame (on a trivial matrix where its answer is
-    # discarded), so no host test decides anything.
+    # discarded), so no host test decides anything. A discarded problem
+    # turns all its rows off: it runs the row reduction and no search (with
+    # H > D its rows would otherwise chase the dummy columns, O(H^2) steps);
+    # a needed one keeps all its rows, as with no mask.
     need = ((mask.sum(dim=1) > 1).any(dim=1) | (mask.sum(dim=2) > 1).any(dim=1))
     from_mask = torch.where(mask.any(dim=2), torch.argmax(mask.to(torch.int32), dim=2), -1)
     hyps = torch.arange(h, device=dev)
@@ -369,7 +372,8 @@ def _scan_camera(det_slot, n_hyp, n_dropped, ctab_c, conf_obs, det_ok, c,
     tiered = torch.where(ok, tiered, INVALID_DET_COST)
     trivial = (hyps[:, None] != dets[None, :]).to(dt)
     solved = hungarian.linear_sum_assignment_batched(
-        torch.where(need[:, None, None], tiered, trivial).contiguous()
+        torch.where(need[:, None, None], tiered, trivial).contiguous(),
+        need[:, None].expand(b, h),
     )
     assign = torch.where(need[:, None], solved.to(torch.int64), from_mask)  # [B, H]
 

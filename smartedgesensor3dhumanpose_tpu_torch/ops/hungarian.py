@@ -12,11 +12,13 @@ for a CPU tensor; there is no other path. The plain version is the same
 algorithm with the same tie rules, written as a Python loop over tensor
 ops, so in float32 the two agree bit for bit.
 
-Widths: the plain version takes any n = max(R, C). The kernel solves
-n <= MAX_N = 120 with one warp per problem (its columns in registers) and
-MAX_N < n <= MAX_N_WIDE with one block per problem (its columns in shared
-memory, csrc/jv.cuh::jv_solve_shared); it refuses wider problems. The JAX
-package's XLA JV (ops/hungarian.py there) has no width limit.
+Widths: the plain version takes any n = max(R, C). The kernel solves a
+problem of up to MAX_N_REG = 255 columns with one warp, its columns in
+registers (1-8 slots of 32; K2 and K3 embed the same routine up to MAX_N =
+120), and up to MAX_N_WIDE with one block of `block_warps(n)` warps, its
+columns in shared memory (csrc/jv.cuh::jv_solve_block_smem); it refuses
+wider problems. The JAX package's XLA JV (ops/hungarian.py there) has no
+width limit.
 
 Precision note: in float32, keep infeasible placeholder costs at a moderate
 ceiling (callers clip at 1e3) so reduced costs stay accurate.
@@ -32,9 +34,16 @@ import torch
 from smartedgesensor3dhumanpose_tpu_torch import _kernels
 
 MAX_N = 120  # columns + the virtual column fit 4 register slots of 32 lanes
-# The wide routine's limit: its state for n columns, 22 bytes per column
-# (jv_wide_smem_bytes), fits one block's shared memory up to here.
+# K1's register routine: up to 8 slots of 32 lanes; past it one block per
+# problem.
+MAX_N_REG = 255
+# The block routine's limit: its state for n columns, 25 bytes per column
+# (wide_state_bytes), fits one block's shared memory up to here.
 MAX_N_WIDE = 8192
+MAX_BLOCK_WARPS = 16
+# The block routine's posts (jv.cuh::JvPosts): key, column and value per
+# warp, double-buffered.
+BLOCK_POST_BYTES = 3 * 2 * MAX_BLOCK_WARPS * 4
 _INF = 3.0e38
 # The kernel's layout: one warp per problem, up to WARPS_PER_BLOCK problems
 # per block (one per SM sub-partition), within the H100's shared memory per
@@ -54,35 +63,58 @@ class JvPlan(NamedTuple):
     """K1's launch layout for B problems of [R, C] (csrc/jv_assign.cu)."""
 
     slots: int       # register slots per lane: the n + 1 columns in groups
-                     # of 32; 0 = the wide routine (one block per problem)
+                     # of 32; 0 = past MAX_N_REG, the block routine
     stride: int      # words of one staged cost row (odd: no bank conflicts)
-    per_block: int   # problems per block, one warp each (1 when wide)
+    per_block: int   # problems per block, one warp each
     smem_bytes: int  # dynamic shared memory per block
     blocks: int
+    staged: bool = True  # the cost tile in shared memory, else read from
+                         # device memory (where one problem's tile does not
+                         # fit a block)
+    warps: int = 0       # 0: one warp per problem; past MAX_N_REG one
+                         # problem per block of this many warps
 
 
-def wide_smem_bytes(n: int) -> int:
-    """The wide routine's shared memory for n columns (jv.cuh::
-    jv_wide_smem_bytes): five 4-byte arrays and two byte arrays of n + 1
-    entries rounded up to 16."""
-    return 22 * (-(-(n + 1) // 16) * 16)
+def wide_state_bytes(n: int) -> int:
+    """The block routine's state for n columns (jv.cuh::
+    jv_wide_state_bytes): a float4 and an int per column, a float and a
+    byte per row, n + 1 entries rounded up to 16."""
+    return 25 * (-(-(n + 1) // 16) * 16)
+
+
+def block_warps(n: int) -> int:
+    """The block routine's warps for n columns (jv.cuh::jv_block_warps):
+    ~4 columns per thread, 2 to MAX_BLOCK_WARPS warps."""
+    return min(MAX_BLOCK_WARPS, max(2, (n + 128) // 128))
 
 
 @functools.lru_cache(maxsize=256)
 def jv_plan(batch: int, rows: int, cols: int) -> JvPlan:
-    """Up to MAX_N columns: every problem's cost tile [R, stride] float32
-    and one int per column slot (the claims, then the inverse map) in shared
-    memory, as many problems per block as WARPS_PER_BLOCK and SMEM_LIMIT
-    allow. Past it: one problem per block, the wide routine's state in
-    shared memory, the cost read from device memory."""
+    """Up to MAX_N_REG columns one warp per problem, as many problems per
+    block as WARPS_PER_BLOCK and SMEM_LIMIT allow; past it one problem per
+    block of `block_warps(n)` warps. Each problem's shared memory: its cost
+    tile [R, stride] float32 where one problem with it fits a block (else
+    the cost is read from device memory), and up to MAX_N_REG columns one
+    int per column slot (the claims, then the inverse map; the state is in
+    registers), past it the warps' posts and the solver state
+    (`wide_state_bytes`; the tile after them).
+    csrc/jv_assign.cu::problem_bytes computes the same."""
     n = _check_shape(rows, cols)
-    if n > MAX_N:
-        return JvPlan(0, cols, 1, wide_smem_bytes(n), batch)
-    slots = n // 32 + 1
     stride = cols | 1
-    problem = 4 * (rows * stride + 32 * slots)
-    per_block = max(1, min(WARPS_PER_BLOCK, batch, SMEM_LIMIT // problem))
-    return JvPlan(slots, stride, per_block, per_block * problem, -(-batch // per_block))
+    tile = 4 * rows * stride
+    warps = 0
+    if n <= MAX_N_REG:
+        slots = n // 32 + 1
+        fixed = 4 * 32 * slots
+    else:
+        slots = 0
+        warps = block_warps(n)
+        fixed = BLOCK_POST_BYTES + wide_state_bytes(n)
+    staged = fixed + tile <= SMEM_LIMIT
+    problem = fixed + tile if staged else fixed
+    per_block = 1 if warps else max(1, min(WARPS_PER_BLOCK, batch, SMEM_LIMIT // problem))
+    return JvPlan(slots, stride, per_block, per_block * problem, -(-batch // per_block), staged,
+                  warps)
 
 
 def _jv_plain(cost: torch.Tensor, n: int, n_rows: int, row_active=None):
@@ -230,14 +262,17 @@ def linear_sum_assignment(cost: torch.Tensor, row_active=None) -> torch.Tensor:
     get columns (dummy zero columns absorb the rest) and the others return
     -1 (hungarian.py:179-205 of the JAX package).
 
-    row_active: optional [R] mask; rows with 0 skip their augmenting search
-    and return -1. Only pass it for rows whose assignment the caller
-    discards and whose cost rows sit on a tier strictly above every active
-    row's entries, and only with R <= C.
+    row_active: optional [R] mask; rows with 0 claim no column in the row
+    reduction, skip their augmenting search and return -1. Pass it with
+    some rows on only for rows whose assignment the caller discards and
+    whose cost rows sit on a tier strictly above every active row's
+    entries, and only with R <= C. A problem whose whole result the caller
+    discards may turn all its rows off, at any shape: it then runs the row
+    reduction and no search, and returns -1 everywhere.
 
     Returns col_of_row [R] int32, -1 for unassigned rows. CUDA tensors go to
-    kernel K1 (one warp up to MAX_N columns, one block up to MAX_N_WIDE;
-    wider raises), CPU tensors to the plain version (any width).
+    kernel K1 (one warp per problem up to MAX_N_WIDE columns; wider
+    raises), CPU tensors to the plain version (any width).
     """
     if cost.dim() != 2:
         raise ValueError(f"cost must be [R, C], got {tuple(cost.shape)}")
@@ -251,8 +286,7 @@ def linear_sum_assignment(cost: torch.Tensor, row_active=None) -> torch.Tensor:
 
 def linear_sum_assignment_batched(cost: torch.Tensor, row_active=None) -> torch.Tensor:
     """`linear_sum_assignment` over a batch: cost [B, R, C] -> [B, R] int32;
-    one launch on the card, one warp (or past MAX_N one block) per problem
-    (`jv_plan`)."""
+    one launch on the card, one warp per problem (`jv_plan`)."""
     if cost.dim() != 3:
         raise ValueError(f"cost must be [B, R, C], got {tuple(cost.shape)}")
     if cost.device.type == "cpu":

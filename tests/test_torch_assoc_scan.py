@@ -110,6 +110,79 @@ def test_scan_matches_jax_cond_while(case, dtype):
     assert spawns > 0
 
 
+def _single_person_frame():
+    """One frame of 6 cameras seeing one person, no ghosts: no camera has a
+    detection or hypothesis with two feasible pairings, so no step needs a
+    solve."""
+    scene = synthetic.generate_scene(synthetic.SceneConfig(
+        num_cameras=6, num_people=1, num_frames=1, seed=4, keypoint_dropout=0.0,
+        detection_dropout=0.0,
+    ))
+    data = synthetic.pad_detections(synthetic.frames_from_scene(scene),
+                                    config.FusionConfig().max_dets_per_cam)
+    return {k: v[0] for k, v in data.items()}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", ["random128", "no_need"])
+def test_scan_camera_matches_jax_associate_camera(monkeypatch, case, dtype):
+    """Each camera step of the port's scan (_scan_camera, whose discarded
+    solves turn all their rows off) against the JAX package's
+    _associate_camera on the same fold inputs, camera by camera with 128
+    hypothesis slots: det_slot, n_hyp and n_dropped exactly equal. On the
+    random frame some steps need the solve (every row on) and the rest turn
+    all rows off; on the one-person frame no step needs it."""
+    arrays = _random_frame()[0] if case == "random128" else _single_person_frame()
+    cams, d = arrays["kp2d"].shape[:2]
+    h = 128
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    kw = dict(num_cameras=cams, max_dets_per_cam=d, max_hypotheses=h,
+              max_epipolar_error=0.045, assignment_impl="cond_while")
+    tcfg = config.FusionConfig(**kw)
+    jcfg = jax_config.FusionConfig(**kw)
+    rig = cameras.hall_rig(cams, dtype=tdt, device="cpu")
+    arrays = {k: v.astype(dtype) if k in ("kp2d", "cov2d", "det_score") else v
+              for k, v in arrays.items()}
+    frame = Frame.from_arrays(arrays, "cpu")
+    kp_n, _, det_ok = fusion.normalize_frame(frame, rig, tcfg)
+    ctab, conf = fusion.fold_inputs(kp_n, frame.det_score, rig, tcfg)
+
+    masks = []
+    solve = association.hungarian.linear_sum_assignment_batched
+
+    def recorded(cost, row_active=None):
+        masks.append(row_active.clone())
+        return solve(cost, row_active)
+
+    monkeypatch.setattr(association.hungarian, "linear_sum_assignment_batched", recorded)
+    step = jax.jit(lambda carry, ci, ctab_c, conf_obs, dok: jax_fusion._associate_camera(
+        carry, ci, ctab_c, conf_obs, dok, jcfg))
+    carry = jax_fusion._AssocCarry(
+        det_slot=jnp.full((h, cams), -1, jnp.int32), cam_mask=jnp.zeros((h, cams), bool),
+        n_hyp=jnp.zeros((), jnp.int32), n_dropped=jnp.zeros((), jnp.int32))
+    det_slot = torch.full((1, h, cams), -1, dtype=torch.int64)
+    n_hyp = torch.zeros(1, dtype=torch.int64)
+    n_dropped = torch.zeros(1, dtype=torch.int64)
+    for c in range(cams):
+        det_slot, n_hyp, n_dropped = association._scan_camera(
+            det_slot, n_hyp, n_dropped, ctab[None, c], conf[None], det_ok[None, c], c,
+            tcfg.max_epipolar_error, tcfg.max_cost)
+        carry = step(carry, jnp.int32(c), ctab[c].numpy(), conf.numpy(), det_ok[c].numpy())
+        msg = f"{case} {dtype.__name__} camera {c}"
+        np.testing.assert_array_equal(det_slot[0].numpy(), np.asarray(carry.det_slot), err_msg=msg)
+        assert int(n_hyp[0]) == int(carry.n_hyp), msg
+        assert int(n_dropped[0]) == int(carry.n_dropped), msg
+    # Each step's mask is all on or all off; which of them needed a solve.
+    assert len(masks) == cams and all(m.shape == (1, h) for m in masks)
+    need = [bool(m.all()) for m in masks]
+    assert all(bool(m.all()) or not bool(m.any()) for m in masks)
+    if case == "random128":
+        assert any(need) and not all(need)
+    else:
+        assert not any(need)
+    assert int(n_hyp[0]) > 0
+
+
 @pytest.mark.parametrize("scene", ["benign", "adversarial"])
 def test_scan_equals_fold_on_the_demo(scene):
     """The two routes give the same association on the golden demo frames

@@ -214,10 +214,78 @@ def test_wide_matches_jax_xla_jv(rng, shape):
 
 
 def test_jv_plan_past_the_warp_width():
-    """Past MAX_N: one problem per block, the wide state's bytes (the C
-    entry recomputes them on the card)."""
-    for n in (121, 128, 256, 1024, hungarian.MAX_N_WIDE):
+    """Past MAX_N: one warp per problem with register slots up to MAX_N_REG,
+    one problem per block of ~n / 128 warps past it, the tile staged where
+    one problem with it fits a block (the C entry recomputes the bytes on the
+    card)."""
+    for n in (121, 128, 255, 256, 1024, hungarian.MAX_N_WIDE):
         plan = hungarian.jv_plan(5, n, n)
-        assert plan == hungarian.JvPlan(0, n, 1, 22 * (-(-(n + 1) // 16) * 16), 5)
-        assert plan.smem_bytes <= hungarian.SMEM_LIMIT - 1024
-    assert hungarian.jv_plan(1, 16, 130).smem_bytes == hungarian.wide_smem_bytes(130)
+        assert plan.slots == (n // 32 + 1 if n <= hungarian.MAX_N_REG else 0)
+        assert plan.warps == (0 if n <= hungarian.MAX_N_REG else hungarian.block_warps(n))
+        assert plan.staged == (n <= 240)
+        assert plan.smem_bytes <= hungarian.SMEM_LIMIT
+    assert hungarian.jv_plan(5, 1024, 1024) == hungarian.JvPlan(
+        0, 1025, 1, hungarian.BLOCK_POST_BYTES + hungarian.wide_state_bytes(1024), 5, False, 9)
+    assert hungarian.jv_plan(1, 16, 130) == hungarian.JvPlan(5, 131, 1, 4 * (16 * 131 + 160), 1, True)
+    assert hungarian.wide_state_bytes(8192) == 25 * 8208
+    assert [hungarian.block_warps(n) for n in (256, 383, 384, 1024, 2048, 8192)] == [3, 3, 4, 9, 16, 16]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_jv_plan_every_wide_width(batch):
+    """K1's plan for every n from 121 to 1024 (n x n, a tall n x 8 and a wide
+    16 x n): the register routine with n // 32 + 1 slots up to 255 columns,
+    as many problems per block as fit, at most 4; past it one problem per
+    block of block_warps(n) warps, its posts and state; the tile staged
+    exactly where one problem with it fits the H100's 232,448 bytes; every
+    block within the limit."""
+    for n in range(hungarian.MAX_N + 1, 1025):
+        for rows, cols in ((n, n), (n, 8), (16, n)):
+            plan = hungarian.jv_plan(batch, rows, cols)
+            assert plan.stride == cols | 1
+            tile = 4 * rows * plan.stride
+            if n <= hungarian.MAX_N_REG:
+                assert plan.slots == n // 32 + 1 and 32 * plan.slots > n and plan.warps == 0
+                fixed = 4 * 32 * plan.slots
+                most = min(hungarian.WARPS_PER_BLOCK, batch)
+            else:
+                # ~4 columns per thread, at most 4 up to 2047 columns.
+                assert plan.slots == 0 and plan.warps == hungarian.block_warps(n)
+                assert 2 <= plan.warps <= 16 and n + 1 <= 4 * 32 * plan.warps
+                fixed = 384 + 25 * (-(-(n + 1) // 16) * 16)
+                most = 1
+            assert plan.staged == (fixed + tile <= hungarian.SMEM_LIMIT)
+            problem = fixed + (tile if plan.staged else 0)
+            assert plan.smem_bytes == plan.per_block * problem <= hungarian.SMEM_LIMIT
+            assert 1 <= plan.per_block <= most
+            assert plan.per_block == most or (plan.per_block + 1) * problem > hungarian.SMEM_LIMIT
+            assert plan.blocks == -(-batch // plan.per_block)
+    # The camera scan's 128 x 8 problems: four per block, 4.6 KB tiles.
+    assert hungarian.jv_plan(batch, 128, 8).per_block == min(4, batch)
+    assert hungarian.jv_plan(1, 128, 8).smem_bytes == 4 * (128 * 9 + 160)
+
+
+TALL = {
+    "random": lambda rng: rng.uniform(size=(128, 8)),
+    "trivial": lambda rng: (np.arange(128)[:, None] != np.arange(8)[None, :]).astype(np.float64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("matrix", list(TALL))
+def test_plain_tall_with_every_row_off_or_on(rng, matrix, dtype):
+    """A tall 128 x 8 problem, as the camera scan solves it at
+    max_hypotheses=128: every row off returns -1 everywhere and runs no
+    search (the scan's discarded problems); every row on equals no mask."""
+    cost = torch.from_numpy(TALL[matrix](rng)).to(dtype)
+    before = hungarian.PLAIN_SEARCH_STEPS
+    off = hungarian.linear_sum_assignment(cost, torch.zeros(128, dtype=torch.bool))
+    assert hungarian.PLAIN_SEARCH_STEPS == before
+    assert off.dtype == torch.int32 and bool((off == -1).all())
+    on = hungarian.linear_sum_assignment(cost, torch.ones(128, dtype=torch.bool))
+    assert hungarian.PLAIN_SEARCH_STEPS > before  # the rows past 8 search
+    assert torch.equal(on, hungarian.linear_sum_assignment(cost))
+    assert int((on >= 0).sum()) == 8
+    batched = hungarian.linear_sum_assignment_batched(
+        torch.stack([cost, cost]), torch.tensor([[False] * 128, [True] * 128]))
+    assert torch.equal(batched, torch.stack([off, on]))
