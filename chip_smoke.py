@@ -59,8 +59,15 @@ Phases (each prints one line; any failure exits non-zero):
     evaluation on the same weights and images, its decoding against the
     CPU's on identical heatmaps (integers exact), the detector's, decoder's
     and step's times against Pipeline.step on the same detections;
-    then the detector trained on the card (300 Adam steps) on the JAX
-    package's test scene: every person recovered within 5 cm mean, 8 cm max
+    then training (models/train.py: the functional loss-gradient-Adam step
+    replayed as a CUDA graph, JAX's jitted step_fn): the JAX package's
+    test detector on its test scene (300 steps) and the full-width
+    detector on the demo's frames (20 steps, 4 cameras), each trained
+    eagerly twice and captured once over the same draws (captured equal
+    to eager bit for bit where the eager runs agree, else within their
+    spread), ms per step of each, peak MiB, 0 host syncs per captured
+    step, its graph's nodes; the trained test detector through the
+    end-to-end step: every person recovered within 5 cm mean, 8 cm max
  12 the sharded paths (parallel/sharding.py), each shard's stages replayed
     as CUDA graphs (one per stage, device and mesh entry): run_offline_sharded
     (fusion_batch=32) over both golden scenes on make_mesh() (every visible
@@ -1752,6 +1759,15 @@ E2E_TRAIN_DETECTOR = dict(image_size=(96, 128), heatmap_stride=4, width=32, max_
 E2E_TRAIN_STEPS = 300
 E2E_TRAIN_FRAMES = 4
 E2E_MAX_LOSS, E2E_MEAN_M, E2E_MAX_M = 5.0e-3, 0.05, 0.08
+E2E_TRAIN_LR = 2e-3
+# The full-width detector (DetectorConfig()) trained on build_demo(16, 6,
+# ...)'s frames: steps of each run, cameras per batch.
+E2E_FULL_TRAIN_STEPS = 20
+E2E_FULL_TRAIN_CAMS = 4
+# Rounds of the steady training loop timed per step, eager and captured in
+# turns (each round TRAIN_TIMED_STEPS steps, a sync at its end).
+TRAIN_TIMED_ROUNDS = 2
+TRAIN_TIMED_STEPS = 50
 
 
 def match_to_gt(xyz, score, valid, gt, to_fusion, max_dist=0.5):
@@ -1823,6 +1839,130 @@ def compare_decode(heat, det_cfg) -> float:
     return float((got[0][..., :2] - want[0][..., :2]).abs().max())
 
 
+@contextlib.contextmanager
+def eager_training():
+    """train_detector on the card with its step run op by op (the step
+    function itself instead of its CUDA graph), for comparison."""
+    from smartedgesensor3dhumanpose_tpu_torch import graphs
+
+    captured = graphs.CapturedFunction
+    graphs.CapturedFunction = lambda fn, name: fn
+    try:
+        yield
+    finally:
+        graphs.CapturedFunction = captured
+
+
+def training_fields(runs: dict, loop: dict) -> dict:
+    """The log fields of train_runs' and train_loop_times' results."""
+    r = runs["runs"]
+    return dict(
+        captured_vs_eager_params_max_abs_diff=runs["diff"],
+        eager_vs_eager_params_max_abs_diff=runs["spread"],
+        final_loss_eager=r["eager"][1], final_loss_captured=r["captured"][1],
+        run_ms_per_step_eager=r["eager"][2], run_ms_per_step_captured=r["captured"][2],
+        peak_mib_eager=r["eager"][3], peak_mib_captured=r["captured"][3],
+        loop_ms_per_step_eager=loop["loop_ms"]["eager"],
+        loop_ms_per_step_captured=loop["loop_ms"]["captured"],
+        loop_ms_rounds="'" + json.dumps(loop["loop_ms_all"]) + "'",
+        step_only_ms_eager=loop["step_ms"]["eager"],
+        step_only_ms_captured=loop["step_ms"]["captured"],
+        host_syncs_per_captured_step=loop["syncs_step"],
+        host_syncs_per_captured_iteration=loop["syncs_iteration"],
+        graph_nodes=nodes_str(loop["nodes"]))
+
+
+def params_diff(a, b) -> float:
+    """Largest absolute difference of two models' parameters."""
+    return max(float((p - q).abs().max())
+               for p, q in zip(a.state_dict().values(), b.state_dict().values()))
+
+
+def train_runs(det_cfg, data, steps: int, batch_cams: int, dev) -> dict:
+    """train_detector on the card over the same draws: eagerly twice (the
+    eager step against itself) and captured (its default). Each run's
+    (model, final loss, wall ms per step with its first call, peak MiB);
+    the captured model must equal the eager one bit for bit where the
+    eager runs agree bit for bit, else differ by no more than they do.
+    Peak MiB: the most allocated during the run over what was allocated
+    before it."""
+    from smartedgesensor3dhumanpose_tpu_torch.models import train
+
+    runs = {}
+    for name in ("eager", "eager_again", "captured"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with eager_training() if name.startswith("eager") else contextlib.nullcontext():
+            model, loss = train.train_detector(det_cfg, data, steps=steps, batch_cams=batch_cams,
+                                               lr=E2E_TRAIN_LR, seed=0, device=dev)
+        torch.cuda.synchronize()
+        runs[name] = (model, loss, (time.perf_counter() - t0) / steps * 1e3,
+                      (torch.cuda.max_memory_allocated(dev) - base) / 2**20)
+    spread = params_diff(runs["eager"][0], runs["eager_again"][0])
+    diff = params_diff(runs["captured"][0], runs["eager"][0])
+    if not all(np.isfinite(r[1]) for r in runs.values()):
+        raise AssertionError(f"training: non-finite loss {[r[1] for r in runs.values()]}")
+    if diff > spread:
+        raise AssertionError(f"training: captured differs from eager by {diff}, the eager "
+                             f"runs from each other by {spread}")
+    return {"runs": runs, "spread": spread, "diff": diff}
+
+
+def train_loop_times(det_cfg, data, batch_cams: int, dev) -> dict:
+    """The steady training loop (each step's batch rendered, then the step)
+    with the eager and the captured step, in turns, ms per step; the step
+    alone (CUDA events); host syncs of one captured step and of one whole
+    iteration; the captured step's graph nodes."""
+    from smartedgesensor3dhumanpose_tpu_torch import graphs
+    from smartedgesensor3dhumanpose_tpu_torch.models import keypoint_cnn, train
+
+    model = keypoint_cnn.init_detector(det_cfg, torch.Generator().manual_seed(0), dev)
+    eager = train.make_train_step(model, E2E_TRAIN_LR)
+    steps = {"eager": eager, "captured": graphs.CapturedFunction(eager, "train_step")}
+    num_frames, num_cams = data["kp2d"].shape[:2]
+    draws = torch.as_tensor(train.training_draws(num_frames, num_cams, TRAIN_TIMED_STEPS,
+                                                 batch_cams, 1), device=dev)
+    kp_all = torch.as_tensor(data["kp2d"], device=dev).flatten(0, 1)
+    valid_all = torch.as_tensor(data["det_valid"], device=dev).flatten(0, 1)
+    noise = torch.Generator(device=dev).manual_seed(1)
+
+    def batch(it):
+        return train._batch(kp_all.index_select(0, draws[it]),
+                            valid_all.index_select(0, draws[it]), det_cfg, noise)
+
+    def loop(step):
+        params = train.initial_params(model)
+        state = train.adam_init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(TRAIN_TIMED_STEPS):
+            params, state, _ = step(params, state, *batch(it))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TRAIN_TIMED_STEPS * 1e3
+
+    params = train.initial_params(model)
+    state = train.adam_init(params)
+    images, targets = batch(0)
+    steps["captured"](params, state, images, targets)  # the capture
+    ms = {k: [] for k in steps}
+    for _ in range(TRAIN_TIMED_ROUNDS):
+        for name in ("eager", "captured", "captured", "eager"):
+            ms[name].append(loop(steps[name]))
+    step_ms = {k: sync_time(lambda f=f: f(params, state, images, targets), 20)
+               for k, f in steps.items()}
+    syncs_step = count_syncs(lambda: steps["captured"](params, state, images, targets))
+    syncs_iteration = count_syncs(lambda: steps["captured"](params, state, *batch(1)))
+    if syncs_step or syncs_iteration:
+        raise AssertionError(f"captured training: {syncs_step} host syncs per step, "
+                             f"{syncs_iteration} per iteration with its batch")
+    nodes = graph_nodes(eager, params, state, images, targets)
+    return {"loop_ms": {k: statistics.median(v) for k, v in ms.items()},
+            "loop_ms_all": ms, "step_ms": step_ms, "syncs_step": syncs_step,
+            "syncs_iteration": syncs_iteration, "nodes": nodes}
+
+
 def phase_end_to_end(dev, smi: str):
     """The end-to-end slice (images -> detector -> Pipeline.step): the
     full-width detector on the demo's 16 cameras with its launch counts,
@@ -1841,7 +1981,9 @@ def phase_end_to_end(dev, smi: str):
     # 1. Full width on the demo's 16 cameras, random weights.
     det_cfg = keypoint_cnn.DetectorConfig()
     n_frames = E2E_WARM + E2E_TIMED
-    _, cfg, frames, pipe = demo.build_demo(DEMO_CAMS, DEMO_PEOPLE, n_frames, DEMO_SEED, device=dev)
+    scene16, cfg, frames, pipe = demo.build_demo(DEMO_CAMS, DEMO_PEOPLE, n_frames, DEMO_SEED,
+                                                 device=dev)
+    scene16 = synthetic.frames_from_scene(scene16)
     step, model, state = end_to_end.make_end_to_end(
         pipe.rig, cfg, det_cfg, torch.Generator().manual_seed(E2E_SEED), device=dev)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1925,7 +2067,10 @@ def phase_end_to_end(dev, smi: str):
         top_kernels_ms="'" + json.dumps({k[:60]: round(v, 4) for k, v in top}) + "'")
     del images, inputs, outs, heat, det_frames
 
-    # 4. The trained detector's accuracy (tests/test_models.py's scene).
+    # 4. Training on the card, eager and captured over the same draws: the
+    # JAX test's detector on its scene (tests/test_models.py), then the
+    # full-width detector on the demo's frames; then the trained detector's
+    # accuracy through the end-to-end step.
     t_cfg = keypoint_cnn.DetectorConfig(**E2E_TRAIN_DETECTOR)
     cams, people = 6, 2
     P = cameras.ring_extrinsics(cams, radius=2.2, heights=(3.4, 4.0, 4.6), look_at_z=0.8)
@@ -1937,12 +2082,19 @@ def phase_end_to_end(dev, smi: str):
         rig=cameras.build_rig(P, K, (128, 96), dtype=torch.float64, device="cpu"),
     )
     data = synthetic.frames_from_scene(scene)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trained, loss = train.train_detector(t_cfg, data, steps=E2E_TRAIN_STEPS, batch_cams=3,
-                                         lr=2e-3, seed=0, device=dev)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    reset_counts()
+    small = train_runs(t_cfg, data, E2E_TRAIN_STEPS, 3, dev)
+    trained, loss = small["runs"]["captured"][:2]
+    small_loop = train_loop_times(t_cfg, data, 3, dev)
+    log("11.4a training", gpu=repr(smi), detector="test", steps=E2E_TRAIN_STEPS, batch=3,
+        params=sum(p.numel() for p in trained.parameters()),
+        **training_fields(small, small_loop))
+    full = train_runs(det_cfg, scene16, E2E_FULL_TRAIN_STEPS, E2E_FULL_TRAIN_CAMS, dev)
+    full_loop = train_loop_times(det_cfg, scene16, E2E_FULL_TRAIN_CAMS, dev)
+    log("11.4b training full width", gpu=repr(smi), detector="DetectorConfig()",
+        steps=E2E_FULL_TRAIN_STEPS, batch=E2E_FULL_TRAIN_CAMS, params=n_params,
+        **training_fields(full, full_loop))
+    del full, full_loop
     t_pipe_cfg = PipelineConfig(
         fusion=FusionConfig(num_cameras=cams, max_dets_per_cam=3, max_hypotheses=6),
         tracker=TrackerConfig(max_tracks=6),
@@ -1952,17 +2104,18 @@ def phase_end_to_end(dev, smi: str):
     model2.load_state_dict(trained.state_dict())
     t_frames = Frame.from_arrays(data, dev)
     to_fusion = np.asarray(skeleton.SIMPLE_MODEL.to_fusion)
-    reset_counts()
     errs = []
     for t in range(E2E_TRAIN_FRAMES):
         state, out = step2(state, rendered(t_frames, t, t_cfg.image_size), t_frames.cam_stamp[t])
         raw = out.persons_raw
         errs.append(match_to_gt(raw.xyz.cpu().numpy(), raw.score.cpu().numpy(),
                                 raw.valid.cpu().numpy(), scene["gt_xyz"][t], to_fusion))
+    # The counts since training began: training launches none of K1-K3,
+    # the trained end-to-end step's first call K1 and K2 twice each.
     counts = read_counts()
     errs = np.concatenate(errs)
     if counts != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0,):
-        raise AssertionError(f"trained end to end: launch counts {counts}")
+        raise AssertionError(f"training, then the trained end to end: launch counts {counts}")
     if not loss < E2E_MAX_LOSS:
         raise AssertionError(f"trained detector: final loss {loss} >= {E2E_MAX_LOSS}")
     if not (np.isfinite(errs).all() and errs.shape[0] == E2E_TRAIN_FRAMES * people):
@@ -1970,13 +2123,12 @@ def phase_end_to_end(dev, smi: str):
     if not (errs.mean() < E2E_MEAN_M and errs.max() < E2E_MAX_M):
         raise AssertionError(f"trained end to end: joint errors {errs} m")
     log("11.4 trained end to end", gpu=repr(smi), train_steps=E2E_TRAIN_STEPS,
-        train_s=train_s, train_ms_per_step=train_s / E2E_TRAIN_STEPS * 1e3, final_loss=loss,
-        frames=E2E_TRAIN_FRAMES, persons_recovered=f"{int(np.isfinite(errs).sum())}/{errs.shape[0]}",
+        final_loss=loss, frames=E2E_TRAIN_FRAMES, persons_recovered=f"{int(np.isfinite(errs).sum())}/{errs.shape[0]}",
         mean_err_mm=errs.mean() * 1e3, max_err_mm=errs.max() * 1e3, launches=list(counts))
     trained = (model2, t_cfg, t_pipe_cfg, cameras.build_rig(P, K, (128, 96), device=dev),
                [(rendered(t_frames, t, t_cfg.image_size), t_frames.cam_stamp[t])
                 for t in range(E2E_TRAIN_FRAMES)])
-    return counts_e2e, trained
+    return {"end_to_end": counts_e2e, "train_then_end_to_end": counts}, trained
 
 
 def device_ms_by_kernel(fn, reps: int) -> dict:
@@ -3766,7 +3918,7 @@ def run_phases(args, dev, smi, references) -> int:
     times.update(phase_offline_times(dev, off_pipe, inputs, args.profile))
     demo_launches, demo_k3_err = phase_demo(dev)
     k3_err = max(k3_err, demo_k3_err)
-    e2e_launches, trained = phase_end_to_end(dev, smi)
+    e2e_paths, trained = phase_end_to_end(dev, smi)
     sharded_launches = phase_sharded(dev, smi, golden_offline, rig, cfg, inputs, scaled)
     captured_launches = phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe)
     phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe)
@@ -3783,7 +3935,9 @@ def run_phases(args, dev, smi, references) -> int:
     # warm-up and capture, and a replay launches nothing on the host.
     # launches_by_path: the wrappers' counts per path, those of the online
     # step (phase 4), the offline path (6), the demo modes (10), the
-    # end-to-end step (11, full width) and the sharded paths (12: each
+    # end-to-end step (11, full width), training followed by the trained
+    # end-to-end step (11.4: training launches none of K1-K3, the step's
+    # first call K1 and K2) and the sharded paths (12: each
     # mesh's first call, which captures its graphs);
     # and under `*_replays_on_device` the kernels that graph replays ran on
     # the device, counted by name in torch.profiler traces: STEP_PROFILED
@@ -3792,7 +3946,7 @@ def run_phases(args, dev, smi, references) -> int:
     # (13.4) and phase 12's checked replays of the sharded paths (both
     # scenes on every mesh; one fusion per fusion mesh). No single PyTorch
     # call computes JV, the fold or the scan, so there is no library time.
-    paths = {**launches, **step_on_device, **off_launches, **demo_launches, "end_to_end": e2e_launches,
+    paths = {**launches, **step_on_device, **off_launches, **demo_launches, **e2e_paths,
              **sharded_launches, **captured_launches, **config_launches}
     names = ("jv_assign", "association_fold", "tracker_scan")
     by_path = {name: {path: counts[i] for path, counts in paths.items()}

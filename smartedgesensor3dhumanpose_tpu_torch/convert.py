@@ -1,10 +1,12 @@
 """Conversions between host arrays and the port's types.
 
 What crosses between the JAX package and the port: the calibration, the
-frames, the carried TrackerState and the keypoint detector's weights. Field
-names and layouts match the JAX package's types, so a state taken from a JAX
-run mid-sequence (as numpy) continues in the port, and a flax parameter
-tree of the detector loads into `models.keypoint_cnn.KeypointCNN`.
+frames, the carried TrackerState, the keypoint detector's weights and its
+optimizer state. Field names and layouts match the JAX package's types, so
+a state taken from a JAX run mid-sequence (as numpy) continues in the port,
+a flax parameter tree of the detector loads into
+`models.keypoint_cnn.KeypointCNN`, and training taken from optax mid-run
+continues in `models.train` (and back).
 Like every entry point of the port, these place their tensors on the card
 unless the caller asks for the CPU (`device="cpu"`).
 """
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import cameras
+from smartedgesensor3dhumanpose_tpu_torch.models.train import AdamState
 from smartedgesensor3dhumanpose_tpu_torch.types import CameraRig, Frame, TrackerState
 
 _STATE_INT = {"track_id", "num_obs", "next_id", "frame_nr"}
@@ -110,3 +113,33 @@ def detector_params_to_flax(state_dict: dict) -> dict:
         else:
             tree.setdefault(name, {})["bias"] = a.copy()
     return {"params": tree}
+
+
+def adam_state_from_optax(opt_state, names, device="cuda") -> AdamState:
+    """The port's AdamState (models/train.py) from optax.adam's state
+    `(ScaleByAdamState(count, mu, nu), EmptyState())`, as numpy or any
+    array type: the moments' flax trees converted as
+    `detector_params_from_flax` converts the parameters and taken in the
+    order of `names` (`train.param_names`), the count an int32 0-d tensor."""
+    adam = opt_state[0]
+
+    def moments(tree):
+        state = detector_params_from_flax(tree)
+        return tuple(state[n].to(device) for n in names)
+
+    count = torch.as_tensor(np.array(adam.count, dtype=np.int32), device=device)
+    return AdamState(count, moments(adam.mu), moments(adam.nu))
+
+
+def adam_state_to_optax(state: AdamState, names) -> tuple:
+    """The inverse of `adam_state_from_optax`: `(AdamState(count, mu, nu),
+    ())` of a numpy int32 count and `{"params": {...}}` trees of numpy
+    moments. It has the field names and leaves of optax.adam's
+    `(ScaleByAdamState, EmptyState())`, so optax takes it as its state and
+    its leaves flatten in optax's order."""
+
+    def tree(moments):
+        return detector_params_to_flax(dict(zip(names, moments, strict=True)))
+
+    count = np.array(host(state.count), dtype=np.int32)
+    return AdamState(count, tree(state.mu), tree(state.nu)), ()
