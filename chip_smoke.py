@@ -2,14 +2,15 @@
 
 Phases (each prints one line; any failure exits non-zero):
   0 environment: card name and power limit, torch/CUDA versions, TF32 flags,
-    the route of the captured loops (a WHILE node, csrc/graph_loop.cu) and
-    whether this torch has CUDA-graph IF nodes of its own
+    the route of the captured loops (the merge a WHILE node,
+    csrc/graph_loop.cu; the tree LM one launch of L1) and whether this torch
+    has CUDA-graph IF nodes of its own
   1 build: compile kernels K1 (jv_assign.cu), K2 (association_fold.cu), K3
-    (tracker_scan.cu), L1 and L2 (lm_prior.cu: the LM trip and the tree
-    marginals), and the captured loops' kernels (graph_loop.cu), one nvcc
-    per source, all started together; the wrappers' shared-memory plans
-    against the kernels' own byte counts; K1 without local memory, L1's and
-    L2's registers (-Xptxas -v)
+    (tracker_scan.cu), L1 and L2 (lm_prior.cu: the whole LM in one launch
+    and the tree marginals), and the captured loops' kernels
+    (graph_loop.cu), one nvcc per source, all started together; the
+    wrappers' shared-memory plans against the kernels' own byte counts; K1,
+    L1 and L2 without local memory (-Xptxas -v), L1's and L2's registers
   2 K1 against its plain PyTorch version and scipy, on the card, at every
     register slot count (n up to 120, with and without row_active) and
     batched up to 64 x 40 x 40 and 8 x 120 x 120
@@ -102,12 +103,13 @@ Phases (each prints one line; any failure exits non-zero):
     end_to_end_step (full width, and the trained detector of phase 11);
     eager and captured times, the chain's ms per step, first-call seconds
     and memory, each graph's top-level nodes and the device's idle share
-    (back to back against waited for); the loops (LM, merge) of every
-    captured path as WHILE nodes: the trips each ran on the device, from
-    the loops' own log (loops.trip_log), against the eager loops' trips
-    (the LM's iters) and against lm_max_iterations, the nodes of each
-    loop's body, and the LM's ms per trip run and skipped against a graph
-    of the fixed 32 trips and against the LM with the plain trip
+    (back to back against waited for); the loops of every captured path
+    (the LM one launch of L1, the merge a WHILE node): the trips each ran
+    on the device, from the loops' own log (loops.trip_log), against the
+    eager loops' trips (the LM's iters) and against lm_max_iterations; the
+    LM's graph (no WHILE node, no host sync eagerly), its device clock and
+    ms per trip run and skipped, against the per-trip route (L1 one trip
+    a launch in a WHILE node) and the LM with the plain trip
     (`prior._lm_trip`, 561 kernels)
  14 every configuration the JAX package runs that no earlier phase reaches,
     routed by shape (pipeline.routes): K1's wide routine (n > 120, one block
@@ -125,14 +127,17 @@ Phases (each prints one line; any failure exits non-zero):
     K1 per frame) over 16 adversarial frames against the port's CPU float32
     run of the same frames (computed in worker processes while phases 2-13
     run), with their kernels counted on the device
- 15 L1 (one LM trip for every person, in place on the carry) and L2 (the
-    tree marginals) against their plain twins (ops/lm_prior.py) bit for bit,
-    every trip of a cold-start LM (x, err, lam, done, iters and the loop's
-    test) and the marginals at its end: the online step's persons (P = 16)
-    on frames 8, 24, 40, 56 of both scenes, every offline chunk of both
-    scenes (P = 512) and the scaled layout's first chunks (P = 160); the
-    LM with the plain trip beside each; L1's and L2's device time at P = 16
-    and 512 (torch.profiler), the twins' and the bounds
+ 15 L1 (the whole LM for every person in one launch, in place on the
+    carry) and L2 (the tree marginals) against their plain twins
+    (ops/lm_prior.py) bit for bit: the one-launch LM from a cold start
+    against `lm_solve_plain` and against L1 capped at one trip a launch
+    (the per-trip loop), that loop against `lm_trip_plain` after every trip (x,
+    err, lam, done, iters and the loop's test), and the marginals at its
+    end: the online step's persons (P = 16) on frames 8, 24, 40, 56 of both
+    scenes, every offline chunk of both scenes (P = 512) and the scaled
+    layout's first chunks (P = 160); the LM with the plain trip beside
+    each; the LM's, one trip's and L2's device time at P = 16 and 512
+    (torch.profiler), the twins' and the bounds
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -347,7 +352,7 @@ def check_k1_ptxas(build_log) -> str:
 
 def lm_ptxas(build_log) -> str:
     """L1's and L2's registers, stack frame and spills from `nvcc -Xptxas
-    -v` (reported, not gated)."""
+    -v`; either with a stack frame or a spill fails."""
     if build_log is None:
         return "'not read: the library was already built'"
     out, name = {}, None
@@ -359,9 +364,13 @@ def lm_ptxas(build_log) -> str:
             name = None
         elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                                       r"(\d+) bytes spill loads", line)):
+            if any(int(x) for x in m.groups()):
+                raise AssertionError(f"{name} uses local memory: {line.strip()}")
             out[name] = f"stack {m.group(1)} spill {m.group(2)}/{m.group(3)}"
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out[name] = f"{out.get(name, '')} registers {m.group(1)}".strip()
+    if len(out) != 2:
+        raise AssertionError(f"L1 and L2: expected both in ptxas output, got {out}")
     return "'" + "; ".join(f"{k}: {v}" for k, v in sorted(out.items())) + "'"
 
 
@@ -641,8 +650,8 @@ def read_counts():
 # K1, K2, K3, L1 and L2 by name in a device trace: K1 is the
 # register-state kernel up to 255 columns or the block routine's past them.
 # A count is a tuple in this order; the gates of K1-K3 read its first three
-# entries. L1 runs inside the LM's WHILE node, whose body's kernels a trace
-# can miss (loops.trip_log counts its trips); L2 after it.
+# entries, check_lm_host and check_lm_device the last two (L1 runs the
+# whole LM in one launch, L2 after it).
 KERNEL_NAMES = (("jv_assign_kernel", "jv_assign_wide_kernel"), ("association_fold_kernel",),
                 ("tracker_scan_kernel",), ("lm_trip_kernel",), ("lm_marginals_kernel",))
 N_KERNELS = len(KERNEL_NAMES)
@@ -650,18 +659,19 @@ L1, L2 = 3, 4
 
 
 def check_lm_host(what: str, counts, lms: int) -> None:
-    """A captured entry point's first call on the host: L2 once per LM in
-    the warm-up and once in the capture, L1 at least once per LM (the
-    capture records one trip; the warm-up runs the trips its loop needs)."""
-    if counts[L2] != FIRST_CALL_HOST_LAUNCHES * lms or counts[L1] < lms:
+    """A captured entry point's first call on the host: L1 and L2 once per
+    LM in the warm-up and once in the capture."""
+    want = (FIRST_CALL_HOST_LAUNCHES * lms,) * 2
+    if tuple(counts[L1:L2 + 1]) != want:
         raise AssertionError(f"{what}: (L1, L2) launched {counts[L1:]} on the host over {lms} "
-                             f"LMs, expected (>= {lms}, {FIRST_CALL_HOST_LAUNCHES * lms})")
+                             f"LMs, expected {want}")
 
 
-def check_l2_device(what: str, counts, lms: int) -> None:
-    """L2 once per LM on the device."""
-    if counts[L2] != lms:
-        raise AssertionError(f"{what}: L2 ran {counts[L2]} times on the device, expected {lms}")
+def check_lm_device(what: str, counts, lms: int) -> None:
+    """L1 and L2 once per LM on the device."""
+    if tuple(counts[L1:L2 + 1]) != (lms, lms):
+        raise AssertionError(f"{what}: (L1, L2) ran {counts[L1:]} times on the device, "
+                             f"expected {lms} each")
 
 
 def kernel_index(name: str):
@@ -811,7 +821,7 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
         on_device = tuple(a + b for a, b in zip(on_device, counts))
     if on_device[:3] != (STEP_PROFILED,) * 2 + (0,):
         raise AssertionError(f"step: {on_device} kernels on the device over {STEP_PROFILED} replays")
-    check_l2_device("step", on_device, STEP_PROFILED)
+    check_lm_device("step", on_device, STEP_PROFILED)
     after = pipe.init_state()
     after_ms = []
     for f in range(120):
@@ -834,7 +844,7 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
         busy_ms = sum(e.self_device_time_total for e in averages) / 1e3 / 9
         with open(os.path.join(profile_dir, "profile_steps.txt"), "w") as fh:
             fh.write(averages.table(sort_by="self_device_time_total", row_limit=40))
-        # A trace may miss kernels of the loops' WHILE bodies (trips_in_trace):
+        # A trace may miss kernels of the merge's WHILE body (trips_in_trace):
         # its busy time bounds the device's from below.
         log("5 profile", steps=9, wall_ms_per_step=wall_ms,
             device_busy_ms_per_step_in_trace=busy_ms, device_idle_share_at_most=1.0 - busy_ms / wall_ms)
@@ -1013,7 +1023,7 @@ def phase_offline(dev, golden, rig, cfg, inputs):
         if counts[:3] != want:
             raise AssertionError(f"offline {scene}: launch counts (K1, K2, K3) on the device = "
                                  f"{counts}, expected {want}")
-        check_l2_device(f"offline {scene}", counts, want[1])
+        check_lm_device(f"offline {scene}", counts, want[1])
         on_device = tuple(a + b for a, b in zip(on_device, counts))
 
         e2e_frames = 0
@@ -2913,12 +2923,13 @@ def waited_and_back_to_back(fn, reps: int) -> tuple:
 
 
 def eager_trips(fn) -> list:
-    """The trips each `loops.while_loop` of one eager call of `fn` ran, in
-    order (the loop's host test, counted)."""
-    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
+    """The trips each loop of one eager call of `fn` ran, in order: each
+    `loops.while_loop` (the loop's host test, counted) and each one-launch
+    LM (`lm_prior.lm_solve`: the gain of its `iters`, read after it)."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import lm_prior, loops
 
     counts = []
-    while_loop = loops.while_loop
+    while_loop, lm_solve = loops.while_loop, lm_prior.lm_solve
 
     def counted(cond, body, carry, max_trips):
         counts.append(0)
@@ -2929,11 +2940,17 @@ def eager_trips(fn) -> list:
 
         return while_loop(cond, trip, carry, max_trips)
 
-    loops.while_loop = counted
+    def solved(carry, *args, **kw):
+        before = int(carry[4])
+        out = lm_solve(carry, *args, **kw)
+        counts.append(int(out[4]) - before)
+        return out
+
+    loops.while_loop, lm_prior.lm_solve = counted, solved
     try:
         fn()
     finally:
-        loops.while_loop = while_loop
+        loops.while_loop, lm_prior.lm_solve = while_loop, lm_solve
     return counts
 
 
@@ -3078,7 +3095,7 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
     if on_device[:3] != (PROFILED_REPLAYS,) * 2 + (0,):
         raise AssertionError(f"captured step: {on_device} kernels on the device over "
                              f"{PROFILED_REPLAYS} replays")
-    check_l2_device("captured step", on_device, PROFILED_REPLAYS)
+    check_lm_device("captured step", on_device, PROFILED_REPLAYS)
     lm_trips = [trips[0] for trips, _, _ in sampled]
     lm_ms = [spans[0] for _, spans, _ in sampled]
     lm_share = sum(lm_ms) / sum(wall for _, _, wall in sampled)
@@ -3138,7 +3155,7 @@ def phase_captured_step(dev, smi, golden, rig, cfg, inputs, pipe):
     _, _, on_device = profile_device(lambda: pipe.run_per_frame_chain(pipe.init_state(), head), 1)
     if on_device[:3] != (STEP_PROFILED,) * 2 + (0,):
         raise AssertionError(f"chain of {STEP_PROFILED} frames: {on_device} kernels on the device")
-    check_l2_device("chain", on_device, STEP_PROFILED)
+    check_lm_device("chain", on_device, STEP_PROFILED)
     log("13.2 captured chain", gpu=repr(smi), scenes=len(SCENES), frames=n,
         stacked="StepOutput [F, ...]", vs_per_frame_replays="equal", host_syncs_per_call=0,
         host_launches_per_call="0,0,0,0,0", frames_profiled=STEP_PROFILED,
@@ -3207,7 +3224,7 @@ def phase_captured_offline(dev, smi, rig, cfg, inputs, off_pipe):
     if syncs:
         raise AssertionError(f"captured run_offline: {syncs} host syncs per replay")
     # The adversarial scene (the last in SCENES): each fusion chunk's
-    # cold-start LM as one WHILE node; the merge runs inside K3.
+    # cold-start LM as one launch of L1; the merge runs inside K3.
     offline_fn = lambda s, f: pipeline.run_offline(s, f, rig, cfg, OFFLINE_FUSION_BATCH)  # noqa: E731
     logged, trip_log = captured_with_log(offline_fn, state0, frames)
     trips, lm_ms = log_trips(trip_log), log_spans_ms(trip_log)
@@ -3345,19 +3362,36 @@ def phase_captured_end_to_end(dev, smi, trained):
     return {"end_to_end_replays_on_device": on_device}
 
 
+def per_trip_optimize(g_in, warm_start, cfg):
+    """`prior.optimize` by the per-trip route on CUDA, for comparison: L1 capped
+    at one trip as the body of `loops.while_loop` (a WHILE node of two
+    nodes when captured: L1 and the trip's test), then L2."""
+    from smartedgesensor3dhumanpose_tpu_torch import prior
+    from smartedgesensor3dhumanpose_tpu_torch.ops import lm_prior, loops
+
+    carry, bones = prior._lm_start(g_in, warm_start, cfg)
+    ins = prior._fused_inputs(g_in, bones)
+    x, _, _, _, iters, _, _ = loops.while_loop(
+        lambda c: c[5], lambda c: lm_prior.lm_trip(c, *ins, cfg), prior._fused_carry(carry),
+        cfg.lm_max_iterations)
+    x, marg, marg_ok = lm_prior.lm_marginals(x, *ins)
+    return prior.PriorResult(x=x, marg_cov=marg, marg_ok=marg_ok, iters=iters)
+
+
 def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
     """13.5: the captured loops against the eager ones. The LM alone at the
-    online step's shape (one golden frame's hypotheses): its graph against
-    the early exit bit for bit, the trips its WHILE node ran on the device
-    (counted in a trace) against the eager `iters` and against
-    lm_max_iterations, its ms per trip run and per trip skipped, the nodes
-    of its WHILE body (L1's trip: L1 and the trip's test), and beside it
-    the graph of the fixed 32 trips and the LM with the plain trip
-    (`prior._lm_trip`, `_fused=False`): its body's nodes, device ms per
-    trip and ms per trip run. Then the step's replays on golden frames: the
-    trips of its LM and its merge on the device against the eager loops'
-    on the same state and frame, the nodes of their bodies, and the step's
-    graph beside the fixed-trip one (nodes, busy ms, wall p50)."""
+    online step's shape (one golden frame's hypotheses): its graph holds no
+    WHILE node (L1 and L2 only) and equals the eager LM (0 host syncs) bit
+    for bit, the trips it ran on the device (its trip-log record) against
+    the eager `iters` and against lm_max_iterations, its device clock, its
+    ms per trip run and per trip skipped; beside it the per-trip route (L1 one
+    trip a launch in a WHILE node: its body's nodes, ms per trip run) and
+    the LM with the plain trip (`prior._lm_trip`, `_fused=False`): its
+    body's nodes, device ms per trip and ms per trip run. Then the step's
+    replays on golden frames: the trips of its LM and its merge on the
+    device against the eager loops' on the same state and frame, the nodes
+    of the merge's body, and the step's graph beside one whose merge runs
+    every round (nodes, busy ms, wall p50)."""
     from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, pipeline, prior
     from smartedgesensor3dhumanpose_tpu_torch.ops import lm_prior
 
@@ -3383,8 +3417,8 @@ def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
             lm_prior.lm_trip(carry, *ins, p_cfg)
         return carry
 
-    # Device ms per trip from a trace of LM_TRIPS eager trips (L1's: the
-    # carry's copies and first test included).
+    # Device ms per trip from a trace of LM_TRIPS eager single trips (L1
+    # capped at one trip: the carry's copies and first test included).
     busy_ms, events, _ = profile_device(trips, 1)
     trip_device_ms = busy_ms / LM_TRIPS
     eager_trip_ms = sync_time(trips, 3) / LM_TRIPS
@@ -3394,62 +3428,71 @@ def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
         c = dataclasses.replace(p_cfg, lm_max_iterations=max_iterations)
         return lambda gi, w: prior.optimize(gi, w, c, _fused=fused)
 
+    per_trip_fn = lambda gi, w: per_trip_optimize(gi, w, p_cfg)  # noqa: E731
     early = prior.optimize(g_in, g_in.meas, p_cfg)
     iters = int(early.iters)
+    eager_syncs = count_syncs(lambda: prior.optimize(g_in, g_in.meas, p_cfg))
+    if eager_syncs:
+        raise AssertionError(f"eager LM: {eager_syncs} host syncs")
     plain_iters = int(prior.optimize(g_in, g_in.meas, p_cfg, _fused=False).iters)
-    body_nodes = loop_body_nodes(lm_fn(p_cfg.lm_max_iterations), g_in, g_in.meas)
+    while_bodies = loop_body_nodes(lm_fn(p_cfg.lm_max_iterations), g_in, g_in.meas)
+    lm_nodes = graph_nodes(lm_fn(p_cfg.lm_max_iterations), g_in, g_in.meas)
+    if while_bodies or lm_nodes["conditional"]:
+        raise AssertionError(f"LM graph: WHILE bodies {while_bodies}, nodes {lm_nodes}")
+    per_trip_body_nodes = loop_body_nodes(per_trip_fn, g_in, g_in.meas)
     plain_body_nodes = loop_body_nodes(lm_fn(p_cfg.lm_max_iterations, False), g_in, g_in.meas)
     logged, trip_log = captured_with_log(lm_fn(p_cfg.lm_max_iterations), g_in, g_in.meas)
-    # The same graph without the trip log, the same loop bounded at the
-    # trips it runs, and PR 8's fixed 32 trips.
+    # The same graph without the trip log, the LM capped at the trips it
+    # runs, the per-trip route and the plain trip's.
     lm = graphs.CapturedFunction(lm_fn(p_cfg.lm_max_iterations), "prior.optimize")
     bounded = graphs.CapturedFunction(lm_fn(iters), "prior.optimize")
-    fixed = graphs.CapturedFunction(lm_fn(p_cfg.lm_max_iterations), "prior.optimize")
+    per_trip = graphs.CapturedFunction(per_trip_fn, "per-trip LM")
     plain = graphs.CapturedFunction(lm_fn(p_cfg.lm_max_iterations, False), "prior.optimize")
-    with fixed_trips():
-        fixed(g_in, g_in.meas)
     done = g_in._replace(num_meas=torch.zeros_like(g_in.num_meas))   # every person done
-    for name, graph in (("while", lm), ("logged", logged), ("bounded", bounded), ("fixed", fixed)):
+    for name, graph in (("one launch", lm), ("logged", logged), ("bounded", bounded),
+                        ("per trip", per_trip)):
         bad, diffs = tree_diff(graph(g_in, g_in.meas), early)
         if bad or any(diffs.values()):
-            raise AssertionError(f"LM graph ({name}) differs from the early exit: {bad} {diffs}")
+            raise AssertionError(f"LM graph ({name}) differs from the eager LM: {bad} {diffs}")
     logged(g_in, g_in.meas)
-    on_device, (_, stamps) = log_trips(trip_log), trip_log[0]
-    trip_ms = [float(b - a) / 1e6 for a, b in zip(stamps[:iters].tolist(), stamps[1:iters + 1].tolist())]
-    traced_trips = trips_in_trace(lambda: logged(g_in, g_in.meas))
+    on_device, span_ms = log_trips(trip_log), log_spans_ms(trip_log)[0]
     if on_device != [iters] or iters >= p_cfg.lm_max_iterations:
-        raise AssertionError(f"LM graph: {on_device} trips on the device, the early exit {iters}")
+        raise AssertionError(f"LM graph: {on_device} trips on the device, the eager LM {iters}")
     logged(done, done.meas)
     if log_trips(trip_log) != [0]:
         raise AssertionError("LM graph: trips ran with every person done")
     # The graphs timed in turns, LM_TIMED_ROUNDS rounds; medians.
-    runs = {"while": lambda: lm(g_in, g_in.meas), "logged": lambda: logged(g_in, g_in.meas),
-            "bounded": lambda: bounded(g_in, g_in.meas), "fixed": lambda: fixed(g_in, g_in.meas),
-            "done": lambda: lm(done, done.meas), "plain": lambda: plain(g_in, g_in.meas),
-            "plain_done": lambda: plain(done, done.meas)}
+    runs = {"one_launch": lambda: lm(g_in, g_in.meas), "logged": lambda: logged(g_in, g_in.meas),
+            "bounded": lambda: bounded(g_in, g_in.meas), "done": lambda: lm(done, done.meas),
+            "per_trip": lambda: per_trip(g_in, g_in.meas),
+            "per_trip_done": lambda: per_trip(done, done.meas),
+            "plain": lambda: plain(g_in, g_in.meas), "plain_done": lambda: plain(done, done.meas)}
     timed = {name: [] for name in runs}
     for _ in range(LM_TIMED_ROUNDS):
         for name, run in runs.items():
             timed[name].append(sync_time(run, 10))
     ms = {name: statistics.median(v) for name, v in timed.items()}
     done_ms = ms["done"]
-    log("13.5 LM trips", gpu=repr(smi), persons=x.shape[0], trip_device_ms=trip_device_ms,
-        trip_device_events=events / LM_TRIPS, trip_eager_wall_ms=eager_trip_ms,
-        body_nodes_per_trip=",".join(map(str, body_nodes)),
+    log("13.5 LM trips", gpu=repr(smi), persons=x.shape[0], lm_graph_nodes=nodes_str(lm_nodes),
+        lm_while_nodes=0, eager_lm_host_syncs=eager_syncs,
+        single_trip_device_ms=trip_device_ms, single_trip_device_events=events / LM_TRIPS,
+        single_trip_eager_wall_ms=eager_trip_ms,
+        per_trip_route_body_nodes=",".join(map(str, per_trip_body_nodes)),
         plain_trip_body_nodes_per_trip=",".join(map(str, plain_body_nodes)),
         plain_trip_device_ms=plain_busy_ms / LM_TRIPS,
         plain_trip_device_events=plain_events / LM_TRIPS, plain_trip_iters=plain_iters,
         captured_plain_trip_lm_ms=ms["plain"], captured_plain_trip_lm_all_done_ms=ms["plain_done"],
         plain_trip_ms_per_trip_run=(ms["plain"] - ms["plain_done"]) / plain_iters,
-        lm_max_iterations=p_cfg.lm_max_iterations, early_exit_iters=iters,
+        lm_max_iterations=p_cfg.lm_max_iterations, eager_iters=iters,
         trips_on_device=on_device[0], trips_on_device_all_done=0,
-        trips_in_profiler_trace=",".join(map(str, traced_trips)),
-        device_clock_ms_per_trip="'" + ",".join(f"{t:.4f}" for t in trip_ms) + "'",
-        captured_lm_ms=ms["while"], captured_lm_logged_ms=ms["logged"], captured_lm_all_done_ms=done_ms,
-        ms_per_trip_run=(ms["while"] - done_ms) / iters,
+        device_clock_ms=span_ms, device_clock_ms_per_trip=span_ms / iters,
+        captured_lm_ms=ms["one_launch"], captured_lm_logged_ms=ms["logged"],
+        captured_lm_all_done_ms=done_ms, ms_per_trip_run=(ms["one_launch"] - done_ms) / iters,
         bounded_at_iters_ms=ms["bounded"],
-        ms_per_trip_skipped=(ms["while"] - ms["bounded"]) / (p_cfg.lm_max_iterations - iters),
-        fixed_trips_ms=ms["fixed"], captured_vs_early="equal bit for bit")
+        ms_per_trip_skipped=(ms["one_launch"] - ms["bounded"]) / (p_cfg.lm_max_iterations - iters),
+        per_trip_route_lm_ms=ms["per_trip"], per_trip_route_all_done_ms=ms["per_trip_done"],
+        per_trip_route_ms_per_trip_run=(ms["per_trip"] - ms["per_trip_done"]) / iters,
+        captured_vs_eager="equal bit for bit")
 
     # The step's loops on golden frames, each from the state the captured
     # chain reaches there, against the eager step's loops.
@@ -3469,7 +3512,8 @@ def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
                 raise AssertionError(f"step {scene} {f}: loops ran {got} trips on the device, eager {want}")
             per_frame.append(f"{scene[0]}{f}:{got[0]}/{got[1]}")
 
-    # The step's graph against PR 8's, whose loops ran every trip.
+    # The step's graph against one whose merge runs every round (the
+    # fixed-trip loops; the LM is one launch in both).
     state = pipe.init_state()
     frame = frame_at(inputs["benign"], 40, dev)
     fixed_step = graphs.CapturedFunction(step_fn, "fixed-trip step")
@@ -3492,7 +3536,7 @@ def phase_lm_trips(dev, smi, rig, cfg, inputs, pipe):
     logged(state, frame)
     log("13.5 step loops", gpu=repr(smi), frames_checked=len(per_frame),
         lm_merge_trips_on_device_equal_eager="'" + " ".join(per_frame) + "'",
-        lm_merge_body_nodes_per_trip=",".join(map(str, step_body_nodes)),
+        merge_body_nodes_per_trip=",".join(map(str, step_body_nodes)),
         timed_frame="benign:40", lm_merge_trips_timed_frame=",".join(map(str, log_trips(trip_log))),
         lm_device_clock_ms_timed_frame=log_spans_ms(trip_log)[0],
         while_waited_p50_ms=waited["while"], while_back_to_back_ms=b2b["while"],
@@ -3957,14 +4001,16 @@ def phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references):
 
 
 # --------------------------------------------------------------- phase 15 --
-# Kernels L1 (one LM trip) and L2 (the tree marginals), csrc/lm_prior.cu,
+# Kernels L1 (the LM in one launch) and L2 (the tree marginals), csrc/lm_prior.cu,
 # against their twins (ops/lm_prior.py) bit for bit, on the person batches
 # the main paths hand the LM: the online step's (P = H = 16) on TRIP_FRAMES
 # of both scenes, each offline chunk of both scenes (P = 32 x 16 = 512) and
 # the scaled layout's first chunks (P = 4 x 40 = 160).
 LM_SCALED_CHUNKS = 2
-# Launches per timed kernel (each L1 launch from the batch's cold start).
+# Launches per timed kernel (each L1 launch from the batch's cold start),
+# and LMs of one trip a launch whose launches are summed.
 LM_TIMED = 50
+LM_LOOPS_TIMED = 5
 
 
 def lm_batches(dev, rig, cfg, inputs, scaled) -> dict:
@@ -3995,25 +4041,36 @@ def lm_batches(dev, rig, cfg, inputs, scaled) -> dict:
 
 
 def check_lm_batch(name: str, g_in, p_cfg) -> dict:
-    """The LM of one batch from its cold start, L1 against its twin after
-    every trip (the whole carry: x, err, lam, done, iters and the loop's
-    test equal, L1's scratch zero again), then L2 against its twin at the
-    final x; and the LM with the plain trip (`_fused=False`) beside it."""
+    """The LM of one batch from its cold start: the one-launch LM against
+    its twin (`lm_solve_plain`) and against L1 capped at one trip a launch
+    (the per-trip loop, with the host's test), that loop against `lm_trip_plain`
+    after every trip (the whole carry: x, err, lam, done, iters and the
+    loop's test equal, L1's scratch zero again), then L2 against its twin
+    at the final x; and the LM with the plain trip (`_fused=False`) beside
+    it."""
     from smartedgesensor3dhumanpose_tpu_torch import prior
     from smartedgesensor3dhumanpose_tpu_torch.ops import lm_prior
 
+    def same(what, got, want):
+        bad, diffs = tree_diff(got[:6], want[:6])
+        if bad or any(diffs.values()) or got[6].tolist() != [0, 0]:
+            raise AssertionError(f"L1 {name} {what}: {bad} {diffs}, scratch {got[6].tolist()}")
+
     carry, bones = prior._lm_start(g_in, g_in.meas, p_cfg)
     ins = prior._fused_inputs(g_in, bones)
-    want = prior._fused_carry(carry)
+    start = prior._fused_carry(carry)
+    one = lm_prior.lm_solve(tuple(t.clone() for t in start), *ins, p_cfg)
+    same("one launch vs lm_solve_plain", one, lm_prior.lm_solve_plain(start, *ins, p_cfg))
+    want = start
     got = tuple(t.clone() for t in want)
-    trips = 0
+    trips = warp_trips = 0
     while bool(want[5]) and trips < p_cfg.lm_max_iterations:
+        warp_trips += int((~want[3]).sum())
         got = lm_prior.lm_trip(got, *ins, p_cfg)
         want = lm_prior.lm_trip_plain(want, *ins, p_cfg)
         trips += 1
-        bad, diffs = tree_diff(got[:6], want[:6])
-        if bad or any(diffs.values()) or got[6].tolist() != [0, 0]:
-            raise AssertionError(f"L1 {name} trip {trips}: {bad} {diffs}, scratch {got[6].tolist()}")
+        same(f"trip {trips}", got, want)
+    same("one launch vs one trip a launch", one, got)
     marg = lm_prior.lm_marginals(got[0], *ins)
     bad, diffs = tree_diff(marg, lm_prior.lm_marginals_plain(got[0], *ins))
     if bad or any(diffs.values()):
@@ -4023,16 +4080,18 @@ def check_lm_batch(name: str, g_in, p_cfg) -> dict:
     bad, diffs = tree_diff(fused, (marg[0], marg[1], marg[2], got[4]))
     if bad or any(diffs.values()):
         raise AssertionError(f"optimize {name} differs from L1 and L2 run by hand: {bad} {diffs}")
-    return {"persons": g_in.meas.shape[0], "trips": trips, "iters": int(got[4]),
-            "done": int(got[3].sum()), "plain_trip_iters": int(plain.iters),
+    return {"persons": g_in.meas.shape[0], "trips": trips, "warp_trips": warp_trips,
+            "iters": int(got[4]), "done": int(got[3].sum()),
+            "plain_trip_iters": int(plain.iters),
             "vs_plain_trip_max_abs_m": float((fused.x - plain.x).abs().max())}
 
 
 def phase_lm_kernels(dev, smi, rig, cfg, inputs, scaled) -> tuple:
     """15: L1 and L2 against their twins on every batch of lm_batches, bit
     for bit; their device ms (torch.profiler) at the step's shape and the
-    offline chunk's, the twins' ms, the bounds. Returns (times for the
-    kernels line, largest difference)."""
+    offline chunk's: the one-launch LM, one trip, the LM one trip a launch
+    (the per-trip loop, its launches summed) and L2; the twins' ms, the bounds.
+    Returns (times for the kernels line, largest difference)."""
     from smartedgesensor3dhumanpose_tpu_torch import prior
     from smartedgesensor3dhumanpose_tpu_torch.ops import lm_prior
 
@@ -4049,34 +4108,61 @@ def phase_lm_kernels(dev, smi, rig, cfg, inputs, scaled) -> tuple:
         ins = prior._fused_inputs(g_in, bones)
         work = tuple(t.clone() for t in start)
 
-        def trip(work=work, start=start, ins=ins):
+        def reset(work=work, start=start):
             for w, t in zip(work, start):
                 w.copy_(t)
+
+        def solve(work=work, ins=ins):
+            reset()
+            lm_prior.lm_solve(work, *ins, p_cfg)
+
+        def trip(work=work, ins=ins):
+            reset()
             lm_prior.lm_trip(work, *ins, p_cfg)
+
+        def per_trip(work=work, ins=ins):
+            reset()
+            launches = 0
+            while bool(work[5]) and launches < p_cfg.lm_max_iterations:
+                lm_prior.lm_trip(work, *ins, p_cfg)
+                launches += 1
 
         p = g_in.meas.shape[0]
         running = int((~start[3]).sum())
-        l1 = kernel_durations(trip, "lm_trip_kernel", LM_TIMED)
+        iters, warp_trips = report[name]["iters"], report[name]["warp_trips"]
+        l1 = kernel_durations(solve, "lm_trip_kernel", LM_TIMED)
+        l1_trip = kernel_durations(trip, "lm_trip_kernel", LM_TIMED)
+        l1_loop = kernel_durations(per_trip, "lm_trip_kernel", LM_LOOPS_TIMED)
         l2 = kernel_durations(lambda: lm_prior.lm_marginals(start[0], *ins), "lm_marginals_kernel",
                               LM_TIMED)
+        lm_ms = statistics.median(l1) / 1e3 if l1 else None
         times[shape] = {
-            "persons": p, "running": running,
-            "l1_device_ms": statistics.median(l1) / 1e3 if l1 else None,
-            "l1_launches_traced": len(l1),
-            "l1_wrapper_ms_with_copies": sync_time(trip, LM_TIMED),
-            "l1_twin_ms": sync_time(lambda: lm_prior.lm_trip_plain(start, *ins, p_cfg), 3),
-            "l1_bound": bound_of(lm_prior.trip_bytes(running, p), lm_prior.TRIP_OPS_PER_PERSON * running),
+            "persons": p, "running": running, "iters": iters, "warp_trips": warp_trips,
+            "l1_lm_device_ms": lm_ms, "l1_lm_launches_traced": len(l1),
+            "l1_lm_device_ms_per_trip": lm_ms / iters if lm_ms else None,
+            "l1_lm_wrapper_ms_with_copies": sync_time(solve, LM_TIMED),
+            "l1_lm_twin_ms": sync_time(lambda: lm_prior.lm_solve_plain(start, *ins, p_cfg), 3),
+            "l1_lm_bound": bound_of(lm_prior.trip_bytes(running, p),
+                                    lm_prior.TRIP_OPS_PER_PERSON * warp_trips),
+            "l1_trip_device_ms": statistics.median(l1_trip) / 1e3 if l1_trip else None,
+            "l1_trip_twin_ms": sync_time(lambda: lm_prior.lm_trip_plain(start, *ins, p_cfg), 3),
+            "l1_trip_bound": bound_of(lm_prior.trip_bytes(running, p),
+                                      lm_prior.TRIP_OPS_PER_PERSON * running),
+            "l1_one_trip_a_launch_lm_device_ms": (sum(l1_loop) / 1e3 / LM_LOOPS_TIMED
+                                                  if len(l1_loop) == iters * LM_LOOPS_TIMED
+                                                  else None),
+            "l1_one_trip_a_launch_launches_traced": len(l1_loop),
             "l2_device_ms": statistics.median(l2) / 1e3 if l2 else None,
             "l2_wrapper_ms": sync_time(lambda: lm_prior.lm_marginals(start[0], *ins), LM_TIMED),
             "l2_twin_ms": sync_time(lambda: lm_prior.lm_marginals_plain(start[0], *ins), 3),
             "l2_bound": bound_of(lm_prior.marginals_bytes(p), lm_prior.MARG_OPS_PER_PERSON * p),
         }
     log("15 lm kernels", gpu=repr(smi), batches=len(report), vs_twins="equal bit for bit",
-        iters_and_done="equal", cases="'" + json.dumps(report) + "'",
-        times="'" + json.dumps(times) + "'")
+        one_launch_vs_one_trip_a_launch="equal bit for bit", iters_and_done="equal",
+        cases="'" + json.dumps(report) + "'", times="'" + json.dumps(times) + "'")
     step = times["step"]
     return {
-        "lm_trip": (step["l1_device_ms"], step["l1_twin_ms"]) + step["l1_bound"],
+        "lm_trip": (step["l1_lm_device_ms"], step["l1_lm_twin_ms"]) + step["l1_lm_bound"],
         "lm_marginals": (step["l2_device_ms"], step["l2_twin_ms"]) + step["l2_bound"],
     }, 0.0
 
@@ -4107,7 +4193,7 @@ def main() -> int:
         matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_tf32=torch.backends.cudnn.allow_tf32,
         fp32_precision=torch.get_float32_matmul_precision(),
-        captured_loops="'one WHILE node per loop (ops/loops.py, csrc/graph_loop.cu)'",
+        captured_loops="'the merge one WHILE node (ops/loops.py, csrc/graph_loop.cu), the tree LM one launch of L1'",
         torch_if_nodes=hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
         torch_stream_to_pool=hasattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool"))
 
@@ -4161,9 +4247,8 @@ def run_phases(args, dev, smi, references) -> int:
     # launches: the wrappers' counts over the main path's run, the online
     # step's (phase 4) for K1, K2, L1 and L2 and the offline replay's
     # (phase 6) for K3. Both are CUDA graphs: the wrappers count their first
-    # call's warm-up and capture (L1 once per trip of the warm-up's LM and
-    # once for the capture's body), and a replay launches nothing on the
-    # host.
+    # call's warm-up and capture (L1, the whole LM, once in each), and a
+    # replay launches nothing on the host.
     # launches_by_path: the wrappers' counts per path, those of the online
     # step (phase 4), the offline path (6), the demo modes (10), the
     # end-to-end step (11, full width), training followed by the trained
@@ -4175,14 +4260,13 @@ def run_phases(args, dev, smi, references) -> int:
     # replays of phase 4's step (in phase 5), phase 6's replay of each scene, a chain of
     # STEP_PROFILED frames (13.2), PROFILED_REPLAYS end-to-end replays
     # (13.4) and phase 12's checked replays of the sharded paths (both
-    # scenes on every mesh; one fusion per fusion mesh); a trace can miss
-    # L1 inside the LM's WHILE node. No single PyTorch call computes JV, the
-    # fold, the scan, an LM trip or the tree marginals, so there is no
-    # library time. L1 and L2 port no pallas_call: they stand for XLA's
-    # fused while body and marginals of the JAX prior (`replaces` names
-    # those lines); their `ms` is the kernel's device time (phase 15: an L1
-    # launch from a batch's cold start), the others' the wrapper's by CUDA
-    # events.
+    # scenes on every mesh; one fusion per fusion mesh). No single PyTorch
+    # call computes JV, the fold, the scan, an LM or the tree marginals, so
+    # there is no library time. L1 and L2 port no pallas_call: they stand
+    # for XLA's fused while loop and marginals of the JAX prior (`replaces`
+    # names those lines); their `ms` is the kernel's device time (phase 15:
+    # L1's one launch of a whole LM from the step's cold start, with its
+    # twin and its bound), the others' the wrapper's by CUDA events.
     paths = {**launches, **step_on_device, **off_launches, **demo_launches, **e2e_paths,
              **sharded_launches, **captured_launches, **config_launches}
     names = ("jv_assign", "association_fold", "tracker_scan", "lm_trip", "lm_marginals")

@@ -55,36 +55,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
-def _digest() -> str:
+def _digest(sources, defines) -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in sources + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines)).encode())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, sources: tuple = SOURCES, defines: tuple = ()) -> Path:
     """Compile the kernels if this source state has no library yet; return
-    the library path."""
+    the library path. `sources` and `defines` (macros) make a variant
+    library of its own name; the main path's library is the default."""
     global build_seconds, build_log
-    out = BUILD_DIR / f"libses3d_kernels_{_digest()}.so"
+    variant = "".join(f"_{d.lower()}" for d in defines)
+    out = BUILD_DIR / f"libses3d_kernels{variant}_{_digest(sources, defines)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in sources]
     extra = ["-Xptxas", "-v"] if verbose else []
+    extra += [f"-D{d}" for d in defines]
     t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        for src, obj in zip(SOURCES, objs)
+        for src, obj in zip(sources, objs)
     ]
     logs = []
-    for src, proc in zip(SOURCES, procs):
+    for src, proc in zip(sources, procs):
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{stdout}\n{stderr}")
@@ -106,40 +109,55 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+# The C entry points' argument types: (name, argtypes); restype int.
+def _signatures() -> tuple:
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
+    return (
+        ("ses3d_jv_assign", [p, p, p, i, i, i, i, i, p]),
+        ("ses3d_jv_assign_smem_bytes", [i, i, i]),
+        ("ses3d_association_fold", [p, p, p, p, p, i, i, i, i, i, i, f, f, p]),
+        ("ses3d_association_fold_smem_bytes", [i, i, i, i]),
+        ("ses3d_tracker_scan", [p] * 16 + [i] * 8 + [f, f, i, f, f, p]),
+        ("ses3d_tracker_scan_smem_bytes", [i] * 5),
+        ("ses3d_loop_begin", [p, p, p, i, p, p, ctypes.POINTER(u)]),
+        ("ses3d_loop_next", [p, u, p, p, i, p]),
+        ("ses3d_loop_end", [p, ctypes.POINTER(u)]),
+        ("ses3d_lm_trip", [p] * 13 + [i] * 3 + [f] * 4 + [p] * 3),
+        ("ses3d_lm_marginals", [p] * 9 + [i, p]),
+        ("ses3d_lm_split", [p, i]),
+    )
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare the entry points it holds."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _signatures():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _LOAD_LOCK:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.ses3d_jv_assign.argtypes = [p, p, p, i, i, i, i, i, p]
-            lib.ses3d_jv_assign.restype = i
-            lib.ses3d_jv_assign_smem_bytes.argtypes = [i, i, i]
-            lib.ses3d_jv_assign_smem_bytes.restype = i
-            lib.ses3d_association_fold.argtypes = [
-                p, p, p, p, p, i, i, i, i, i, i, f, f, p
-            ]
-            lib.ses3d_association_fold.restype = i
-            lib.ses3d_association_fold_smem_bytes.argtypes = [i, i, i, i]
-            lib.ses3d_association_fold_smem_bytes.restype = i
-            lib.ses3d_tracker_scan.argtypes = [p] * 16 + [i] * 8 + [f, f, i, f, f, p]
-            lib.ses3d_tracker_scan.restype = i
-            lib.ses3d_tracker_scan_smem_bytes.argtypes = [i] * 5
-            lib.ses3d_tracker_scan_smem_bytes.restype = i
-            u = ctypes.c_ulonglong
-            lib.ses3d_loop_begin.argtypes = [p, p, p, i, p, p, ctypes.POINTER(u)]
-            lib.ses3d_loop_begin.restype = i
-            lib.ses3d_loop_next.argtypes = [p, u, p, p, i, p]
-            lib.ses3d_loop_next.restype = i
-            lib.ses3d_loop_end.argtypes = [p, ctypes.POINTER(u)]
-            lib.ses3d_loop_end.restype = i
-            lib.ses3d_lm_trip.argtypes = [p] * 13 + [i] + [f] * 4 + [p]
-            lib.ses3d_lm_trip.restype = i
-            lib.ses3d_lm_marginals.argtypes = [p] * 9 + [i, p]
-            lib.ses3d_lm_marginals.restype = i
-            _lib = lib
+            _lib = _load(build())
     return _lib
+
+
+# The macro that compiles the per-phase clock64() split into L1 and L2
+# (csrc/lm_prior.cu); the main path's library never defines it.
+LM_SPLIT_MACRO = "SES3D_LM_SPLIT"
+
+
+def lm_split_library(verbose: bool = False) -> ctypes.CDLL:
+    """csrc/lm_prior.cu alone, built with LM_SPLIT_MACRO: its kernels add
+    each phase's cycles into a device counter that `ses3d_lm_split` reads
+    (kernel_ab.py's `lm_split` case)."""
+    return _load(build(verbose, ("lm_prior.cu",), (LM_SPLIT_MACRO,)))
 
 
 def check(err: int, what: str) -> None:

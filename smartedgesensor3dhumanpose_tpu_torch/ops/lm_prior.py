@@ -1,27 +1,31 @@
-"""The skeleton prior's LM trip and tree marginals: kernels L1 and L2 and
-their plain PyTorch twins.
+"""The skeleton prior's LM and tree marginals: kernels L1 and L2 and their
+plain PyTorch twins.
 
 The JAX package runs each Levenberg-Marquardt iteration of the skeleton
 prior (`prior.py:438-461` there) as the body of one `lax.while_loop`, and
 XLA fuses that body into a handful of kernels. This module is the port's
 counterpart on the card (csrc/lm_prior.cu); it ports no `pallas_call`.
 
-* `lm_trip` (L1): one launch runs one whole LM iteration for every person,
-  in place on the carry (x, err, lam, done, iters, running, scratch):
-  linearise along the bone tree, damp, eliminate the tree levels deepest
-  first and back-substitute, take the step (non-finite components 0),
-  evaluate the new error and apply `prior._lm_trip`'s accept, convergence,
-  lambda and freeze rules. `running` is the loop's test: `iters` gains it
-  at the trip's start and it becomes "some person is not done" at the
-  end. `scratch` (int32 [2], zero) carries the count across the launch's
-  blocks and is zero again when the launch ends.
+* `lm_solve` (L1): one launch runs the whole LM for every person, in place
+  on the carry (x, err, lam, done, iters, running, scratch): each person's
+  warp runs trips (linearise along the bone tree, damp, eliminate the tree
+  levels deepest first and back-substitute, take the step with non-finite
+  components 0, evaluate the new error and apply `prior._lm_trip`'s
+  accept, convergence, lambda and freeze rules) until it is done or `iters`
+  reaches `max_trips`. Persons are independent and a finished one is
+  frozen, so this ends bit for bit where the loop of single trips ends:
+  `iters` gains the trips that loop runs (the most any person ran) and
+  `running` becomes "some person is not done". `scratch` (int32 [2], zero)
+  carries the count across the launch's blocks and is zero again when the
+  launch ends. `lm_trip` is the same kernel capped at one trip.
 * `lm_marginals` (L2): one launch computes, at the final x, the
   non-finite fallback to the measurements, the undamped tree linearisation,
   the forward elimination and the sparse-inverse sweep (the diagonal
   blocks of H^-1), `marg_ok` and the identity fallback (`prior.optimize`'s
   tail).
 
-`lm_trip_plain` and `lm_marginals_plain` are the twins: PyTorch in the
+`lm_trip_plain`, `lm_solve_plain` (the trip in a loop that stops as the
+kernel does) and `lm_marginals_plain` are the twins: PyTorch in the
 kernels' own order of summation (3x3 components, joints and bones in fixed
 order, each parent's children added in the level's bone order; the tables
 below), so the card holds each kernel to its twin bit for bit. The CPU
@@ -36,11 +40,13 @@ bone on an unmeasured belly).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import _kernels, skeleton
-from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tree_solve
+from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, loops, tree_solve
 
 K_JOINTS = skeleton.NUM_FUSION_JOINTS
 N_BONES = skeleton.NUM_BONES
@@ -50,8 +56,10 @@ BONE_J = skeleton.BONE_J.astype(np.int64)
 LEVELS = tuple(tuple(int(b) for b in lvl) for lvl in tree_solve.LEVELS)
 
 # Launches of each kernel; the wrappers add one per launch, under
-# _kernels.LAUNCH_LOCK.
+# _kernels.LAUNCH_LOCK ("lm_trip": L1, from lm_solve or lm_trip).
 KERNEL_LAUNCHES = {"lm_trip": 0, "lm_marginals": 0}
+# No cap on `iters` (lm_trip's single trip).
+_NO_CAP = 2**31 - 1
 
 
 def _incidence():
@@ -279,6 +287,19 @@ def lm_trip_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, c
     return x, err, lam, done, iters, running, scratch
 
 
+def lm_solve_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg,
+                   max_trips=None):
+    """L1's twin over a whole LM: `lm_trip_plain` while some person runs and
+    `iters` is below `max_trips` (default cfg.lm_max_iterations), as the
+    kernel stops; the last carry (new tensors)."""
+    cap = cfg.lm_max_iterations if max_trips is None else max_trips
+    for _ in range(max(0, cap - int(carry[4]))):
+        if not bool(carry[5]):
+            break
+        carry = lm_trip_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg)
+    return carry
+
+
 def lm_marginals_plain(x, meas, active, inv_cov, bone_active, bone_len, bone_w):
     """L2's twin: (x [P,K,3] with non-finite persons back at their
     measurements, marg [P,K,3,3], marg_ok [P])."""
@@ -315,34 +336,65 @@ def _count(name: str) -> None:
         KERNEL_LAUNCHES[name] += 1
 
 
-def lm_trip(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg):
-    """One LM iteration for every person (see the module docstring). CPU
-    tensors go to the twin, which returns a new carry; CUDA tensors to L1,
-    which updates the carry in place and returns it."""
-    if carry[0].device.type == "cpu":
-        return lm_trip_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg)
+def _launch(name, carry, inputs, cfg, max_trips: int, max_iters: int, lib) -> None:
+    """L1 on CUDA tensors, in place on the carry. While a CUDA graph is
+    captured with `loops.trip_log` set, the launch appends (trips, stamps)
+    to it as a WHILE node does: the trips its last replay ran and the
+    device clock at its start (stamps[0]) and end (stamps[trips])."""
     x, err, lam, done, iters, running, scratch = carry
-    inputs = [meas.contiguous(), active.contiguous(), inv_cov.contiguous(),
-              bone_active.contiguous(), bone_len.contiguous(), bone_w.contiguous()]
-    _check("lm_trip", list(carry) + inputs)
-    for t, name in ((x, "x"), (err, "err"), (lam, "lam"), (done, "done")):
+    inputs = [t.contiguous() for t in inputs]
+    _check(name, list(carry) + inputs)
+    for t, field in ((x, "x"), (err, "err"), (lam, "lam"), (done, "done")):
         if not t.is_contiguous():
-            raise ValueError(f"lm_trip updates {name} in place: it must be contiguous")
+            raise ValueError(f"{name} updates {field} in place: it must be contiguous")
     if scratch.dtype != torch.int32 or scratch.numel() != 2:
-        raise ValueError("lm_trip: scratch must be int32 [2]")
+        raise ValueError(f"{name}: scratch must be int32 [2]")
     p = x.shape[0]
     if p == 0:
-        return carry
-    lib = _kernels.library()
+        return
+    log_trips = log_stamps = None
+    if loops.trip_log is not None and linalg.capturing(x):
+        log_trips = torch.zeros((), dtype=torch.int32, device=x.device)
+        log_stamps = torch.zeros(min(max_trips, max_iters) + 1, dtype=torch.int64, device=x.device)
+        loops.trip_log.append((log_trips, log_stamps))
+    lib = _kernels.library() if lib is None else lib
     with torch.cuda.device(x.device):
         err_code = lib.ses3d_lm_trip(
             x.data_ptr(), err.data_ptr(), lam.data_ptr(), done.data_ptr(), iters.data_ptr(),
             running.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in inputs), p,
-            float(cfg.lm_lambda_factor), float(cfg.lm_lambda_upper),
+            max_trips, max_iters, float(cfg.lm_lambda_factor), float(cfg.lm_lambda_upper),
             float(cfg.lm_absolute_error_tol), float(cfg.lm_relative_error_tol),
+            None if log_trips is None else log_trips.data_ptr(),
+            None if log_stamps is None else log_stamps.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err_code, f"lm_trip launch (P = {p})")
+    _kernels.check(err_code, f"{name} launch (P = {p})")
     _count("lm_trip")
+
+
+def lm_solve(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg, max_trips=None,
+             _lib=None):
+    """The whole LM for every person (see the module docstring): trips until
+    every person is done or `iters` reaches `max_trips` (default
+    cfg.lm_max_iterations). CPU tensors go to the twin, which returns a new
+    carry; CUDA tensors to one launch of L1, which updates the carry in
+    place and returns it, with no host sync. `_lib`: another build of the
+    kernels (kernel_ab.py's split)."""
+    cap = cfg.lm_max_iterations if max_trips is None else max_trips
+    if carry[0].device.type == "cpu":
+        return lm_solve_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg, cap)
+    _launch("lm_solve", carry, (meas, active, inv_cov, bone_active, bone_len, bone_w), cfg, cap,
+            cap, _lib)
+    return carry
+
+
+def lm_trip(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg, _lib=None):
+    """One LM iteration for every person: L1 capped at one trip, with no cap
+    on `iters`. CPU tensors go to the twin, which returns a new carry; CUDA
+    tensors to L1, which updates the carry in place and returns it."""
+    if carry[0].device.type == "cpu":
+        return lm_trip_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg)
+    _launch("lm_trip", carry, (meas, active, inv_cov, bone_active, bone_len, bone_w), cfg, 1,
+            _NO_CAP, _lib)
     return carry
 
 
@@ -403,9 +455,11 @@ _F32 = 4
 
 
 def trip_bytes(running: int, persons: int) -> int:
-    """Bytes L1 must move: every person's `done`, each running person's
-    inputs read once and outputs written once (a done person is neither
-    read nor written), the bone tables and the loop's counters."""
+    """Bytes one launch of L1 must move, a whole LM or one trip alike: every
+    person's `done`, each running person's inputs read once and outputs
+    written once (a done person is neither read nor written), the bone
+    tables and the loop's counters. Its operations are
+    TRIP_OPS_PER_PERSON for each trip of each person."""
     # Read: x, meas, C, err, lam and the flags; written: x, err, lam, done.
     per = _F32 * (2 * K_JOINTS * 3 + K_JOINTS * 9 + 2) + K_JOINTS + N_BONES
     out = _F32 * (K_JOINTS * 3 + 2) + 1
@@ -418,3 +472,18 @@ def marginals_bytes(persons: int) -> int:
     per = _F32 * (2 * K_JOINTS * 3 + K_JOINTS * 9) + N_BONES
     out = _F32 * (K_JOINTS * 3 + K_JOINTS * 9) + 1
     return persons * (per + out) + _F32 * 2 * N_BONES
+
+
+# The counters of the clock64() split (csrc/lm_prior.cu, SplitSlot), built
+# only into _kernels.lm_split_library().
+SPLIT_SLOTS = ("load", "linearize", "eliminate", "back_substitute", "step_error", "rules",
+               "store", "ticket", "trips", "warps", "blocks")
+
+
+def read_split(lib) -> dict:
+    """The split library's counters since the last read, zeroed by it:
+    cycles of each phase summed over warps (the ticket over blocks), the
+    warps' trips, the warps that ran a trip, the blocks."""
+    out = (ctypes.c_ulonglong * len(SPLIT_SLOTS))()
+    _kernels.check(lib.ses3d_lm_split(ctypes.addressof(out), len(SPLIT_SLOTS)), "lm split read")
+    return dict(zip(SPLIT_SLOTS, (int(v) for v in out)))

@@ -3,7 +3,8 @@ static bound on its trips.
 
 The JAX package runs two such loops on the device: the LM iteration
 (`prior.optimize`) and the track-merge fixpoint (`tracking._merge_tracks`).
-`while_loop(cond, body, carry, max_trips)` is their counterpart here.
+`while_loop(cond, body, carry, max_trips)` is their counterpart here (on
+CUDA the tree solver's LM is one kernel launch instead, ops/lm_prior.py).
 
 Eagerly (on the CPU, or on CUDA outside a capture) it tests `cond(carry)`
 on the host before each trip, as a Python `while` does.
@@ -17,8 +18,7 @@ the test holds, at most `max_trips` times. A replay runs the trips the
 eager loop runs; a trip that does not run costs nothing.
 
 The carry lives in tensors allocated before the node, and the body writes
-them in place (a body that returns its carry's own tensors, as kernel L1
-does, adds no copy). A tensor allocated inside the body never leaves it:
+them in place (a body that returns its carry's own tensors adds no copy). A tensor allocated inside the body never leaves it:
 where the device runs the body no time, that memory holds whatever it
 held before. Each captured graph has its own `Bodies`: the stream its loops'
 bodies capture on and the memory pool they allocate from, kept as long as
@@ -41,8 +41,10 @@ from smartedgesensor3dhumanpose_tpu_torch.ops import linalg
 # None, or a list to which every WHILE node captured while it is set
 # appends (trips, stamps): the trips the node's last replay ran (int32) and
 # the device clock at the loop's start and at the end of each trip run (ns,
-# int64 [max_trips + 1]). Each replay rewrites both, and the list keeps
-# them alive. It is for measurement (chip_smoke.py); a profiler trace of a
+# int64 [max_trips + 1]). The LM's one launch (ops/lm_prior.py `lm_solve`)
+# appends the same record, with the clock at its start and at its end
+# (stamps[trips]) only. Each replay rewrites both, and the list keeps them
+# alive. It is for measurement (chip_smoke.py); a profiler trace of a
 # replay may miss some of a loop body's kernels.
 trip_log = None
 
@@ -164,8 +166,8 @@ def while_loop(cond, body, carry: tuple, max_trips: int) -> tuple:
     WHILE node on the device (module docstring) and the result lies in
     copies of `carry` that the body writes in place; both give the same
     carry bit for bit. The loop itself never writes the caller's tensors;
-    a body that updates its carry in place (L1, ops/lm_prior.py) writes
-    them when the loop runs eagerly.
+    a body that updates its carry in place writes them when the loop runs
+    eagerly.
     """
     if not linalg.capturing(carry[0]):
         for _ in range(max_trips):

@@ -21,11 +21,12 @@ captured (graphs.py) it is one WHILE node that the device leaves once
 every person is done, after at most `lm_max_iterations` trips. Both give
 the same result bit for bit (see `optimize`).
 
-With the tree solver on CUDA the trip is one kernel, L1, and the
-marginals after the loop another, L2 (ops/lm_prior.py,
-csrc/lm_prior.cu): the port's counterpart of XLA's fused while body. Their
-float32 sums run in another order than `_lm_trip`'s. On the CPU, and with
-`solver="dense"`, the trip is `_lm_trip`.
+With the tree solver on CUDA the whole loop is one kernel, L1, and the
+marginals after it another, L2 (ops/lm_prior.py, csrc/lm_prior.cu): the
+port's counterpart of XLA's fused while loop, with no host test eagerly
+and no WHILE node in a graph. Their float32 sums run in another order
+than `_lm_trip`'s. On the CPU, and with `solver="dense"`, the trip is
+`_lm_trip` in `loops.while_loop`.
 """
 
 from __future__ import annotations
@@ -341,9 +342,9 @@ def optimize(g_in: GraphInputs, warm_start, cfg: PriorConfig, _fused=None) -> Pr
     joint persisted, else the measurement). The iteration stops when every
     person is done or after lm_max_iterations (`loops.while_loop`: a host
     test per iteration eagerly, a WHILE node in a CUDA graph); `iters`
-    counts the trips run. The tree solver on CUDA runs kernels L1 and L2
-    (`lm_prior.takes`); `_fused` overrides that choice (the tests run the
-    kernels' twins on the CPU through it).
+    counts the trips run. The tree solver on CUDA runs the whole loop as
+    one launch of L1, then L2 (`lm_prior.takes`); `_fused` overrides that
+    choice (the tests run the kernels' twins on the CPU through it).
     """
     p = g_in.meas.shape[0]
     carry, bones = _lm_start(g_in, warm_start, cfg)
@@ -391,8 +392,8 @@ def _lm_start(g_in: GraphInputs, warm_start, cfg: PriorConfig):
 
 
 def _fused_carry(carry):
-    """L1's carry: `carry` and the loop's test, `running`, which L1 keeps
-    (so the test adds no kernel to a trip), and L1's scratch counter."""
+    """L1's carry: `carry`, the loop's test `running` (some person not
+    done), which L1 keeps, and L1's scratch counter."""
     done = carry[3]
     return carry + (~done.all(), torch.zeros(2, dtype=torch.int32, device=done.device))
 
@@ -404,13 +405,11 @@ def _fused_inputs(g_in: GraphInputs, bones: _Bones) -> tuple:
 
 
 def _optimize_fused(carry, g_in: GraphInputs, bones: _Bones, cfg: PriorConfig) -> PriorResult:
-    """`optimize`'s loop and tail as kernels L1 (one per trip) and L2."""
+    """`optimize`'s loop and tail as kernels L1 (the whole loop, one launch)
+    and L2."""
     inputs = _fused_inputs(g_in, bones)
-    x, _, _, _, iters, _, _ = loops.while_loop(
-        lambda c: c[5],
-        lambda c: lm_prior.lm_trip(c, *inputs, cfg),
-        _fused_carry(carry), cfg.lm_max_iterations,
-    )
+    x, _, _, _, iters, _, _ = lm_prior.lm_solve(_fused_carry(carry), *inputs, cfg,
+                                                cfg.lm_max_iterations)
     x, marg, marg_ok = lm_prior.lm_marginals(x, *inputs)
     return PriorResult(x=x, marg_cov=marg, marg_ok=marg_ok, iters=iters)
 

@@ -48,7 +48,7 @@ from smartedgesensor3dhumanpose_tpu_torch import (
     tracking,
 )
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
-from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, loops, tracker
+from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, lm_prior, loops, tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame, Persons3D, TrackerState
 
 pytestmark = pytest.mark.torch_port
@@ -279,16 +279,25 @@ def test_fixed_trip_lm_equals_early_exit(golden_persons, scene, monkeypatch):
 @pytest.mark.parametrize("scene", sorted(LM_FRAMES))
 def test_l1_route_lm_in_a_while_node_equals_eager(golden_persons, scene):
     """The LM as the card's tree route runs it (`optimize(..., _fused=True)`:
-    the loop's test kept in the carry, L1's twin as the body, L2's after
-    the loop) in a WHILE node equals its eager loop bit for bit, with the
-    eager trips."""
+    the whole loop one `lm_solve`, here its twin, then L2's) captures no
+    WHILE node and equals its eager run bit for bit; L1 capped at one trip
+    as the body of a WHILE node (the route before the loop became one
+    launch) ends at the same carry, with the eager trips."""
     cfg = config.PipelineConfig.demo_16cam().prior
     g_in = prior.build_graph_inputs(golden_persons[scene], cfg)
     eager = prior.optimize(g_in, g_in.meas, cfg, _fused=True)
     with device_loops() as graph:
         node = prior.optimize(g_in, g_in.meas, cfg, _fused=True)
-    assert graph.trips == [int(eager.iters)]
+    assert graph.trips == []
     _equal_trees(node, eager, f"{scene} L1 route")
+    carry, bones = prior._lm_start(g_in, g_in.meas, cfg)
+    ins = prior._fused_inputs(g_in, bones)
+    start = prior._fused_carry(carry)
+    with device_loops() as graph:
+        looped = loops.while_loop(lambda c: c[5], lambda c: lm_prior.lm_trip(c, *ins, cfg),
+                                  start, cfg.lm_max_iterations)
+    assert graph.trips == [int(eager.iters)]
+    _equal_trees(looped, lm_prior.lm_solve(start, *ins, cfg), f"{scene} trips in a WHILE node")
 
 
 def test_while_loop_body_that_updates_its_carry_in_place():

@@ -1,8 +1,9 @@
-"""Kernels L1 (one LM trip) and L2 (the tree marginals), ops/lm_prior.py:
-their plain twins against the port's plain LM (`prior._lm_trip`,
-`tree_solve.tree_solve_levels`) and against the JAX package, the routing,
-the tables csrc/lm_prior.cu holds, and on a card the kernels against their
-twins bit for bit.
+"""Kernels L1 (the whole LM in one launch, or one trip) and L2 (the tree
+marginals), ops/lm_prior.py: their plain twins against the port's plain LM
+(`prior._lm_trip`, `tree_solve.tree_solve_levels`) and against the JAX
+package, the LM's twin (`lm_solve_plain`) against the loop of single
+trips, the routing, the tables csrc/lm_prior.cu holds, and on a card the
+kernels against their twins bit for bit.
 
 The twins sum in the kernels' fixed order, the plain path in einsum's and
 index_add's. In float64 they agree to rounding for 6 trips: 1e-12 of the
@@ -19,6 +20,7 @@ tests/test_torch_ops.py's prior test.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -35,7 +37,7 @@ from smartedgesensor3dhumanpose_tpu.types import Persons3D as JaxPersons3D
 from smartedgesensor3dhumanpose_tpu_torch import cameras, config, fusion, pipeline, prior, skeleton
 from smartedgesensor3dhumanpose_tpu_torch.config import PriorConfig
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
-from smartedgesensor3dhumanpose_tpu_torch.ops import lm_prior, tree_solve
+from smartedgesensor3dhumanpose_tpu_torch.ops import lm_prior, loops, tree_solve
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame, Persons3D
 
 pytestmark = pytest.mark.torch_port
@@ -143,6 +145,102 @@ def test_trip_twin_leaves_a_finished_batch_as_it_is(golden_persons):
     again = lm_prior.lm_trip_plain(fused, *ins, cfg)
     for a, b in zip(again, fused):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------ the whole LM --
+
+def _loop(carry, ins, cfg, max_trips):
+    """The per-trip LM: `loops.while_loop` over the single trip, at most
+    max_trips trips."""
+    return loops.while_loop(lambda c: c[5], lambda c: lm_prior.lm_trip_plain(c, *ins, cfg),
+                            carry, max_trips)
+
+
+def _assert_carries_equal(got, want):
+    """x, err, lam, done, iters and the test equal bit for bit; scratch zero."""
+    for a, b in zip(got[:6], want[:6]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[6].tolist() == [0, 0]
+
+
+DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("scene", sorted(FRAMES))
+def test_solve_twin_equals_loop_of_trips(golden_persons, scene, dtype):
+    """`lm_solve_plain` (L1's twin over a whole LM) ends where the loop of
+    single trips ends, bit for bit, with JAX's count."""
+    cfg = config.PipelineConfig.demo_16cam().prior
+    _, _, start, ins, _ = _start(_as(golden_persons[scene], DTYPES[dtype]), cfg)
+    got = lm_prior.lm_solve_plain(start, *ins, cfg)
+    want = _loop(start, ins, cfg, cfg.lm_max_iterations)
+    _assert_carries_equal(got, want)
+    assert 0 < int(got[4]) <= cfg.lm_max_iterations
+    assert bool(got[5]) == (not bool(got[3].all()))
+    assert int(start[4]) == 0  # the twin returns new tensors
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("scene", sorted(FRAMES))
+def test_solve_twin_at_a_cap_that_leaves_persons_running(golden_persons, scene, dtype):
+    """At lm_max_iterations = 3 some persons end not done: the twin stops at
+    the cap, as the loop does, bit for bit, and the test stays set."""
+    cfg = dataclasses.replace(config.PipelineConfig.demo_16cam().prior, lm_max_iterations=3)
+    _, _, start, ins, _ = _start(_as(golden_persons[scene], DTYPES[dtype]), cfg)
+    got = lm_prior.lm_solve_plain(start, *ins, cfg)
+    _assert_carries_equal(got, _loop(start, ins, cfg, 3))
+    assert int(got[4]) == 3 and bool(got[5]) and not bool(got[3].all())
+    # A cap below cfg's, passed to the wrapper (the CPU takes the twin).
+    two = lm_prior.lm_solve(start, *ins, cfg, 2)
+    _assert_carries_equal(two, _loop(start, ins, cfg, 2))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_solve_twin_leaves_a_finished_batch_as_it_is(golden_persons, dtype):
+    """Every person done at the start: no trip, `iters` 0, the carry as it
+    was."""
+    cfg = config.PipelineConfig.demo_16cam().prior
+    g_in, carry, _, ins, _ = _start(_as(golden_persons["benign"], DTYPES[dtype]), cfg)
+    start = prior._fused_carry(carry[:3] + (torch.ones_like(carry[3]),) + carry[4:])
+    assert not bool(start[5])
+    got = lm_prior.lm_solve_plain(start, *ins, cfg)
+    _assert_carries_equal(got, start)
+    assert int(got[4]) == 0
+
+
+@pytest.mark.parametrize("scene", sorted(FRAMES))
+def test_solve_twin_from_a_carry_with_trips_run(golden_persons, scene):
+    """A carry that starts with iters_in = 2 > 0: the twin runs at most
+    lm_max_iterations - 2 more trips and ends where the loop from that
+    carry ends, and where the LM from the cold start ends."""
+    cfg = config.PipelineConfig.demo_16cam().prior
+    _, _, start, ins, _ = _start(_as(golden_persons[scene], torch.float64), cfg)
+    mid = lm_prior.lm_trip_plain(lm_prior.lm_trip_plain(start, *ins, cfg), *ins, cfg)
+    assert int(mid[4]) == 2 and bool(mid[5])
+    got = lm_prior.lm_solve_plain(mid, *ins, cfg)
+    _assert_carries_equal(got, _loop(mid, ins, cfg, cfg.lm_max_iterations - 2))
+    _assert_carries_equal(got, lm_prior.lm_solve_plain(start, *ins, cfg))
+
+
+@pytest.mark.parametrize("scene", sorted(FRAMES))
+def test_fused_lm_at_a_cap_matches_jax(golden_persons, scene):
+    """`optimize(_fused=True)` (the one-launch route, through its twins on
+    the CPU) against JAX's `optimize` at lm_max_iterations = 3, float64:
+    the same count, joints within 1e-8, the marginals within the budgets
+    of test_torch_ops.py's prior test."""
+    cfg = dataclasses.replace(config.PipelineConfig.demo_16cam().prior, lm_max_iterations=3)
+    jcfg = JaxPriorConfig(lm_max_iterations=3)
+    p64 = _as(golden_persons[scene], torch.float64)
+    jp = JaxPersons3D(*(jnp.asarray(x.numpy()) for x in p64))
+    jg = jax.jit(jax_prior.build_graph_inputs, static_argnums=1)(jp, jcfg)
+    jr = jax.jit(jax_prior.optimize, static_argnums=2)(jg, jg.meas, jcfg)
+    g_in = prior.build_graph_inputs(p64, cfg)
+    tr = prior.optimize(g_in, g_in.meas, cfg, _fused=True)
+    assert int(tr.iters) == int(jr.iters) == 3
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=0, atol=1e-8)
+    np.testing.assert_array_equal(tr.marg_ok.numpy(), np.asarray(jr.marg_ok))
+    np.testing.assert_allclose(tr.marg_cov.numpy(), np.asarray(jr.marg_cov), rtol=1e-6, atol=1e-15)
 
 
 # ------------------------------------------------------- the marginals --
@@ -267,8 +365,10 @@ def test_cuda_source_holds_the_tables():
 
 def test_routes(golden_persons, monkeypatch):
     """The tree solver goes to L1 and L2 on CUDA only; the CPU runs the
-    plain trip and the dense solver never runs them; a CUDA float64 input
-    raises TypeError."""
+    plain trip and the dense solver never runs them; the kernels' route
+    (forced on the CPU with `_fused`) makes one `lm_solve` call and one
+    `lm_marginals` call per LM and no `loops.while_loop`; a CUDA float64
+    input raises TypeError."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg = config.PipelineConfig.demo_16cam().prior
@@ -278,10 +378,33 @@ def test_routes(golden_persons, monkeypatch):
         raise AssertionError("the CPU ran a kernel's route")
 
     assert not lm_prior.takes(g_in.meas, "tree")
-    monkeypatch.setattr(lm_prior, "lm_trip", refused)
-    monkeypatch.setattr(lm_prior, "lm_marginals", refused)
+    for name in ("lm_solve", "lm_trip", "lm_marginals"):
+        monkeypatch.setattr(lm_prior, name, refused)
     prior.optimize(g_in, g_in.meas, cfg)
     monkeypatch.undo()
+
+    calls = {"lm_solve": 0, "lm_marginals": 0}
+
+    def counted(name):
+        fn = getattr(lm_prior, name)
+
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        return call
+
+    def no_loop(*a, **k):
+        raise AssertionError("the kernels' route ran loops.while_loop")
+
+    for name in calls:
+        monkeypatch.setattr(lm_prior, name, counted(name))
+    monkeypatch.setattr(lm_prior, "lm_trip", refused)
+    monkeypatch.setattr(loops, "while_loop", no_loop)
+    res = prior.optimize(g_in, g_in.meas, cfg, _fused=True)
+    monkeypatch.undo()
+    assert calls == {"lm_solve": 1, "lm_marginals": 1}
+    assert 0 < int(res.iters) < cfg.lm_max_iterations
     with FakeTensorMode():
         x = torch.empty((4, 21, 3), device="cuda")
         assert lm_prior.takes(x, "tree") and not lm_prior.takes(x, "dense")
@@ -294,6 +417,8 @@ def test_routes(golden_persons, monkeypatch):
         with pytest.raises(TypeError, match="float32"):
             lm_prior.lm_trip(tuple(f64), *ins, cfg)
         with pytest.raises(TypeError, match="float32"):
+            lm_prior.lm_solve(tuple(f64), *ins, cfg)
+        with pytest.raises(TypeError, match="float32"):
             lm_prior.lm_marginals(f64[0], *ins)
 
 
@@ -302,7 +427,9 @@ def test_routes(golden_persons, monkeypatch):
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card(golden_persons):
     """L1 and L2 against their twins, bit for bit, over a whole LM of each
-    scene's persons (float32 on the card)."""
+    scene's persons (float32 on the card): L1 one trip a launch against
+    `lm_trip_plain`, and the whole LM in one launch against
+    `lm_solve_plain` and against the trips one a launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: L1 and L2 are CUDA kernels")
     cfg = config.PipelineConfig.demo_16cam().prior
@@ -310,6 +437,9 @@ def test_kernels_match_twins_on_card(golden_persons):
     for persons in golden_persons.values():
         persons = Persons3D(*(x.to(dev) for x in persons))
         _, _, want, ins, _ = _start(persons, cfg)
+        start = tuple(t.clone() for t in want)
+        one = lm_prior.lm_solve(tuple(t.clone() for t in start), *ins, cfg)
+        _assert_carries_equal(one, lm_prior.lm_solve_plain(start, *ins, cfg))
         got = tuple(t.clone() for t in want)
         trips = 0
         while bool(want[5]) and trips < cfg.lm_max_iterations:
@@ -319,6 +449,7 @@ def test_kernels_match_twins_on_card(golden_persons):
             for a, b in zip(got[:6], want[:6]):
                 assert torch.equal(a, b)
             assert got[6].tolist() == [0, 0]
+        _assert_carries_equal(one, got)
         for a, b in zip(lm_prior.lm_marginals(got[0], *ins),
                         lm_prior.lm_marginals_plain(got[0], *ins)):
             assert torch.equal(a, b)
