@@ -1,0 +1,16 @@
+"""The benchmark's own tests (run with `python -m pytest portbench/tests`,
+not collected by `pytest tests/`)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (a CUDA kernel has no CPU mode); skips without one",
+    )
