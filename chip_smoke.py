@@ -105,7 +105,7 @@ Phases (each prints one line; any failure exits non-zero):
     and memory, each graph's top-level nodes and the device's idle share
     (back to back against waited for); the loops of every captured path
     (the LM one launch of L1, the merge a WHILE node): the trips each ran
-    on the device, from the loops' own log (loops.trip_log), against the
+    on the device, from the loops' own log (the tracer's trip log), against the
     eager loops' trips (the LM's iters) and against lm_max_iterations; the
     LM's graph (no WHILE node, no host sync eagerly), its device clock and
     ms per trip run and skipped, against the per-trip route (L1 one trip
@@ -2353,7 +2353,7 @@ def lm_spans(log) -> list:
 def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
     """run_offline_sharded over both golden scenes on `mesh`, every graph
     captured anew by the first call (benign) with the loops' trip log on
-    (loops.trip_log), checked:
+    (the tracer's trip log), checked:
       - the first call: the wrappers count each kernel of every graph
         twice (warm-up and capture): K1 = 0, K2 = 2 per chunk of each data
         shard, K3 = 2; its seconds and the memory it reserves;
@@ -2376,7 +2376,7 @@ def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
         adversarial one (ROADMAP C2).
     Returns ((K1, K2, K3, L1, L2) of the first call on the host, the same
     of the checked replays on the device, report, trip log)."""
-    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
+    from smartedgesensor3dhumanpose_tpu_torch import tracing
     from smartedgesensor3dhumanpose_tpu_torch.parallel import sharding
     from smartedgesensor3dhumanpose_tpu_torch.types import TrackerState
 
@@ -2393,11 +2393,9 @@ def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
 
     fresh_sharded_graphs()
     reset_counts()
-    loops.trip_log = []
-    try:
+    with tracing.Tracer() as tracer:
         _, first_s, first_mib = first_call(lambda: call("benign"))
-    finally:
-        trip_log, loops.trip_log = loops.trip_log, None
+    trip_log = tracer.trip_log()
     first = read_counts()
     if first[:3] != tuple(FIRST_CALL_HOST_LAUNCHES * c for c in want_counts):
         raise AssertionError(f"sharded {label}: the first call counted (K1, K2, K3) = {first} "
@@ -2847,34 +2845,27 @@ def profile_device(fn, reps: int) -> tuple:
 
 def captured_with_log(fn, *args):
     """(fn captured anew as graphs.CapturedFunction and called on `args`,
-    the trip log of its WHILE nodes): loops.trip_log is on while it
-    captures, so every replay writes, on the device, the trips each loop
-    ran and the device clock at the loop's start and at each trip's end."""
-    from smartedgesensor3dhumanpose_tpu_torch import graphs
-    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
+    the trip log of its loops): a tracer records while it captures, so
+    every replay writes, on the device, the trips each loop ran and the
+    device clock at the loop's start and at each trip's end."""
+    from smartedgesensor3dhumanpose_tpu_torch import graphs, tracing
 
     captured = graphs.CapturedFunction(fn, "trip log")
-    loops.trip_log = []
-    try:
+    with tracing.Tracer() as tracer:
         captured(*args)
-    finally:
-        log, loops.trip_log = loops.trip_log, None
-    return captured, log
+    return captured, tracer.trip_log()
 
 
 def loop_body_nodes(fn, *args) -> list:
     """The nodes of each WHILE body of `fn`'s graph, captured anew for
-    `args`: one trip's kernels and copies, the trip's test included."""
-    from smartedgesensor3dhumanpose_tpu_torch import graphs
-    from smartedgesensor3dhumanpose_tpu_torch.ops import loops
+    `args`: one trip's kernels and copies, the trip's test included (the
+    tracer's `loop.body_nodes` counters)."""
+    from smartedgesensor3dhumanpose_tpu_torch import graphs, tracing
 
     captured = graphs.CapturedFunction(fn, "body nodes")
-    loops.body_nodes = []
-    try:
+    with tracing.Tracer() as tracer:
         captured(*args)
-    finally:
-        nodes, loops.body_nodes = loops.body_nodes, None
-    return nodes
+    return tracer.body_nodes()
 
 
 def log_trips(log) -> list:

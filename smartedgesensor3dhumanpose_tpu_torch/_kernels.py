@@ -122,6 +122,8 @@ def _signatures() -> tuple:
         ("ses3d_loop_begin", [p, p, p, i, p, p, ctypes.POINTER(u)]),
         ("ses3d_loop_next", [p, u, p, p, i, p]),
         ("ses3d_loop_end", [p, ctypes.POINTER(u)]),
+        ("ses3d_stage_mark", [p, p, p, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]),
+        ("ses3d_clock_probe", [p, p, p, ctypes.c_longlong]),
         ("ses3d_lm_trip", [p] * 13 + [i] * 3 + [f] * 4 + [p] * 3),
         ("ses3d_lm_marginals", [p] * 9 + [i, p]),
         ("ses3d_lm_split", [p, i]),

@@ -9,15 +9,16 @@ captures each entry point as a CUDA graph instead and replays it.
 library loads, `linalg.constant` uploads its tables), then captures it once
 per signature of its inputs (the tree of NamedTuples and tuples, and each
 tensor's shape, dtype and device), as `jax.jit` compiles once per shape.
-While a stream captures (`linalg.capturing`), the LM (`prior.optimize`)
-and the merge (`tracking._merge_tracks`) are each one CUDA-graph WHILE
-node whose body the device runs while the loop's test holds
-(ops/loops.py), with no host test of a device value; both loops equal
-their eager runs bit for bit. A call copies its inputs into
-the graph's static input tensors, replays the graph and returns fresh
-copies of the static outputs: the entry points stay functional (the
-caller's tensors are never written and a result survives the next call),
-where the JAX package donates its state buffers instead.
+While a stream captures (`linalg.capturing`), the merge
+(`tracking._merge_tracks`) and the LM of the dense solver
+(`prior.optimize`) are each one CUDA-graph WHILE node whose body the
+device runs while the loop's test holds (ops/loops.py), with no host test
+of a device value; both loops equal their eager runs bit for bit (the
+tree solver's LM is one launch of kernel L1 on CUDA). A call copies its
+inputs into the graph's static input tensors, replays the graph and
+returns fresh copies of the static outputs: the entry points stay
+functional (the caller's tensors are never written and a result survives
+the next call), where the JAX package donates its state buffers instead.
 
 Each graph holds a private memory pool for its intermediates, and one for
 the bodies of its loops (`loops.Bodies`), as long as it is kept. A
@@ -31,20 +32,26 @@ replayed at once on several streams (parallel/sharding.py).
 The kernel wrappers count their launches on the host (`KERNEL_LAUNCHES`
 in ops/hungarian.py, ops/association.py, ops/tracker.py): the warm-up
 launches each kernel of `fn` once, the capture records it once, and a
-replay adds nothing on the host; the kernels a replay runs show in a
-device trace (torch.profiler). A capture that fails raises, naming the
+replay adds nothing there. A replay's launches are the tracer's per-stage
+counters instead (tracing.py): the graphs of a `Pipeline(..., trace=True)`
+count their kernel nodes per stage at capture (`<stage>.kernels`), and
+their stage marks time each replay on the device. While a tracer records,
+a call also records its host spans `graph.copy_in`, `graph.replay` (the
+launch call) and `graph.copy_out`. A capture that fails raises, naming the
 line of the port that broke it; nothing falls back to eager execution.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 import traceback
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from smartedgesensor3dhumanpose_tpu_torch import tracing
 from smartedgesensor3dhumanpose_tpu_torch.ops import loops
 
 _PACKAGE = Path(__file__).resolve().parent
@@ -138,7 +145,10 @@ class CapturedFunction:
     input signature and replayed (see the module docstring). `fn` must be
     functional and read nothing but its arguments and tensors that outlive
     the graph (a rig, a model's parameters, `linalg.constant` tables).
-    One caller at a time: calls share the graph's static buffers."""
+    One caller at a time: calls share the graph's static buffers.
+    `marks`: the tracing.StageMarks that `fn` writes its stage marks to (a
+    traced pipeline's), or None; the loops of its captures then record
+    into that ring's tracer."""
 
     # Signatures whose graphs are kept (each graph holds its own pool).
     max_graphs = 4
@@ -146,9 +156,10 @@ class CapturedFunction:
     # `CUDAGraph.raw_cuda_graph()` (to count its nodes).
     keep_graph = False
 
-    def __init__(self, fn, name: str):
+    def __init__(self, fn, name: str, marks=None):
         self.fn = fn
         self.name = name
+        self.marks = marks
         self.graphs: collections.OrderedDict = collections.OrderedDict()
 
     def _capture(self, leaves, spec) -> _Graph:
@@ -167,8 +178,10 @@ class CapturedFunction:
                 self.fn(*args)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
+            tracer = tracing.active() if self.marks is None else self.marks.tracer
             try:
-                with torch.cuda.graph(graph, stream=stream), loops.capturing_into(bodies):
+                with torch.cuda.graph(graph, stream=stream), loops.capturing_into(bodies), \
+                        tracing.recording(tracer):
                     out = self.fn(*args)
             except Exception as exc:
                 raise RuntimeError(
@@ -192,8 +205,31 @@ class CapturedFunction:
     def __call__(self, *args):
         leaves, spec = flatten(args)
         g = self._graph_for(leaves, spec)
+        tracer = tracing.active()
+        if tracer is None and self.marks is None:
+            copy_all(g.inputs, leaves)
+            g.graph.replay()
+            return self._outputs(g)
+        now = time.perf_counter_ns
+        t0 = now()
         copy_all(g.inputs, leaves)
+        t1 = now()
         g.graph.replay()
+        t2 = now()
+        out = self._outputs(g)
+        t3 = now()
+        replay = None
+        if tracer is not None:
+            tracer.span("graph.copy_in", t0, t1)
+            replay = tracer.span("graph.replay", t1, t2)
+            tracer.span("graph.copy_out", t2, t3)
+        if self.marks is not None:
+            self.marks.replayed(parent=replay)
+        return out
+
+    @staticmethod
+    def _outputs(g: _Graph):
+        """Fresh copies of a replay's static outputs."""
         outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in g.outputs]
         copy_all(outs, g.outputs)
         return unflatten(g.out_spec, outs)

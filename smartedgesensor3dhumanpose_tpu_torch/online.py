@@ -13,6 +13,10 @@ The producer touches no tensor: frames are indexed (or built from host
 arrays) and stepped in the consumer. On CUDA the step's clock stops after
 `torch.cuda.synchronize`, so `step_ms` is the device's work too and not
 only the Python dispatch.
+
+The synchronized loop keeps each stepped set's timeline on the host clock
+(`OnlineSyncedReport.sets`, `SET_SPANS`); while a tracer records
+(tracing.py) it records the same spans there, tied to the set's index.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import sync as sync_lib
+from smartedgesensor3dhumanpose_tpu_torch import tracing
 from smartedgesensor3dhumanpose_tpu_torch.pipeline import synchronize
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame
 
@@ -130,7 +135,18 @@ class OnlineSyncedReport(NamedTuple):
     e2e_ms_p50: float           # newest-contributing-message arrival -> step done
     step_ms: List[float]
     e2e_ms: List[float]
+    # One row per stepped set, in step order: the set's index, then the
+    # host clock (perf_counter ns) at the push of its newest message (as
+    # the loop hands it to the synchronizer), the
+    # synchronizer's pop, the end of packing (the slot's put), the slot's
+    # take, the step's entry (the frame built) and the return of the
+    # synchronize after the step. Span k of SET_SPANS runs from stamp k to
+    # stamp k + 1, so the five tile the set's end-to-end latency.
+    sets: np.ndarray
 
+
+# The spans of a stepped set, in order (OnlineSyncedReport.sets).
+SET_SPANS = ("sync.hold", "sync.pack", "slot", "frame.build", "step")
 
 _FLOAT_FIELDS = ("kp2d", "cov2d", "det_score", "fb_delay")
 
@@ -191,27 +207,30 @@ def run_online_synced(
     )
     done = threading.Event()
     frame_store: List[dict] = []
-    arrival_ts: List[float] = []
-    push_walltime = {}
+    # Per emitted set (host clock, ns): its newest message's push, the
+    # synchronizer's pop, the end of packing.
+    produced: List[tuple] = []
+    push_ns = {}
     counts = {"messages": 0, "frames": 0}
+    now = time.perf_counter_ns
 
     def producer():
         for camera, stamp, fb_delay, persons in messages:
+            pushed = now()
             handle = replay.push(camera, stamp, fb_delay, persons)
-            push_walltime[handle] = time.perf_counter()
+            push_ns[handle] = pushed
             counts["messages"] += 1
-            for fd in replay.pop_frames():
+            while (got := replay.sync.pop()) is not None:
+                popped = now()
+                fd = replay._pack(*got)
                 # Arrival time of the newest contributing message: the
                 # synchronized set cannot exist before it.
-                arr = max(
-                    push_walltime.pop(h, time.perf_counter())
-                    for h in fd["handles"]
-                )
+                arr = max(push_ns.pop(h, popped) for h in fd["handles"])
                 idx = len(frame_store)
                 frame_store.append(fd)
-                arrival_ts.append(arr)
                 counts["frames"] += 1
                 pivot_ns = int(np.max(fd["cam_stamp"]) * 1e9)
+                produced.append((arr, popped, now()))
                 slot.put([pivot_ns], [idx])
             if message_interval_s > 0:
                 time.sleep(message_interval_s)
@@ -219,16 +238,17 @@ def run_online_synced(
 
     th = threading.Thread(target=producer, daemon=True)
 
-    processed = 0
-    step_lat: List[float] = []
-    e2e_lat: List[float] = []
+    sets: List[tuple] = []
     out = None
+    tracer = tracing.active()
     th.start()
     while True:
         got = slot.take()
+        taken = now()
         if got is None:
             if done.is_set():
                 got = slot.take()  # drain a frame racing the done flag
+                taken = now()
                 if got is None:
                     break
             else:
@@ -237,17 +257,26 @@ def run_online_synced(
         _, (idx,) = got
         idx = int(idx)
         fr = frame_builder(frame_store[idx])
-        t0 = time.perf_counter()
+        if tracer is not None:
+            span = tracer.open("step", rid=idx)
+        t0 = now()
         state, out = step_fn(state, fr)
         synchronize(fr.kp2d.device)
-        t1 = time.perf_counter()
-        step_lat.append(t1 - t0)
-        e2e_lat.append(t1 - arrival_ts[idx])
-        processed += 1
+        t1 = now()
+        row = (idx, *produced[idx], taken, t0, t1)
+        sets.append(row)
+        if tracer is not None:
+            tracer.close(span, t1, start=t0)
+            for k, name in enumerate(SET_SPANS[:-1]):
+                tracer.span(name, row[k + 1], row[k + 2], rid=idx, parent=-1)
         if consumer_hook is not None:
             consumer_hook(idx)
     th.join()
 
+    table = np.array(sets, dtype=np.int64).reshape(-1, 2 + len(SET_SPANS))
+    step_lat = (table[:, 6] - table[:, 5]) * 1e-9
+    e2e_lat = (table[:, 6] - table[:, 1]) * 1e-9
+    processed = len(table)
     report = OnlineSyncedReport(
         processed_frames=processed,
         frames_synced=counts["frames"],
@@ -256,9 +285,10 @@ def run_online_synced(
             counts["messages"] - counts["frames"] * num_cameras
         ),
         slot_dropped=int(slot.dropped),
-        step_ms_p50=float(np.median(step_lat) * 1e3) if step_lat else 0.0,
-        e2e_ms_p50=float(np.median(e2e_lat) * 1e3) if e2e_lat else 0.0,
-        step_ms=[t * 1e3 for t in step_lat],
-        e2e_ms=[t * 1e3 for t in e2e_lat],
+        step_ms_p50=float(np.median(step_lat) * 1e3) if processed else 0.0,
+        e2e_ms_p50=float(np.median(e2e_lat) * 1e3) if processed else 0.0,
+        step_ms=[float(t) * 1e3 for t in step_lat],
+        e2e_ms=[float(t) * 1e3 for t in e2e_lat],
+        sets=table,
     )
     return state, out, report

@@ -45,8 +45,8 @@ import ctypes
 import numpy as np
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import _kernels, skeleton
-from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, loops, tree_solve
+from smartedgesensor3dhumanpose_tpu_torch import _kernels, skeleton, tracing
+from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, tree_solve
 
 K_JOINTS = skeleton.NUM_FUSION_JOINTS
 N_BONES = skeleton.NUM_BONES
@@ -338,8 +338,8 @@ def _count(name: str) -> None:
 
 def _launch(name, carry, inputs, cfg, max_trips: int, max_iters: int, lib) -> None:
     """L1 on CUDA tensors, in place on the carry. While a CUDA graph is
-    captured with `loops.trip_log` set, the launch appends (trips, stamps)
-    to it as a WHILE node does: the trips its last replay ran and the
+    captured with a tracer recording (tracing.py), the launch gives it a
+    trip record as a WHILE node does: the trips its last replay ran and the
     device clock at its start (stamps[0]) and end (stamps[trips])."""
     x, err, lam, done, iters, running, scratch = carry
     inputs = [t.contiguous() for t in inputs]
@@ -353,10 +353,14 @@ def _launch(name, carry, inputs, cfg, max_trips: int, max_iters: int, lib) -> No
     if p == 0:
         return
     log_trips = log_stamps = None
-    if loops.trip_log is not None and linalg.capturing(x):
-        log_trips = torch.zeros((), dtype=torch.int32, device=x.device)
-        log_stamps = torch.zeros(min(max_trips, max_iters) + 1, dtype=torch.int64, device=x.device)
-        loops.trip_log.append((log_trips, log_stamps))
+    tracer = tracing.active()
+    if tracer is not None and linalg.capturing(x):
+        # L1 writes both on every launch (its trips, stamps[0] and
+        # stamps[trips]); `empty` adds no node to the graph.
+        log_trips = torch.empty((), dtype=torch.int32, device=x.device)
+        log_stamps = torch.empty(min(max_trips, max_iters) + 1, dtype=torch.int64,
+                                 device=x.device)
+        tracer.loop(log_trips, log_stamps, "lm")
     lib = _kernels.library() if lib is None else lib
     with torch.cuda.device(x.device):
         err_code = lib.ses3d_lm_trip(

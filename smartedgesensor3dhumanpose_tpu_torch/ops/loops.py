@@ -35,23 +35,16 @@ import ctypes
 
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import _kernels
+from smartedgesensor3dhumanpose_tpu_torch import _kernels, tracing
 from smartedgesensor3dhumanpose_tpu_torch.ops import linalg
 
-# None, or a list to which every WHILE node captured while it is set
-# appends (trips, stamps): the trips the node's last replay ran (int32) and
-# the device clock at the loop's start and at the end of each trip run (ns,
-# int64 [max_trips + 1]). The LM's one launch (ops/lm_prior.py `lm_solve`)
-# appends the same record, with the clock at its start and at its end
-# (stamps[trips]) only. Each replay rewrites both, and the list keeps them
-# alive. It is for measurement (chip_smoke.py); a profiler trace of a
-# replay may miss some of a loop body's kernels.
-trip_log = None
-
-# None, or a list to which every WHILE node captured while it is set
-# appends the number of nodes its body holds: one trip's kernels and
-# copies, the trip's test included (for measurement, as `trip_log`).
-body_nodes = None
+# A WHILE node captured while a tracer records (tracing.py) gives it the
+# trips the node's last replay ran (int32) and the device clock at the
+# loop's start and at the end of each trip run (ns, int64 [max_trips + 1]),
+# which each replay rewrites (`Tracer.trip_log`), and the number of nodes
+# its body holds, one trip's kernels and copies with the trip's test (the
+# counter `loop.body_nodes`). A profiler trace of a replay may miss some of
+# a loop body's kernels; these records do not.
 
 # The Bodies of the graph being captured (`capturing_into`), else None.
 _current = None
@@ -133,9 +126,12 @@ def _while_node(pred: torch.Tensor, max_trips: int):
     lib = _kernels.library()
     trips = torch.empty((), dtype=torch.int32, device=dev)
     stamps = None
-    if trip_log is not None:
-        stamps = torch.zeros(max_trips + 1, dtype=torch.int64, device=dev)
-        trip_log.append((trips, stamps))
+    tracer = tracing.active()
+    if tracer is not None:
+        # Written by the node's kernels on every replay (stamps[0] and one
+        # per trip run); `empty` adds no node to the graph.
+        stamps = torch.empty(max_trips + 1, dtype=torch.int64, device=dev)
+        tracer.loop(trips, stamps, "while")
         stamps = stamps.data_ptr()
     handle = ctypes.c_ulonglong(0)
     err = lib.ses3d_loop_begin(
@@ -152,8 +148,8 @@ def _while_node(pred: torch.Tensor, max_trips: int):
         nodes = ctypes.c_ulonglong(0)
         err = lib.ses3d_loop_end(stream.cuda_stream, ctypes.byref(nodes))
     _kernels.check(err, "while node: end")
-    if body_nodes is not None:
-        body_nodes.append(nodes.value)
+    if tracer is not None:
+        tracer.count("loop.body_nodes", nodes.value, tracer.loops[-1].stage)
 
 
 def while_loop(cond, body, carry: tuple, max_trips: int) -> tuple:

@@ -28,6 +28,12 @@ kept on the device (JAX's `lax.scan` of `step`), and `Pipeline.run_offline`
 a graph of the whole replay per sequence shape. The module-level `step`
 and `run_offline` stay eager, as JAX's raw `step` is unjitted. On the CPU
 every entry point runs eagerly.
+
+`Pipeline(..., trace=True)` marks the stages of both entry points on the
+device clock (tracing.py): `step` as `fusion`, `tracking` (with `prior`,
+the LM and its set-up, inside it) and `feedback`; `run_offline` as
+`fusion`, `smoothing`, `tracker` and `feedback`. A pipeline built without
+it captures no mark: its graphs are the graphs of the untraced functions.
 """
 
 from __future__ import annotations
@@ -36,7 +42,14 @@ from typing import NamedTuple
 
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import fusion, graphs, reprojection, skeleton, tracking
+from smartedgesensor3dhumanpose_tpu_torch import (
+    fusion,
+    graphs,
+    reprojection,
+    skeleton,
+    tracing,
+    tracking,
+)
 from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
 from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian, linalg, tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import (
@@ -84,10 +97,12 @@ def step(state: TrackerState, frame: Frame, rig: CameraRig,
          config: PipelineConfig):
     """One full pipeline frame; returns (new state, StepOutput) and leaves
     `state` untouched."""
+    tracing.stage("fusion")
     frame, pivot = mask_stale_cameras(frame, config.fusion.max_sync_diff)
     persons_raw, n_dropped_hyp = fusion.fuse_frame(
         frame, rig, config.fusion, with_stats=True
     )
+    tracing.stage("tracking")
     state, track_out = tracking.step(
         state,
         persons_raw,
@@ -96,6 +111,7 @@ def step(state: TrackerState, frame: Frame, rig: CameraRig,
         config.prior,
         config.tracker,
     )
+    tracing.stage("feedback")
     feedback = reprojection.reproject(
         track_out.fused_pred,
         rig,
@@ -210,12 +226,16 @@ def run_offline(state: TrackerState, frames: Frame, rig: CameraRig,
     chunked fusion, chunked cold-start smoothing, one tracker scan,
     reprojection. Returns (final state, StepOutput with a leading time
     axis) and leaves `state` untouched."""
+    tracing.stage("fusion")
     persons, pivots, n_drop = fuse_offline(frames, rig, config, fusion_batch)
+    tracing.stage("smoothing")
     pre = smooth_offline(persons, config, fusion_batch)
+    tracing.stage("tracker")
     state, track = tracker.tracker_scan(
         state, persons, pivots.to(persons.xyz.dtype), frames.fb_delay, pre,
         config.prior, config.tracker,
     )
+    tracing.stage("feedback")
     return state, offline_outputs(frames, persons, pivots, n_drop, track, rig, config)
 
 
@@ -267,10 +287,13 @@ class Pipeline:
     Each entry point keeps the graphs, and their memory, of its four most
     recently used input shapes (PERF.md lists the sizes).
     `fusion_batch` is the chunk size of the offline fusion and smoothing.
+    `trace=True` marks each call's stages (module docstring) into rings that
+    `self.tracer` (a tracing.Tracer on the pipeline's device) reads when it
+    is drained; its captures record their loops there too.
     """
 
     def __init__(self, rig: CameraRig, config: PipelineConfig, device="cuda",
-                 fusion_batch: int = 64):
+                 fusion_batch: int = 64, trace: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if self.device.index is None:
@@ -284,11 +307,19 @@ class Pipeline:
         self.rig = rig
         self.config = config
         self.fusion_batch = fusion_batch
+        self.tracer = self._step_marks = self._offline_marks = None
+        if trace:
+            self.tracer = tracing.Tracer(self.device)
+            self._step_marks = tracing.StageMarks("Pipeline.step", self.device, self.tracer)
+            self._offline_marks = tracing.StageMarks("Pipeline.run_offline", self.device,
+                                                     self.tracer)
         self._step = self._step_eager
         self._offline = self._offline_eager
         if self.device.type == "cuda":
-            self._step = graphs.CapturedFunction(self._step_eager, "Pipeline.step")
-            self._offline = graphs.CapturedFunction(self._offline_eager, "Pipeline.run_offline")
+            self._step = graphs.CapturedFunction(self._step_eager, "Pipeline.step",
+                                                 self._step_marks)
+            self._offline = graphs.CapturedFunction(self._offline_eager, "Pipeline.run_offline",
+                                                    self._offline_marks)
 
     def init_state(self, dtype=torch.float32) -> TrackerState:
         t = self.config.tracker
@@ -297,7 +328,10 @@ class Pipeline:
         )
 
     def _step_eager(self, state: TrackerState, frame: Frame):
-        return step(state, frame, self.rig, self.config)
+        if self._step_marks is None:
+            return step(state, frame, self.rig, self.config)
+        with self._step_marks.call():
+            return step(state, frame, self.rig, self.config)
 
     def step(self, state: TrackerState, frame: Frame):
         """The online path: one frame in, (new state, StepOutput) out; on
@@ -320,7 +354,10 @@ class Pipeline:
         return state, tracker.stack_frames(outs)
 
     def _offline_eager(self, state: TrackerState, frames: Frame):
-        return run_offline(state, frames, self.rig, self.config, self.fusion_batch)
+        if self._offline_marks is None:
+            return run_offline(state, frames, self.rig, self.config, self.fusion_batch)
+        with self._offline_marks.call():
+            return run_offline(state, frames, self.rig, self.config, self.fusion_batch)
 
     def run_offline(self, state: TrackerState, frames: Frame):
         """The offline replay of a stacked sequence (leading time axis on

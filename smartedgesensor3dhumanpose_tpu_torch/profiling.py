@@ -3,20 +3,18 @@
 The reference self-measures with per-node wall-time accumulators dumped at
 shutdown (skeleton_3d_triang_mult_node.cpp:39-41,1234-1241 — reproduced by
 `timing.TimingBuckets`). This module is the development-facing complement:
-it times each OFFLINE pipeline stage in isolation on the pipeline's device
-— fusion (association + triangulation), cold-start LM smoothing, the
-sequential tracker, reprojection feedback — plus the whole `run_offline`,
-dispatching all repetitions and synchronizing once, so work queued on the
-card is counted and the host's dispatch of one call overlaps the device's
-work of the previous one where the stage allows it.
+it splits the real `Pipeline.run_offline` into its stages — fusion
+(association + triangulation), cold-start LM smoothing, the sequential
+tracker (kernel K3 on CUDA), the reprojection feedback with the outputs'
+boxes — and times the whole call too.
 
-The stage bodies are `Pipeline.run_offline`'s own calls (`fuse_offline`,
-`smooth_offline`, `ops.tracker.tracker_scan` — kernel K3 on CUDA — and the
-reprojection of `offline_outputs`); `full` is the real `run_offline`, so
-`full` against the stage sum shows what is paid between the stages. On
-CUDA each stage is a CUDA graph (graphs.CapturedFunction), captured by its
-warm-up call, as `run_offline` is one and as the JAX package jits each
-stage; on the CPU every stage runs eagerly.
+The stages are read from the tracer (tracing.py): a traced twin of the
+pipeline (same rig, config and fusion batch, `trace=True`) replays the
+real `run_offline` graph on CUDA (eagerly on the CPU), and its stage marks
+give each stage's span on the device clock (the host clock on the CPU).
+`full` times the pipeline's own untraced `run_offline`, dispatching all
+repetitions and synchronizing once, so `full` against the stage sum shows
+what the calls pay outside their stages.
 
 CLI:
     python -m smartedgesensor3dhumanpose_tpu_torch.profiling            # 16-cam demo
@@ -29,13 +27,16 @@ from __future__ import annotations
 import time
 from typing import Dict
 
+import numpy as np
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import graphs, reprojection
 from smartedgesensor3dhumanpose_tpu_torch import pipeline as pl
 from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
-from smartedgesensor3dhumanpose_tpu_torch.ops import tracker
 from smartedgesensor3dhumanpose_tpu_torch.types import Frame
+
+# profile_stages' keys -> the offline stage spans of tracing.py.
+STAGES = {"fuse": "fusion", "smooth_cold": "smoothing", "tracker": "tracker",
+          "reproj": "feedback"}
 
 
 def _timeit(fn, *args, reps: int, device: torch.device) -> float:
@@ -54,64 +55,35 @@ def profile_stages(
     pipe: pl.Pipeline, frames: Frame, reps: int = 5
 ) -> Dict[str, float]:
     """Time each offline stage of `pipe` on `frames` (on the pipeline's
-    device; on CUDA each stage replays a CUDA graph).
+    device): the stage spans of `reps` calls of a traced twin's
+    `run_offline` (a CUDA graph's replays on CUDA), and `full`, the
+    untraced `run_offline`.
 
     Returns {stage: milliseconds per frame}; stages are `fuse`,
-    `smooth_cold`, `tracker`, `reproj`, and `full` (= run_offline).
+    `smooth_cold`, `tracker`, `reproj` (the feedback and the outputs'
+    boxes), and `full` (= run_offline).
     """
-    config = pipe.config
-    rig = pipe.rig
-    batch = pipe.fusion_batch
     device = pipe.device
     num_frames = int(frames.cam_stamp.shape[0])
-
-    def stage_fuse(fr):
-        return pl.fuse_offline(fr, rig, config, batch)
-
-    def stage_smooth(p):
-        return pl.smooth_offline(p, config, batch)
-
-    def stage_track(s, p, pv, fb, pr):
-        return tracker.tracker_scan(s, p, pv, fb, pr, config.prior, config.tracker)
-
-    def stage_reproj(fused_pred, pred_dt, ts):
-        return reprojection.reproject(
-            fused_pred, rig, config.prior.pose_method, pred_dt,
-            ut_kappa=config.fusion.ut_kappa, ts_per_cam=ts,
-        )
-
-    if device.type == "cuda":
-        stage_fuse, stage_smooth, stage_track, stage_reproj = (
-            graphs.CapturedFunction(fn, f"profile_stages.{fn.__name__}")
-            for fn in (stage_fuse, stage_smooth, stage_track, stage_reproj)
-        )
-
-    state = pipe.init_state()
-    per_frame_s = {}
-
-    persons, pivots, _ = stage_fuse(frames)
-    per_frame_s["fuse"] = _timeit(stage_fuse, frames, reps=reps, device=device)
-
-    pre = stage_smooth(persons)
-    per_frame_s["smooth_cold"] = _timeit(stage_smooth, persons, reps=reps, device=device)
-
-    pivots = pivots.to(persons.xyz.dtype)
-    _, track_outs = stage_track(state, persons, pivots, frames.fb_delay, pre)
-    per_frame_s["tracker"] = _timeit(
-        stage_track, state, persons, pivots, frames.fb_delay, pre,
-        reps=reps, device=device,
-    )
-
-    per_frame_s["reproj"] = _timeit(
-        stage_reproj, track_outs.fused_pred, track_outs.pred_delta_t, frames.cam_stamp,
-        reps=reps, device=device,
-    )
-
-    per_frame_s["full"] = _timeit(
+    twin = pl.Pipeline(pipe.rig, pipe.config, device=device, fusion_batch=pipe.fusion_batch,
+                       trace=True)
+    state = twin.init_state()
+    twin.run_offline(state, frames)  # on CUDA: the capture
+    pl.synchronize(device)
+    with twin.tracer:
+        for _ in range(reps):
+            twin.run_offline(state, frames)
+    spans = twin.tracer.drain().spans
+    calls = np.flatnonzero(spans["name"] == "Pipeline.run_offline")
+    inside = np.isin(spans["parent"], calls)
+    per_frame_ms = {}
+    for key, name in STAGES.items():
+        mine = spans[inside & (spans["name"] == name)]
+        per_frame_ms[key] = float(np.sum(mine["end"] - mine["start"])) / len(calls) * 1e-6
+    per_frame_ms["full"] = _timeit(
         pipe.run_offline, pipe.init_state(), frames, reps=reps, device=device
-    )
-
-    return {k: v / num_frames * 1e3 for k, v in per_frame_s.items()}
+    ) * 1e3
+    return {k: v / num_frames for k, v in per_frame_ms.items()}
 
 
 def _demo_inputs(big: bool, batch: int | None, num_frames: int | None, device):

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from smartedgesensor3dhumanpose_tpu_torch import prior, skeleton
+from smartedgesensor3dhumanpose_tpu_torch import prior, skeleton, tracing
 from smartedgesensor3dhumanpose_tpu_torch.config import PriorConfig, TrackerConfig
 from smartedgesensor3dhumanpose_tpu_torch.ops import hungarian, linalg, loops
 from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D, TrackerState
@@ -220,11 +220,12 @@ def step(state: TrackerState, persons: Persons3D, t, fb_delay,
 
     use_velocity = g_in.active & prev_exists_p  # (:500)
     if precomputed is None:
-        warm = torch.where(use_velocity[..., None], prev_est_p, g_in.meas)
-        result = prior.optimize(g_in, warm, prior_cfg)
-        xyz_out, cov_out = prior.denormalize(result, g_in, prior_cfg)
-        xyz_out = torch.where(g_in.active[..., None], xyz_out, 0.0)
-        cov_out = torch.where(g_in.active[..., None, None], cov_out, 0.0)
+        with tracing.child("prior"):
+            warm = torch.where(use_velocity[..., None], prev_est_p, g_in.meas)
+            result = prior.optimize(g_in, warm, prior_cfg)
+            xyz_out, cov_out = prior.denormalize(result, g_in, prior_cfg)
+            xyz_out = torch.where(g_in.active[..., None], xyz_out, 0.0)
+            cov_out = torch.where(g_in.active[..., None, None], cov_out, 0.0)
     else:
         _, result, xyz_out, cov_out = precomputed
 
