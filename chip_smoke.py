@@ -27,7 +27,7 @@ Phases (each prints one line; any failure exits non-zero):
     step timed again after that profiler session
   6 the offline slice: Pipeline.run_offline (fusion_batch=32; a CUDA graph,
     captured by its first call) over the same scenes, with the launch
-    counts (K1 = 0, K2 = 2, K3 = 1 per scene's replay, on the device); its
+    counts (K1 = 0, K2 = F1 = 2, K3 = 1 per scene's replay, on the device); its
     fusion and its tracker stage (K3 + reprojection on the reference's own
     tracker inputs) against tests/data/torch_golden_offline16.npz, and the
     whole run against the plain path on the card
@@ -138,6 +138,21 @@ Phases (each prints one line; any failure exits non-zero):
     layout's first chunks (P = 160); the LM with the plain trip beside
     each; the LM's, one trip's and L2's device time at P = 16 and 512
     (torch.profiler), the twins' and the bounds
+ 16 F1 (the fusion's triangulation in one launch) on the card against its
+    host build (the same source compiled for the CPU) bit for bit, and
+    against the plain body (fusion._triangulate_plain) on the card in
+    float32: validity, joint score > 0 and each joint's dropped view
+    equal, xyz, score and covariance over a scene's calls no further from
+    the plain body in float64 (on the same hypotheses) than the float32
+    plain body is, twice over in the root mean square and four times at
+    the worst entry (a covariance entry is a sum of sigma-point scatters
+    that cancel, whose rounding the order of the sum decides); how many
+    calls the host build equals the plain body on this machine's CPU bit
+    for bit (reported: PyTorch's CPU order there is F1's); at the step's
+    shape (16 slots, every frame of both scenes) and the offline chunk's
+    (32 frames x 16 slots = 512, both chunks of both scenes); F1's device
+    time (torch.profiler), the plain body's and the bound from the
+    hypotheses' present views at both shapes
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -630,32 +645,38 @@ def compare_step(out, golden, scene, f):
 
 
 def reset_counts():
-    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, lm_prior, tracker
+    from smartedgesensor3dhumanpose_tpu_torch.ops import (
+        association, hungarian, lm_prior, tracker, triangulation_kernel)
 
     hungarian.KERNEL_LAUNCHES = 0
     association.KERNEL_LAUNCHES = 0
     tracker.KERNEL_LAUNCHES = 0
     for name in lm_prior.KERNEL_LAUNCHES:
         lm_prior.KERNEL_LAUNCHES[name] = 0
+    triangulation_kernel.KERNEL_LAUNCHES = 0
 
 
 def read_counts():
-    """(K1, K2, K3, L1, L2) launches since the last reset_counts()."""
-    from smartedgesensor3dhumanpose_tpu_torch.ops import association, hungarian, lm_prior, tracker
+    """(K1, K2, K3, L1, L2, F1) launches since the last reset_counts()."""
+    from smartedgesensor3dhumanpose_tpu_torch.ops import (
+        association, hungarian, lm_prior, tracker, triangulation_kernel)
 
     return (hungarian.KERNEL_LAUNCHES, association.KERNEL_LAUNCHES, tracker.KERNEL_LAUNCHES,
-            lm_prior.KERNEL_LAUNCHES["lm_trip"], lm_prior.KERNEL_LAUNCHES["lm_marginals"])
+            lm_prior.KERNEL_LAUNCHES["lm_trip"], lm_prior.KERNEL_LAUNCHES["lm_marginals"],
+            triangulation_kernel.KERNEL_LAUNCHES)
 
 
-# K1, K2, K3, L1 and L2 by name in a device trace: K1 is the
+# K1, K2, K3, L1, L2 and F1 by name in a device trace: K1 is the
 # register-state kernel up to 255 columns or the block routine's past them.
 # A count is a tuple in this order; the gates of K1-K3 read its first three
-# entries, check_lm_host and check_lm_device the last two (L1 runs the
-# whole LM in one launch, L2 after it).
+# entries, check_lm_host and check_lm_device the next two (L1 runs the
+# whole LM in one launch, L2 after it), check_f1_device the last (F1
+# triangulates a fusion call's hypotheses in one launch).
 KERNEL_NAMES = (("jv_assign_kernel", "jv_assign_wide_kernel"), ("association_fold_kernel",),
-                ("tracker_scan_kernel",), ("lm_trip_kernel",), ("lm_marginals_kernel",))
+                ("tracker_scan_kernel",), ("lm_trip_kernel",), ("lm_marginals_kernel",),
+                ("triangulation_kernel",))
 N_KERNELS = len(KERNEL_NAMES)
-L1, L2 = 3, 4
+L1, L2, F1 = 3, 4, 5
 
 
 def check_lm_host(what: str, counts, lms: int) -> None:
@@ -674,8 +695,15 @@ def check_lm_device(what: str, counts, lms: int) -> None:
                              f"expected {lms} each")
 
 
+def check_f1_device(what: str, counts, launches: int) -> None:
+    """F1 once per fusion call (triangulate_hypotheses) on the device."""
+    if counts[F1] != launches:
+        raise AssertionError(f"{what}: F1 ran {counts[F1]} times on the device, expected "
+                             f"{launches}")
+
+
 def kernel_index(name: str):
-    """0-4 for a K1, K2, K3, L1 or L2 device event's name, else None."""
+    """0-5 for a K1, K2, K3, L1, L2 or F1 device event's name, else None."""
     for i, keys in enumerate(KERNEL_NAMES):
         if any(k in name for k in keys):
             return i
@@ -757,6 +785,9 @@ def phase_slice(dev, golden, rig, cfg):
     if host[:3] != want_host:
         raise AssertionError(f"launch counts (K1, K2, K3) on the host {host}, expected {want_host}")
     check_lm_host("step", host, 1)
+    if host[F1] != FIRST_CALL_HOST_LAUNCHES:
+        raise AssertionError(f"step: F1 launched {host[F1]} times on the host, expected "
+                             f"{FIRST_CALL_HOST_LAUNCHES}")
     log("4 slice", captured=True, first_call_s=capture_s, first_call_reserved_mib=graph_mib,
         frames=frames, published_persons=persons, decisions="exact",
         worst_fused_mm=worst_f * 1e3, worst_pred_mm=worst_p * 1e3,
@@ -822,6 +853,7 @@ def phase_times(dev, pipe, golden, rig, cfg, rng, profile_dir):
     if on_device[:3] != (STEP_PROFILED,) * 2 + (0,):
         raise AssertionError(f"step: {on_device} kernels on the device over {STEP_PROFILED} replays")
     check_lm_device("step", on_device, STEP_PROFILED)
+    check_f1_device("step", on_device, STEP_PROFILED)
     after = pipe.init_state()
     after_ms = []
     for f in range(120):
@@ -1024,6 +1056,7 @@ def phase_offline(dev, golden, rig, cfg, inputs):
             raise AssertionError(f"offline {scene}: launch counts (K1, K2, K3) on the device = "
                                  f"{counts}, expected {want}")
         check_lm_device(f"offline {scene}", counts, want[1])
+        check_f1_device(f"offline {scene}", counts, want[1])
         on_device = tuple(a + b for a, b in zip(on_device, counts))
 
         e2e_frames = 0
@@ -2414,6 +2447,9 @@ def check_sharded_replay(label, mesh, rig, cfg, golden, inputs, unsharded):
             raise AssertionError(f"sharded {label} {scene}: launch counts (K1, K2, K3) = {host} on "
                                  f"the host, {counts} on the device; expected (0, 0, 0), "
                                  f"{want_counts}")
+        # The fusion stage triangulates each data shard's chunks, one F1
+        # each, as K2 folds them.
+        check_f1_device(f"sharded {label} {scene}", counts, want_counts[1])
         on_device = [a + b for a, b in zip(on_device, counts)]
         if not all(torch.equal(a, b) for a, b in zip(before, state0)):
             raise AssertionError(f"sharded {label} {scene}: the input state was written")
@@ -2549,16 +2585,19 @@ def check_sharded_fusion(label, mesh, scaled):
     reset_counts()
     _, first_s, first_mib = first_call(call)
     first = read_counts()
-    if first != (0, FIRST_CALL_HOST_LAUNCHES, 0, 0, 0):
-        raise AssertionError(f"sharded fusion {label}: the first call counted (K1, K2, K3) = "
-                             f"{first} on the host")
+    # F1 once per entry of the model axis that holds hypotheses.
+    shards = min(len(mesh.axis("model")), cfg.fusion.max_hypotheses)
+    if first != (0, FIRST_CALL_HOST_LAUNCHES, 0, 0, 0, FIRST_CALL_HOST_LAUNCHES * shards):
+        raise AssertionError(f"sharded fusion {label}: the first call counted (K1, K2, K3, L1, "
+                             f"L2, F1) = {first} on the host")
     syncs = count_syncs(call)
     reset_counts()
     (got, got_drop), on_device = device_counts(call)
     host = read_counts()
-    if syncs or any(host) or on_device != (0, 1, 0, 0, 0):
+    if syncs or any(host) or on_device != (0, 1, 0, 0, 0, shards):
         raise AssertionError(f"sharded fusion {label}: {syncs} host syncs, launch counts (K1, K2, "
-                             f"K3) = {host} on the host, {on_device} on the device")
+                             f"K3) = {host} on the host, {on_device} on the device, expected F1 "
+                             f"{shards} times")
     bad, diffs = tree_diff((got, got_drop), eagerly(call)())
     if bad or any(diffs.values()):
         raise AssertionError(f"sharded fusion {label}: captured != eager: {bad} {diffs}")
@@ -3865,7 +3904,7 @@ def phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references):
     reset_counts()
     first_call(lambda: dense.step(dense.init_state(), frame_at(inputs["benign"], 0, dev)))
     paths["step_dense"] = read_counts()
-    if paths["step_dense"] != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0, 0, 0):
+    if paths["step_dense"] != (FIRST_CALL_HOST_LAUNCHES,) * 2 + (0, 0, 0, FIRST_CALL_HOST_LAUNCHES):
         raise AssertionError(f"dense: first call's host launches {paths['step_dense']}")
     dense_worst, departs, dense_dev = captured_config_steps(dev, dense, golden, inputs, ("benign",))
     check_replay_counts("dense step", dense_dev, (1, 1, 0, 0, 0))
@@ -4158,6 +4197,176 @@ def phase_lm_kernels(dev, smi, rig, cfg, inputs, scaled) -> tuple:
     }, 0.0
 
 
+# ---------------------------------------------------------------- phase 16 --
+
+# Float operations of F1's pieces (a multiply-add counts two): a 4x4
+# solve; a view's weighted and unweighted coefficients, contributions and
+# sums; a sigma-point slot's six weighted products; the base point's
+# covariance term; one reprojection; the three-view scores; one present
+# view's four sigma points (Cholesky, offsets, coefficients, the change of
+# the contribution, solve, offset from the mean); a fusion joint's gates.
+# The work every view runs is portbench/counts/F1.py's.
+F1_SOLVE_OPS = 352
+F1_VIEW_OPS = 257
+F1_COV_TERM_OPS = 18
+F1_COV_OPS = 32
+F1_REPROJ_OPS = 29
+F1_THREE_VIEW_OPS = 3 * 51
+F1_SIGMA_VIEW_OPS = 5 + 6 + 23 + 4 * (2 + 23 + 5 + 90 + 10 + F1_SOLVE_OPS + 3)
+F1_GATE_OPS = 40
+F1_TIMED = 50
+
+
+def f1_bound(kp, cam_mask, drops, f_cfg) -> tuple:
+    """(bound ms, what bounds it) of one F1 launch on these hypotheses: its
+    inputs read and its persons written once; per joint the work of every
+    view (contributions, sums, the base and UT solves, the covariance's
+    sums) and of the k views present (kf after the drop): k reprojections,
+    k leave-one-out solves of k - 1 reprojections each, the three-view
+    scores where k = 3, kf views' sigma points; per fusion joint the
+    gates."""
+    n, c = cam_mask.shape
+    conf = kp.transpose(1, 2)[..., 2]
+    k = (cam_mask[:, None, :] & (conf >= f_cfg.min_kp_score)).sum(-1).double()
+    kf = k - (drops >= 0).double()
+    every = c * F1_VIEW_OPS + 2 * F1_SOLVE_OPS + c + 4 * c * F1_COV_TERM_OPS + F1_COV_OPS
+    present = (k * F1_REPROJ_OPS + k * (10 + F1_SOLVE_OPS + (k - 1).clamp(min=0) * F1_REPROJ_OPS)
+               + (k == 3).double() * F1_THREE_VIEW_OPS + kf * F1_SIGMA_VIEW_OPS)
+    ops = float((every + present).sum()) + n * 21 * F1_GATE_OPS
+    nbytes = n * c * (2 * 17 * 3 * 4 + 1) + c * 12 * 4 + c * c * 9 * 4 + n * (21 * 13 * 4 + 5)
+    return bound_of(nbytes, ops)
+
+
+def f1_hypotheses(data: dict, frames, rig, cfg, dev):
+    """The flattened hypotheses of `frames` of a scene, as the fusion hands
+    them to the triangulation (one chunk through K2 on the card)."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion, pipeline
+
+    f_cfg = cfg.fusion
+    sub = stacked_frames({k: v[frames] for k, v in data.items()}, dev)
+    sub, _ = pipeline.mask_stale_cameras(sub, f_cfg.max_sync_diff)
+    kp_n, cov_n, det_ok = fusion.normalize_frame(sub, rig, f_cfg)
+    hyps = fusion.associate(kp_n, cov_n, sub.det_score, det_ok, rig, f_cfg)
+    return hyps._replace(**{k: getattr(hyps, k).flatten(0, 1)
+                            for k in ("kp", "cov", "cam_mask", "obs_score")})
+
+
+def check_f1_call(what: str, hyps, rig, rig64, f_cfg) -> tuple:
+    """F1 on `hyps` against its host build (bit for bit) and the plain
+    body on the card (decisions equal). Returns (drops, largest |F1 -
+    plain float32|, {field: (F1 - plain float64, plain float32 - plain
+    float64)}, whether the host build equals the plain body on this
+    machine's CPU bit for bit)."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion
+    from smartedgesensor3dhumanpose_tpu_torch.ops import triangulation_kernel as tk
+
+    n = hyps.kp.shape[0]
+    drops = torch.full((n, 17), -2, dtype=torch.int32, device=hyps.kp.device)
+    got = tk.triangulate(hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F, f_cfg, drops=drops)
+    cpu = [t.cpu() for t in (hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F)]
+    host_drops = torch.empty((n, 17), dtype=torch.int32)
+    host = tk.triangulate_host(*cpu, f_cfg, drops=host_drops)
+    for name, a, b in zip(got._fields + ("drops",), tuple(got) + (drops,),
+                          tuple(host) + (host_drops,)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"F1 {what} {name}: the card differs from the host build")
+    cpu_hyps = hyps._replace(kp=cpu[0], cov=cpu[1], cam_mask=cpu[2])
+    cpu_rig = rig._replace(**{k: getattr(rig, k).cpu() for k in rig._fields})
+    cpu_plain = fusion._triangulate_plain(cpu_hyps, cpu_rig, f_cfg)
+    cpu_equal = all(torch.equal(a, b) for a, b in zip(host, cpu_plain))
+    plain, plain_drops = fusion._triangulate_plain(hyps, rig, f_cfg, with_drops=True)
+    h64 = hyps._replace(kp=hyps.kp.double(), cov=hyps.cov.double())
+    plain64 = fusion._triangulate_plain(h64, rig64, f_cfg)
+    for name, a, b in (("valid", got.valid, plain.valid),
+                       ("joint score > 0", got.score > 0, plain.score > 0),
+                       ("dropped view", drops, plain_drops.to(torch.int32))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"F1 {what}: {name} differs from the plain body on the card")
+    err = 0.0
+    diffs = {}
+    for name in ("xyz", "score", "cov"):
+        a, b, w = getattr(got, name), getattr(plain, name), getattr(plain64, name)
+        diffs[name] = ((a.double() - w).flatten().cpu(), (b.double() - w).flatten().cpu())
+        err = max(err, float((a - b).abs().max()))
+    return drops, err, diffs, cpu_equal
+
+
+def check_f1_accuracy(what: str, diffs: list) -> tuple:
+    """F1 no further from the plain body in float64 than the float32 plain
+    body on the card, over a scene's calls of one shape: twice over in the
+    root mean square, four times at the worst entry (a covariance entry is
+    a sum of sigma-point scatters that cancel, whose rounding the order of
+    the sum decides). Returns (F1's worst, the plain body's worst)."""
+    mine = ref = 0.0
+    for name in ("xyz", "score", "cov"):
+        d_mine = torch.cat([d[name][0] for d in diffs])
+        d_ref = torch.cat([d[name][1] for d in diffs])
+        rms_mine, rms_ref = float(d_mine.square().mean().sqrt()), float(d_ref.square().mean().sqrt())
+        worst_mine, worst_ref = float(d_mine.abs().max()), float(d_ref.abs().max())
+        if rms_mine > 2 * rms_ref or worst_mine > 4 * worst_ref:
+            raise AssertionError(f"F1 {what} {name}: {rms_mine:.3e} rms, {worst_mine:.3e} worst "
+                                 f"from float64; the plain body {rms_ref:.3e}, {worst_ref:.3e}")
+        mine, ref = max(mine, worst_mine), max(ref, worst_ref)
+    return mine, ref
+
+
+def phase_f1(dev, smi, rig, cfg, inputs) -> tuple:
+    """16: F1 against its host build and the plain body on the card, at
+    the step's shape and the offline chunk's, and their times. Returns
+    (the kernels line's times, largest |F1 - plain float32|)."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion
+    from smartedgesensor3dhumanpose_tpu_torch.ops import triangulation_kernel as tk
+
+    f_cfg = cfg.fusion
+    rig64 = rig._replace(**{k: getattr(rig, k).double() for k in rig._fields})
+    err = mine = ref = 0.0
+    calls = {"step": 0, "chunk": 0}
+    cpu_equal = {"step": 0, "chunk": 0}
+    dropped = 0
+    timed = {}
+    for scene in SCENES:
+        data = inputs[scene]
+        frames = data["kp2d"].shape[0]
+        for shape, size in (("step", 1), ("chunk", 32)):
+            diffs = []
+            for f0 in range(0, frames - size + 1, size):
+                hyps = f1_hypotheses(data, slice(f0, f0 + size), rig, cfg, dev)
+                drops, e, d, equal = check_f1_call(f"{shape} {scene}:{f0}", hyps, rig, rig64,
+                                                   f_cfg)
+                err = max(err, e)
+                diffs.append(d)
+                calls[shape] += 1
+                cpu_equal[shape] += equal
+                dropped += int((drops >= 0).sum()) if shape == "step" else 0
+                if scene == "adversarial" and f0 == (8 if shape == "step" else 0):
+                    timed[shape] = (hyps, drops)
+            m, r = check_f1_accuracy(f"{shape} {scene}", diffs)
+            mine, ref = max(mine, m), max(ref, r)
+    if dropped == 0:
+        raise AssertionError("F1: the golden steps dropped no view")
+    times = {}
+    for shape, (hyps, drops) in timed.items():
+        args = (hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F, f_cfg)
+        durations = kernel_durations(lambda args=args: tk.triangulate(*args), "triangulation_kernel",
+                                     F1_TIMED)
+        ms = statistics.median(durations) / 1e3 if durations else None
+        plain_ms = sync_time(lambda hyps=hyps: fusion._triangulate_plain(hyps, rig, f_cfg), 5)
+        bound_ms, bound_by = f1_bound(hyps.kp, hyps.cam_mask, drops, f_cfg)
+        times[shape] = {"hypotheses": hyps.kp.shape[0], "device_ms": ms,
+                        "launches_traced": len(durations),
+                        "wrapper_ms": sync_time(lambda args=args: tk.triangulate(*args), F1_TIMED),
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "roofline_pct": 100 * bound_ms / ms if ms else None}
+    log("16 F1", gpu=repr(smi), calls=json.dumps(calls, separators=(",", ":")),
+        vs_host_build="equal bit for bit", decisions_vs_plain="equal", dropped_views=dropped,
+        host_build_equals_cpu_plain=json.dumps(cpu_equal, separators=(",", ":")),
+        max_abs_err=err, worst_to_float64=mine, plain_worst_to_float64=ref,
+        times="'" + json.dumps(times) + "'")
+    step = times["step"]
+    return {"triangulation": (step["device_ms"], step["plain_ms"], step["bound_ms"],
+                              step["bound_by"])}, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="write a profiler table here")
@@ -4202,7 +4411,7 @@ def main() -> int:
 
 
 def run_phases(args, dev, smi, references) -> int:
-    """Phases 2-14 and the result lines."""
+    """Phases 2-16 and the result lines."""
     from smartedgesensor3dhumanpose_tpu_torch import cameras
     from smartedgesensor3dhumanpose_tpu_torch.config import PipelineConfig
 
@@ -4232,11 +4441,13 @@ def run_phases(args, dev, smi, references) -> int:
     config_launches = phase_configs(dev, smi, golden, rig, inputs, pipe, off_pipe, references)
     lm_times, lm_err = phase_lm_kernels(dev, smi, rig, cfg, inputs, scaled)
     times.update(lm_times)
+    f1_times, f1_err = phase_f1(dev, smi, rig, cfg, inputs)
+    times.update(f1_times)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"
     # launches: the wrappers' counts over the main path's run, the online
-    # step's (phase 4) for K1, K2, L1 and L2 and the offline replay's
+    # step's (phase 4) for K1, K2, L1, L2 and F1 and the offline replay's
     # (phase 6) for K3. Both are CUDA graphs: the wrappers count their first
     # call's warm-up and capture (L1, the whole LM, once in each), and a
     # replay launches nothing on the host.
@@ -4252,19 +4463,22 @@ def run_phases(args, dev, smi, references) -> int:
     # STEP_PROFILED frames (13.2), PROFILED_REPLAYS end-to-end replays
     # (13.4) and phase 12's checked replays of the sharded paths (both
     # scenes on every mesh; one fusion per fusion mesh). No single PyTorch
-    # call computes JV, the fold, the scan, an LM or the tree marginals, so
-    # there is no library time. L1 and L2 port no pallas_call: they stand
-    # for XLA's fused while loop and marginals of the JAX prior (`replaces`
-    # names those lines); their `ms` is the kernel's device time (phase 15:
-    # L1's one launch of a whole LM from the step's cold start, with its
-    # twin and its bound), the others' the wrapper's by CUDA events.
+    # call computes JV, the fold, the scan, an LM, the tree marginals or the
+    # triangulation, so there is no library time. L1, L2 and F1 port no
+    # pallas_call: they stand for XLA's fused while loop and marginals of
+    # the JAX prior and its program of the triangulation (`replaces` names
+    # those lines); their `ms` is the kernel's device time (phase 15: L1's
+    # one launch of a whole LM from the step's cold start, with its twin
+    # and its bound; phase 16: F1 on a step's 16 slots, its plain body and
+    # its bound), the others' the wrapper's by CUDA events.
     paths = {**launches, **step_on_device, **off_launches, **demo_launches, **e2e_paths,
              **sharded_launches, **captured_launches, **config_launches}
-    names = ("jv_assign", "association_fold", "tracker_scan", "lm_trip", "lm_marginals")
+    names = ("jv_assign", "association_fold", "tracker_scan", "lm_trip", "lm_marginals",
+             "triangulation")
     by_path = {name: {path: counts[i] for path, counts in paths.items()}
                for i, name in enumerate(names)}
     main_path = {"jv_assign": "step", "association_fold": "step", "tracker_scan": "run_offline",
-                 "lm_trip": "step", "lm_marginals": "step"}
+                 "lm_trip": "step", "lm_marginals": "step", "triangulation": "step"}
     # K1 replaces both JV sites: the single problem (:238) and the batched
     # launch (:516).
     also = {"jv_assign": [f"{tpu}/hungarian_pallas.py:516"]}
@@ -4274,6 +4488,7 @@ def run_phases(args, dev, smi, references) -> int:
         ("tracker_scan", "tracker_scan.cu", f"{tpu}/tracker_pallas.py:621", k3_err),
         ("lm_trip", "lm_prior.cu", f"{os.path.dirname(tpu)}/prior.py:438", lm_err),
         ("lm_marginals", "lm_prior.cu", f"{os.path.dirname(tpu)}/prior.py:478", lm_err),
+        ("triangulation", "triangulation.cu", f"{os.path.dirname(tpu)}/fusion.py:527", f1_err),
     )
     kernels = []
     for name, src, replaces, err in specs:

@@ -25,7 +25,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("jv_assign.cu", "association_fold.cu", "tracker_scan.cu", "graph_loop.cu",
-           "lm_prior.cu")
+           "lm_prior.cu", "triangulation.cu")
 HEADERS = ("jv.cuh", "bulk_copy.cuh")
 # --fmad=false: every float operation rounds on its own, as in the plain
 # PyTorch versions the kernels are held to bit for bit.
@@ -127,6 +127,10 @@ def _signatures() -> tuple:
         ("ses3d_lm_trip", [p] * 13 + [i] * 3 + [f] * 4 + [p] * 3),
         ("ses3d_lm_marginals", [p] * 9 + [i, p]),
         ("ses3d_lm_split", [p, i]),
+        ("ses3d_triangulate", [p] * 12 + [i, p]),
+        ("ses3d_triangulate_smem_bytes", [i]),
+        ("ses3d_triangulate_host", [p] * 12),
+        ("ses3d_triangulate_host_smem_bytes", [i]),
     )
 
 
@@ -160,6 +164,43 @@ def lm_split_library(verbose: bool = False) -> ctypes.CDLL:
     each phase's cycles into a device counter that `ses3d_lm_split` reads
     (kernel_ab.py's `lm_split` case)."""
     return _load(build(verbose, ("lm_prior.cu",), (LM_SPLIT_MACRO,)))
+
+
+# The kernels whose source also builds for the host with a C++ compiler
+# (the macro HOST_MACRO selects that build): the tests' handle on their
+# arithmetic where there is no card. -ffp-contract=off: no multiply-add is
+# fused, as on the card (--fmad=false).
+HOST_SOURCES = ("triangulation.cu",)
+HOST_MACRO = "SES3D_F1_HOST"
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
+              "-Wall", "-Wextra", f"-D{HOST_MACRO}")
+_host_lib = None
+
+
+def host_library() -> ctypes.CDLL:
+    """HOST_SOURCES built with $CXX (else g++) into one library under
+    BUILD_DIR, at first use, and loaded."""
+    global _host_lib
+    with _LOAD_LOCK:
+        if _host_lib is None:
+            cxx = os.environ.get("CXX", "g++")
+            h = hashlib.sha256(" ".join((cxx,) + HOST_FLAGS).encode())
+            for name in HOST_SOURCES:
+                h.update((CSRC / name).read_bytes())
+            out = BUILD_DIR / f"libses3d_host_{h.hexdigest()[:16]}.so"
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run(
+                    [cxx, *HOST_FLAGS, "-o", str(tmp), *(str(CSRC / n) for n in HOST_SOURCES)],
+                    capture_output=True, text=True,
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed on {HOST_SOURCES} ({proc.returncode}):\n"
+                                       f"{proc.stdout}\n{proc.stderr}")
+                os.replace(tmp, out)
+            _host_lib = _load(out)
+    return _host_lib
 
 
 def check(err: int, what: str) -> None:

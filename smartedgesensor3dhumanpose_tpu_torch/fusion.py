@@ -9,9 +9,12 @@ path (skeleton_3d_triang_mult_node.cpp triangulate_persons, :525-997):
   (`fuse_frames`; the online `fuse_frame` is a chunk of one), or the
   camera scan, one batched JV (kernel K1) per camera,
 * confidence-weighted DLT with 3-view / leave-one-out outlier rejection
-  (:676-844), every leave-one-out variant computed as one batch axis,
-* unscented 3D covariance (:508-523), limb, root and feet gates, and the
-  pairwise skeleton merge (:861-996).
+  (:676-844), every leave-one-out variant computed as one batch axis, the
+  unscented 3D covariance (:508-523) and the limb, root and feet gates,
+  routed by device, dtype and shape (`triangulation_route`): kernel F1
+  (ops.triangulation_kernel) on the card in float32, one launch for all
+  of a chunk's hypotheses, else the plain PyTorch body,
+* the pairwise skeleton merge (:984-996).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from smartedgesensor3dhumanpose_tpu_torch import cameras as cameras_lib
-from smartedgesensor3dhumanpose_tpu_torch import skeleton
+from smartedgesensor3dhumanpose_tpu_torch import skeleton, tracing
 from smartedgesensor3dhumanpose_tpu_torch.config import FusionConfig
 from smartedgesensor3dhumanpose_tpu_torch.ops import (
     association,
@@ -31,6 +34,7 @@ from smartedgesensor3dhumanpose_tpu_torch.ops import (
     hungarian,
     linalg,
     triangulation,
+    triangulation_kernel,
 )
 from smartedgesensor3dhumanpose_tpu_torch.types import CameraRig, Frame, Persons3D
 
@@ -172,11 +176,40 @@ def _select_outlier_drops(err0, k, rem_d2, idx3, loo_err, view_mask,
     )
 
 
+def triangulation_route(cameras: int, device, dtype) -> str:
+    """The triangulation's route for these tensors: "kernel" (F1) on CUDA
+    in float32 where the rig's cameras fit F1 (triangulation_kernel.fits),
+    else "plain" (the CPU, float64, wider rigs). It depends on what a
+    `Pipeline` knows at construction only: the device, the rig's dtype and
+    the camera count."""
+    on_card = torch.device(device).type == "cuda" and dtype == torch.float32
+    return "kernel" if on_card and triangulation_kernel.fits(cameras) else "plain"
+
+
 def triangulate_hypotheses(hyps: HypothesisSet, rig: CameraRig,
                            config: FusionConfig) -> Persons3D:
     """Triangulate every hypothesis into a 21-joint fusion skeleton: view
     masks, weighted DLT, outlier rejection, score down-weighting, UT
-    covariance, limb inflation and root/feet gates (:676-982)."""
+    covariance, limb inflation and root/feet gates (:676-982). Kernel F1
+    (one launch for the batch) where `triangulation_route` takes it, else
+    the plain body; a traced call counts the hypotheses F1 triangulates
+    (`triangulation.f1`, 0 on the plain route)."""
+    h, c = hyps.cam_mask.shape
+    route = triangulation_route(c, hyps.kp.device, hyps.kp.dtype)
+    tracing.note("triangulation.f1", h if route == "kernel" else 0)
+    if route == "kernel":
+        return triangulation_kernel.triangulate(
+            hyps.kp, hyps.cov, hyps.cam_mask, rig.P.to(torch.float32),
+            rig.F.to(torch.float32), config,
+        )
+    return _triangulate_plain(hyps, rig, config)
+
+
+def _triangulate_plain(hyps: HypothesisSet, rig: CameraRig, config: FusionConfig,
+                       with_drops: bool = False):
+    """`triangulate_hypotheses` in plain PyTorch, on any device and dtype;
+    `with_drops` also returns each joint's dropped view [H, J] (-1 none),
+    as `(persons, drops)`."""
     dtype = hyps.kp.dtype
     dev = hyps.kp.device
     model = skeleton.input_model(config.pose_method)
@@ -254,13 +287,14 @@ def triangulate_hypotheses(hyps: HypothesisSet, rig: CameraRig,
     xyz_f, score_f, cov_f, n_pre, n_dropped, has_root = (
         _apply_limb_inflation_and_gates(xyz_f, score_f, cov_f, model, config)
     )
-    return Persons3D(
+    persons = Persons3D(
         xyz=xyz_f,
         score=score_f,
         cov=cov_f,
         valid=_person_gate(xyz_f, score_f, n_pre, n_dropped, has_root, config),
         person_id=torch.full((h,), -1, dtype=torch.int32, device=dev),
     )
+    return (persons, drop) if with_drops else persons
 
 
 def _apply_limb_inflation_and_gates(xyz_f, score_f, cov_f,

@@ -1,0 +1,228 @@
+"""Kernel F1 (csrc/triangulation.cu): the fusion's triangulation of a batch
+of person hypotheses in one launch.
+
+`fusion.triangulate_hypotheses` computes, per hypothesis, the view masks,
+the weighted DLT in coefficient form with its leave-one-out and three-view
+outlier rejection, the score down-weighting, the unscented covariance and
+the limb, root and feet gates, and scatters the 17 input joints into the
+21-joint fusion layout. Its plain PyTorch body (`fusion._triangulate_plain`)
+launches ~1,900 kernels a call on the card, each much shorter than its
+launch; F1 runs the same arithmetic, one block per hypothesis, with every
+intermediate in shared memory, and writes the persons once.
+
+`fusion.triangulation_route` takes F1 for CUDA tensors in float32 whose
+camera count fits F1's shared memory (`fits`), the plain body elsewhere
+(the CPU, float64, wider rigs). `triangulate` launches F1; it raises for
+what F1 does not take, and never falls back.
+
+`triangulate_host` runs the same source built for the host by a C++
+compiler (`_kernels.host_library`): the kernel's phases one task after
+another, bit for bit the card's arithmetic. The CPU tests hold it to the
+plain body, the card tests the kernel to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from smartedgesensor3dhumanpose_tpu_torch import _kernels, skeleton
+from smartedgesensor3dhumanpose_tpu_torch.config import FusionConfig
+from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D
+
+# Launches of the CUDA kernel; the wrapper adds one per launch, under
+# _kernels.LAUNCH_LOCK.
+KERNEL_LAUNCHES = 0
+
+J = skeleton.NUM_INPUT_JOINTS
+K = skeleton.NUM_FUSION_JOINTS
+# Shared memory one thread block may hold on an H100 (static + dynamic,
+# after the opt-in); F1 declares no static shared memory, the reserve is a
+# margin for what the runtime adds.
+SMEM_PER_BLOCK = 232_448
+STATIC_SMEM_RESERVE = 1_024
+MAX_THREADS = 512
+_SYM = 10  # unique entries of a symmetric 4x4
+# csrc/triangulation.cu `Smem`, in 4-byte words: the fixed per-joint and
+# fusion-layout arrays, and those that grow with the camera count (the
+# camera constants, the keypoints, every view's contribution, the
+# leave-one-out and sigma-point results); then two byte masks [17, C].
+FIXED_WORDS = 2 * J * _SYM + 3 * J * 3 + 5 * J + 6 * J + K * 13 + 3 * J + K
+WORDS_PER_CAMERA = 12 + 5 + 5 * _SYM + 2 * J * 3 + J * _SYM + J * 4 + J * 12
+
+
+def smem_bytes(cameras: int) -> int:
+    """F1's dynamic shared memory at `cameras` cameras
+    (triangulation.cu::smem_bytes_for)."""
+    return 4 * (FIXED_WORDS + WORDS_PER_CAMERA * cameras) + 2 * J * cameras
+
+
+def threads(cameras: int) -> int:
+    """Threads of a block: one per (joint, solve slot) of the widest phase,
+    in whole warps, at most MAX_THREADS (triangulation.cu::threads_for)."""
+    return min(-(-J * (cameras + 2) // 32) * 32, MAX_THREADS)
+
+
+# The most cameras whose working set fits a block.
+MAX_CAMERAS = (SMEM_PER_BLOCK - STATIC_SMEM_RESERVE - 4 * FIXED_WORDS) // (
+    4 * WORDS_PER_CAMERA + 2 * J)
+
+
+def fits(cameras: int) -> bool:
+    """Whether F1 takes a rig of `cameras` cameras."""
+    return 1 <= cameras <= MAX_CAMERAS
+
+
+class Params(ctypes.Structure):
+    """triangulation.cu `Params`, field by field."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("c", ctypes.c_int),
+        ("min_kp_score", ctypes.c_float),
+        ("reproj_max", ctypes.c_float),
+        ("kappa", ctypes.c_float),
+        ("two_kappa", ctypes.c_float),
+        ("limb_offset", ctypes.c_float),
+        ("max_root_dist", ctypes.c_float),
+        ("max_feet_height", ctypes.c_float),
+        ("min_valid", ctypes.c_int),
+        ("to_fusion", ctypes.c_int * J),
+        ("from_fusion", ctypes.c_int * K),
+        ("limb_parent", ctypes.c_int * J),
+        ("limb_len", ctypes.c_float * J),
+        ("limb_sigma", ctypes.c_float * J),
+        ("shoulder_r", ctypes.c_int),
+        ("shoulder_l", ctypes.c_int),
+        ("shoulder_dist", ctypes.c_float),
+        ("shoulder_sigma", ctypes.c_float),
+    ]
+
+
+def params(config: FusionConfig, n: int, cameras: int) -> Params:
+    """The launch's settings: the config's gates as float32 (as the plain
+    body's comparisons cast them) and the input model's tables."""
+    model = skeleton.input_model(config.pose_method)
+    to_fusion = [int(x) for x in model.to_fusion]
+    from_fusion = [-1] * K
+    for j, fj in enumerate(to_fusion):
+        from_fusion[fj] = j
+    has_limb = (np.asarray(model.parent) >= 0) & (np.asarray(model.limb_length) > 0)
+    r17, l17 = model.shoulder_pair
+    p = Params()
+    p.n, p.c = n, cameras
+    p.min_kp_score = config.min_kp_score
+    p.reproj_max = config.reproj_error_max_acceptable
+    p.kappa = config.ut_kappa
+    p.two_kappa = 2.0 * config.ut_kappa
+    p.limb_offset = config.limb_cov_offset_sigma
+    p.max_root_dist = config.max_joint_dist_to_root
+    p.max_feet_height = config.max_feet_height
+    p.min_valid = config.min_num_valid_keypoints
+    p.to_fusion[:] = to_fusion
+    p.from_fusion[:] = from_fusion
+    p.limb_parent[:] = [int(q) if ok else -1 for q, ok in zip(model.parent, has_limb)]
+    p.limb_len[:] = [float(x) for x in model.limb_length]
+    p.limb_sigma[:] = [float(x) for x in model.limb_sigma]
+    p.shoulder_r = to_fusion[r17] if r17 >= 0 else -1
+    p.shoulder_l = to_fusion[l17] if r17 >= 0 else -1
+    p.shoulder_dist = model.shoulder_dist
+    p.shoulder_sigma = model.shoulder_sigma
+    return p
+
+
+def _check(kp, cov, cam_mask, P, F) -> tuple:
+    """(hypotheses, cameras) of F1's inputs; raises on what it does not
+    take: kp, cov [N, C, 17, 3] float32; cam_mask [N, C] bool; P
+    [C, 3, 4] and F [C, C, 3, 3] float32; all on one device; C within
+    `fits`."""
+    if kp.dim() != 4 or kp.shape[2:] != (J, 3):
+        raise ValueError(f"kp must be [N, C, {J}, 3]; got {tuple(kp.shape)}")
+    n, c = kp.shape[:2]
+    want = {"cov": (cov, (n, c, J, 3)), "cam_mask": (cam_mask, (n, c)),
+            "P": (P, (c, 3, 4)), "F": (F, (c, c, 3, 3))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)} with kp {tuple(kp.shape)}; "
+                             f"got {tuple(t.shape)}")
+        if t.device != kp.device:
+            raise ValueError(f"{name} is on {t.device}, kp on {kp.device}")
+    for name, t in (("kp", kp), ("cov", cov), ("P", P), ("F", F)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the triangulation kernel takes float32; {name} is {t.dtype}")
+    if cam_mask.dtype != torch.bool:
+        raise TypeError(f"cam_mask must be bool; got {cam_mask.dtype}")
+    if not fits(c):
+        raise ValueError(f"the triangulation kernel takes 1 to {MAX_CAMERAS} cameras; got {c}")
+    return n, c
+
+
+def _outputs(n: int, device) -> Persons3D:
+    return Persons3D(
+        xyz=torch.empty((n, K, 3), dtype=torch.float32, device=device),
+        score=torch.empty((n, K), dtype=torch.float32, device=device),
+        cov=torch.empty((n, K, 3, 3), dtype=torch.float32, device=device),
+        valid=torch.empty((n,), dtype=torch.bool, device=device),
+        person_id=torch.empty((n,), dtype=torch.int32, device=device),
+    )
+
+
+def _drops_ptr(drops, n: int, device) -> int | None:
+    """The optional drop-view output's pointer: an int32 [N, 17] tensor on
+    the inputs' device, or None."""
+    if drops is None:
+        return None
+    if drops.shape != (n, J) or drops.dtype != torch.int32 or drops.device != torch.device(device) \
+            or not drops.is_contiguous():
+        raise ValueError(f"drops must be a contiguous int32 [{n}, {J}] tensor on {device}; got "
+                         f"{drops.dtype} {tuple(drops.shape)} on {drops.device}")
+    return drops.data_ptr()
+
+
+def _pointers(kp, cov, cam_mask, P, F, out: Persons3D) -> list:
+    return [t.data_ptr() for t in (kp, cov, cam_mask, P, F, *out)]
+
+
+def triangulate(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None) -> Persons3D:
+    """F1 on the card: the persons [N, 21, ...] (person_id -1) of N
+    hypotheses, kp and cov [N, C, 17, 3], cam_mask [N, C], on the rig's P
+    [C, 3, 4] and F [C, C, 3, 3]. One launch on the current stream of the
+    tensors' device; no host sync, so a capture records it. `drops`, an
+    int32 [N, 17] tensor, receives each joint's dropped view (-1 none)."""
+    global KERNEL_LAUNCHES
+    n, c = _check(kp, cov, cam_mask, P, F)
+    if kp.device.type != "cuda":
+        raise ValueError(f"the triangulation kernel runs on CUDA tensors; got {kp.device}")
+    tensors = [t.contiguous() for t in (kp, cov, cam_mask, P, F)]
+    drops_ptr = _drops_ptr(drops, n, kp.device)
+    out = _outputs(n, kp.device)
+    p = params(config, n, c)
+    smem = smem_bytes(c)
+    lib = _kernels.library()
+    with torch.cuda.device(kp.device):
+        stream = torch.cuda.current_stream(kp.device).cuda_stream
+        err = lib.ses3d_triangulate(ctypes.byref(p), *_pointers(*tensors, out), drops_ptr,
+                                    smem, stream)
+    _kernels.check(err, f"triangulation launch (n={n}, cameras={c}, smem={smem})")
+    with _kernels.LAUNCH_LOCK:
+        KERNEL_LAUNCHES += 1
+    return out
+
+
+def triangulate_host(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None) -> Persons3D:
+    """F1's source run on the host (CPU tensors in, CPU tensors out, as
+    `triangulate`), the kernel's arithmetic bit for bit: the tests' handle
+    on it."""
+    n, c = _check(kp, cov, cam_mask, P, F)
+    if kp.device.type != "cpu":
+        raise ValueError(f"the host build takes CPU tensors; got {kp.device}")
+    tensors = [t.contiguous() for t in (kp, cov, cam_mask, P, F)]
+    drops_ptr = _drops_ptr(drops, n, "cpu")
+    out = _outputs(n, "cpu")
+    err = _kernels.host_library().ses3d_triangulate_host(
+        ctypes.byref(params(config, n, c)), *_pointers(*tensors, out), drops_ptr)
+    if err != 0:
+        raise RuntimeError(f"the host build of the triangulation kernel returned {err}")
+    return out

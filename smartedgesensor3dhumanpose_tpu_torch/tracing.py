@@ -26,7 +26,10 @@ logged or written per record.
   becomes a span named after the entry point (first mark to last mark)
   and one child span per stage. While a graph is captured, each mark
   also counts the kernel nodes captured before it: `<stage>.kernels`
-  counters.
+  counters. Code inside a stage may add a counter of its own there
+  (`note`): `<stage>.<name>`, taken at capture (on the CPU, where nothing
+  is captured, at each call), e.g. `fusion.triangulation.f1`, the
+  hypotheses kernel F1 triangulates per call.
 - Loops captured while a tracer is active (ops/loops.py WHILE nodes, the
   LM's one launch in ops/lm_prior.py) keep their trips and the device
   clock of each trip in tensors that every replay rewrites (`trip_log`);
@@ -415,6 +418,8 @@ class StageMarks:
         self._seen: list = []
         self._counts: list = []   # kernel nodes captured before each mark
         self.kernels = None       # those of the last capture
+        self._notes: list = []    # (name, value) of `note` in this call
+        self.notes = None         # those of the last capture
         self.calls = 0            # rows written: eager calls and replays
         self.drained = 0          # rows a drain has read
         self._assoc = np.full((rows, 4), -1, np.int64)  # call, parent, rid, replayed
@@ -430,7 +435,7 @@ class StageMarks:
         """Run an entry point's body with its marks going to this ring."""
         global _MARKS
         saved, _MARKS = _MARKS, self
-        self._seen, self._counts = [], []
+        self._seen, self._counts, self._notes = [], [], []
         try:
             yield
             self.mark(END)
@@ -438,6 +443,8 @@ class StageMarks:
             _MARKS = saved
         if self._counts:
             self.kernels = list(self._counts)
+        if self._counts or self.device.type != "cuda":
+            self.notes = list(self._notes)
         if self.layout is None:
             self.layout = tuple(self._seen)
             self._stages = _stages_of(self.layout)
@@ -539,6 +546,8 @@ class StageMarks:
                 n = self.kernels[c1] - self.kernels[c0] - (c1 - c0)
                 counters.append((f"{name}.kernels", n, self.name, -1))
             counters.append(("marks", ncol, self.name, -1))
+        for name, value in self.notes or ():
+            counters.append((name, value, self.name, -1))
 
     def _read_loops(self, rows: list, last: tuple, to_host) -> None:
         """The loops of the last replay as spans inside their stages."""
@@ -586,6 +595,15 @@ def stage(name: str) -> None:
     begin `name`; nothing where no traced call runs."""
     if _MARKS is not None:
         _MARKS.mark(name)
+
+
+def note(name: str, value: int) -> None:
+    """Add the counter `<open stage>.<name>` = `value` to the traced call
+    running now (StageMarks.notes keeps those of its capture); nothing
+    where no traced call runs."""
+    marks = _MARKS
+    if marks is not None:
+        marks._notes.append((f"{marks.open_stage()}.{name}", int(value)))
 
 
 @contextlib.contextmanager

@@ -33,8 +33,9 @@ SCENES = ("benign", "adversarial")
 STEP_STAGES = ("fusion", "tracking", "feedback")
 OFFLINE_STAGES = ("fusion", "smoothing", "tracker", "feedback")
 # The untraced step graph's top-level kernel nodes at demo_16cam, as the
-# benchmark reads them (live.step_graph_kernels) before tracing existed.
-PARENT_STEP_KERNELS = 3636
+# benchmark reads them (live.step_graph_kernels): 3,636 before tracing
+# existed, 1,634 since kernel F1 triangulates the hypotheses in one launch.
+UNTRACED_STEP_KERNELS = 1634
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -398,7 +399,8 @@ def _card():
 def test_graph_kernel_counts_on_card():
     """The untraced step graph has the untraced port's kernel nodes; a
     traced graph's per-stage counters sum to its top-level kernels less its
-    marks, for the step and for run_offline."""
+    marks, for the step and for run_offline; the fusion counts the
+    hypotheses kernel F1 triangulated per call."""
     dev = _card()
     data = golden_data("benign")
     cfg = config.PipelineConfig.demo_16cam()
@@ -411,7 +413,7 @@ def test_graph_kernel_counts_on_card():
         p._step.keep_graph = p._offline.keep_graph = True
         p.step(p.init_state(), frame)
         p.run_offline(p.init_state(), frames)
-    assert _kernel_nodes(plain._step) == PARENT_STEP_KERNELS
+    assert _kernel_nodes(plain._step) == UNTRACED_STEP_KERNELS
     counters = traced.tracer.drain().counters
     for entry, stages, untraced in (("Pipeline.step", STEP_STAGES, plain._step),
                                     ("Pipeline.run_offline", OFFLINE_STAGES, plain._offline)):
@@ -421,6 +423,9 @@ def test_graph_kernel_counts_on_card():
         total = _kernel_nodes(traced._step if entry == "Pipeline.step" else traced._offline)
         assert sum(got[f"{s}.kernels"] for s in stages) == total - marks, (entry, got)
         assert total - marks == _kernel_nodes(untraced), entry
+        # F1 triangulates a step's 16 hypothesis slots, and 16 frames' per
+        # offline chunk, in one launch each.
+        assert got["fusion.triangulation.f1"] == (16 if entry == "Pipeline.step" else 256), got
 
 
 @pytest.mark.cuda
