@@ -154,6 +154,31 @@ Phases (each prints one line; any failure exits non-zero):
     time (torch.profiler), the plain body's and the bound from the
     hypotheses' present views at both shapes
 
+ 17 the wide rig: the CMU Panoptic Studio's 480 VGA cameras
+    (portbench/configs/panoptic480.json, its rig, pipeline settings and
+    fusion_batch, one chunk of its 25 Hz mix): kernel E1 (the pair costs'
+    per-joint terms) against the plain terms bit for bit; F1's wide
+    variant on the chunk's hypotheses against its host build bit for bit,
+    and on two frames' against the plain body on the card (phase 16's
+    checks); kernels S1 and S2 with K1 between them
+    (association.associate_scan_kernels) against the plain camera scan
+    (`_scan_camera` per camera) on the card, on the chunk's fold inputs:
+    det_slot, n_hyp and n_dropped equal; a warm eager run_offline of the
+    chunk with no host sync; the captured run_offline: its capture's
+    seconds, the peak device memory of the capture and of a replay, a
+    replay's host syncs (none), its graph's kernel nodes, its kernels on
+    the device (E1 once per slice of the fold inputs, the wide F1 once,
+    K1, S1 and S2 480 times each, L1 once, K3 once, F1 not at all) and the
+    traced counters (480 scan steps, the chunk's hypotheses on the wide
+    variant, the triangulation stage's few kernels: no plain body); E1's,
+    S1's, S2's and the wide F1's device times (torch.profiler), their
+    plain twins' (the plain triangulation on two frames' slots: on the
+    chunk's it takes more than the card's memory) and bounds, F1's
+    registers (-Xptxas -v). E1, S1, S2 and
+    the wide F1 are also counted on the device in a replay of phase 4's
+    step and of phase 6's run_offline (E1 once per step and per chunk,
+    the others not at all), and have entries in the kernels line
+
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -4367,6 +4392,332 @@ def phase_f1(dev, smi, rig, cfg, inputs) -> tuple:
                               step["bound_by"])}, err
 
 
+# ---------------------------------------------------------------- phase 17 --
+
+NEW_KERNELS = ("pair_terms_kernel", "scan_costs_kernel", "scan_extend_kernel",
+               "triangulation_wide_kernel")
+
+
+def new_kernel_launches(dev, pipe, off_pipe, inputs) -> dict:
+    """E1, S1, S2 and F1's wide variant on the device in one replay of the
+    demo's captured step and of one demo scene's run_offline: E1 once per
+    step and per fusion chunk, the others not at all (the demo takes K2
+    and F1)."""
+    data = inputs[SCENES[0]]
+    frames = stacked_frames(data, dev)
+    step = device_kernel_counts(lambda: pipe.step(pipe.init_state(), frame_at(data, 0, dev)),
+                                NEW_KERNELS)
+    off = device_kernel_counts(lambda: off_pipe.run_offline(off_pipe.init_state(), frames),
+                               NEW_KERNELS)
+    chunks = -(-data["kp2d"].shape[0] // OFFLINE_FUSION_BATCH)
+    want = ({"pair_terms_kernel": 1}, {"pair_terms_kernel": chunks})
+    for what, got, w in (("step", step, want[0]), ("run_offline", off, want[1])):
+        if got != dict(dict.fromkeys(NEW_KERNELS, 0), **w):
+            raise AssertionError(f"demo {what}: E1, S1, S2, F1W on the device {got}")
+    return {"step": step, "run_offline": off}
+
+
+WIDE_CONFIG = os.path.join(_ROOT, "portbench", "configs", "panoptic480.json")
+WIDE_MIX = os.path.join(_ROOT, "portbench", "mixes", "offline_25hz.json")
+WIDE_SEED = 2_718_281_829
+WIDE_PLAIN_FRAMES = 2
+# Kernels one replay of one chunk runs on the device, by trace name.
+WIDE_LAUNCHES = {"triangulation_wide_kernel": 1, "jv_assign_kernel": 480,
+                 "scan_costs_kernel": 480, "scan_extend_kernel": 480,
+                 "lm_trip_kernel": 1, "tracker_scan_kernel": 1}
+
+
+def f1_ptxas(build_log) -> str:
+    """F1's and its wide variant's registers, stack frame and spills from
+    `nvcc -Xptxas -v` (reported)."""
+    if build_log is None:
+        return "'not read: the library was already built'"
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(triangulation_wide_kernel|"
+                      r"triangulation_kernel)", line)
+        if m:
+            name = m.group(1)
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            out[name] = f"stack {m.group(1)} spill {m.group(2)}/{m.group(3)}"
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name] = f"{out.get(name, '')} registers {m.group(1)}".strip()
+    return "'" + "; ".join(f"{k}: {v}" for k, v in sorted(out.items())) + "'"
+
+
+def device_kernel_counts(fn, names) -> dict:
+    """Launches of each kernel of `names` on the device in a torch.profiler
+    trace of one call of `fn` (a name matches the trace's names it is
+    part of, as `kernel_durations` matches)."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                counts[n] += n in e.name and not (n == "triangulation_kernel"
+                                                   and "wide" in e.name)
+    return counts
+
+
+def phase_wide(dev, smi) -> None:
+    """17: the 480-camera dome on the card (module docstring)."""
+    from portbench.lib import harness
+    from portbench.lib import scene as scene_lib
+    from smartedgesensor3dhumanpose_tpu_torch import _kernels, config, fusion, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.ops import triangulation_kernel as tk
+    from smartedgesensor3dhumanpose_tpu_torch.types import CameraRig, Frame
+
+    with open(WIDE_CONFIG) as f:
+        cfg_file = json.load(f)
+    with open(WIDE_MIX) as f:
+        mix = json.load(f)
+    cfg = scene_lib.make_config(config, cfg_file)
+    f_cfg = cfg.fusion
+    batch = int(cfg_file["fusion_batch"])
+    cams = f_cfg.num_cameras
+    rig = CameraRig(*(t.to(dev) for t in scene_lib.rig_arrays(cfg_file)))
+    rig64 = rig._replace(**{k: getattr(rig, k).double() for k in rig._fields})
+    data = scene_lib.scene(cfg_file, mix, batch, WIDE_SEED)
+    data.pop("det_count")
+    frames = Frame.from_arrays(data, dev)
+    routes = (fusion.association_route(f_cfg, cams, f_cfg.max_dets_per_cam),
+              fusion.triangulation_route(cams, dev, torch.float32))
+    if routes != ("scan", "wide"):
+        raise AssertionError(f"wide rig: routes {routes}, not the scan and F1's wide variant")
+
+    # F1's wide variant on the chunk's hypotheses and on two frames'.
+    hyps = f1_hypotheses(data, slice(0, batch), rig, cfg, dev)
+    args = (hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F, f_cfg)
+    drops = torch.full((hyps.kp.shape[0], 17), -2, dtype=torch.int32, device=dev)
+    got = tk.triangulate(*args, drops=drops)
+    cpu = [t.cpu() for t in (hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F)]
+    host_drops = torch.empty_like(drops, device="cpu")
+    host = tk.triangulate_host(*cpu, f_cfg, drops=host_drops)
+    for name, a, b in zip(got._fields + ("drops",), tuple(got) + (drops,),
+                          tuple(host) + (host_drops,)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"F1 wide, chunk of {batch}: {name} differs from the host build")
+    few = f1_hypotheses(data, slice(0, WIDE_PLAIN_FRAMES), rig, cfg, dev)
+    few_drops, err, diffs, cpu_equal = check_f1_call(f"wide {WIDE_PLAIN_FRAMES} frames", few,
+                                                     rig, rig64, f_cfg)
+    worst, plain_worst = check_f1_accuracy("wide", [diffs])
+    durations = kernel_durations(lambda: tk.triangulate(*args), "triangulation_wide_kernel", 5)
+    wide_ms = statistics.median(durations) / 1e3 if durations else None
+    bound_ms, bound_by = f1_bound(hyps.kp, hyps.cam_mask, drops, f_cfg)
+    # The kernels line's pair at the two frames' shape: the plain body on
+    # the chunk's slots takes more than the card's memory.
+    few_args = (few.kp, few.cov, few.cam_mask, rig.P, rig.F, f_cfg)
+    few_ms = kernel_durations(lambda: tk.triangulate(*few_args), "triangulation_wide_kernel", 5)
+    few_ms = statistics.median(few_ms) / 1e3 if few_ms else None
+    few_plain_ms = sync_time(lambda: fusion._triangulate_plain(few, rig, f_cfg), 2)
+    few_bound_ms, few_bound_by = f1_bound(few.kp, few.cam_mask, few_drops, f_cfg)
+    del got, host
+    torch.cuda.empty_cache()
+
+    # S1 and S2 (with K1 between them) against the plain camera scan
+    # (`_scan_camera`, its JV on K1) on the card, on the chunk's fold inputs.
+    scan = wide_scan(frames, rig, f_cfg)
+    torch.cuda.empty_cache()
+
+    # Eager run_offline of the chunk: no host sync once its constant tables
+    # are on the card (so it captures).
+    state0 = wide_state0(cfg, dev)
+    pipeline.run_offline(state0, frames, rig, cfg, batch)
+    syncs = sync_sites(lambda: pipeline.run_offline(state0, frames, rig, cfg, batch))
+    if syncs:
+        raise AssertionError(f"wide rig: eager run_offline syncs the host at {syncs}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # The captured chunk: memory, syncs, kernels, counters.
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pipe = pipeline.Pipeline(rig, cfg, device=dev, fusion_batch=batch, trace=True)
+    pipe._offline.keep_graph = True
+    t0 = time.perf_counter()
+    pipe.run_offline(state0, frames)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    replay_ms = sync_time(lambda: pipe.run_offline(state0, frames), 3)
+    replay_peak = torch.cuda.max_memory_allocated(dev)
+    replay_syncs = count_syncs(lambda: pipe.run_offline(state0, frames))
+    nodes = harness.graph_kernel_nodes(pipe._offline)
+    on_device = device_kernel_counts(lambda: pipe.run_offline(state0, frames),
+                                     tuple(WIDE_LAUNCHES) + ("triangulation_kernel",
+                                                             "pair_terms_kernel"))
+    per_frame = cams * (cams - 1) // 2 * 17 * f_cfg.max_dets_per_cam ** 2 * 4
+    slices = -(-batch // max(1, fusion.FOLD_INPUT_BYTES // per_frame))
+    want = dict(WIDE_LAUNCHES, triangulation_kernel=0, pair_terms_kernel=slices)
+    if on_device != want:
+        raise AssertionError(f"wide rig: kernels on the device per replay {on_device}, "
+                             f"expected {want}")
+    with pipe.tracer:
+        pipe.run_offline(state0, frames)
+        torch.cuda.synchronize()
+    rec = pipe.tracer.drain()
+    counters = {str(n): int(v) for n, v, sc in zip(rec.counters["name"], rec.counters["value"],
+                                                   rec.counters["scope"])
+                if sc == "Pipeline.run_offline"}
+    spans = rec.spans
+    stage_ms = {str(n): (int(e) - int(st)) * 1e-6 for n, st, e in
+                zip(spans["name"], spans["start"], spans["end"])
+                if str(n).startswith("fusion") or n in ("smoothing", "tracker", "feedback")}
+    if (counters.get("fusion.association.scan_steps") != cams
+            or counters.get("fusion.triangulation.f1w") != hyps.kp.shape[0]
+            or counters.get("fusion.triangulation.f1") != 0
+            or counters.get("fusion.triangulate.kernels", 10**9) > 64):
+        raise AssertionError(f"wide rig: counters {counters}")
+    # Kernel E1 (the pair costs' per-joint terms) against the plain terms
+    # on the card: the chunk's first two frames' fold inputs bit for bit.
+    from smartedgesensor3dhumanpose_tpu_torch.ops import epipolar
+
+    sub = Frame(*(x[:2] for x in frames))
+    kp_n, _, _ = fusion.normalize_frame(sub, rig, f_cfg)
+    ctab = fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg)[0]
+    saved, epipolar.pair_terms = epipolar.pair_terms, epipolar.pair_terms_plain
+    try:
+        plain_ctab = fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg)[0]
+    finally:
+        epipolar.pair_terms = saved
+    if not torch.equal(ctab, plain_ctab):
+        raise AssertionError("wide rig: kernel E1's fold inputs differ from the plain terms'")
+    e1 = kernel_durations(lambda: fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg),
+                          "pair_terms_kernel", 3)
+    e1_ms = statistics.median(e1) / 1e3 if e1 else None
+    # E1's twin: the plain terms on the same arguments (those of the fold
+    # inputs' one slice of these two frames).
+    seen = []
+    saved = epipolar.pair_terms
+    epipolar.pair_terms = lambda *a: seen.append(a) or saved(*a)
+    try:
+        fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg)
+    finally:
+        epipolar.pair_terms = saved
+    e1_args = seen[0]
+    e1_out = epipolar.pair_terms(*e1_args)
+    e1_bytes = (sum(t.numel() * t.element_size() for t in flat_tensors(e1_args))
+                + sum(t.numel() * t.element_size() for t in e1_out))
+    e1_plain_ms = sync_time(lambda: epipolar.pair_terms_plain(*e1_args), 3)
+    e1_bound_ms, e1_bound_by = bound_of(e1_bytes, 0)
+    del ctab, plain_ctab, e1_out, seen, e1_args
+    torch.cuda.empty_cache()
+
+    log("17 wide rig", gpu=repr(smi), cameras=cams, fusion_batch=batch,
+        hypotheses=hyps.kp.shape[0], routes=",".join(routes),
+        f1_wide_vs_host_build="equal bit for bit", decisions_vs_plain="equal",
+        cpu_plain_equals_host_build=cpu_equal, dropped_views=int((few_drops >= 0).sum()),
+        max_abs_err=err, worst_to_float64=worst, plain_worst_to_float64=plain_worst,
+        f1_wide_device_ms=wide_ms, f1_wide_bound_ms=bound_ms, f1_wide_bound_by=bound_by,
+        f1_wide_roofline_pct=100 * bound_ms / wide_ms if wide_ms else None,
+        f1_wide_ptxas=f1_ptxas(_kernels.build_log), e1_vs_plain="equal bit for bit",
+        e1_device_ms_two_frames=e1_ms, e1_plain_ms=e1_plain_ms, e1_bound_ms=e1_bound_ms,
+        f1_wide_two_frames="'" + json.dumps({"hypotheses": few.kp.shape[0], "device_ms": few_ms,
+                                              "plain_ms": few_plain_ms,
+                                              "bound_ms": few_bound_ms}) + "'",
+        scan_vs_plain_scan="equal",
+        scan="'" + json.dumps(scan["report"]) + "'", eager_host_syncs=0,
+        capture_s=round(capture_s, 2), replay_ms=replay_ms, replay_host_syncs=replay_syncs,
+        graph_kernel_nodes=nodes, kernels_per_replay="'" + json.dumps(on_device) + "'",
+        peak_bytes_capture=capture_peak - base, peak_bytes_replay=replay_peak - base,
+        counters="'" + json.dumps(counters) + "'",
+        stage_ms="'" + json.dumps(stage_ms) + "'")
+    if replay_syncs:
+        raise AssertionError(f"wide rig: a replay syncs the host {replay_syncs} times")
+    return {
+        "pair_terms": {"ms": e1_ms, "plain_ms": e1_plain_ms, "bound_ms": e1_bound_ms,
+                       "bound_by": e1_bound_by, "err": 0.0, "chunk": on_device["pair_terms_kernel"]},
+        "scan_costs": dict(scan["s1"], chunk=on_device["scan_costs_kernel"]),
+        "scan_extend": dict(scan["s2"], chunk=on_device["scan_extend_kernel"]),
+        "triangulation_wide": {"ms": few_ms, "plain_ms": few_plain_ms, "bound_ms": few_bound_ms,
+                               "bound_by": few_bound_by, "err": err,
+                               "chunk": on_device["triangulation_wide_kernel"]},
+    }
+
+
+def flat_tensors(args) -> list:
+    """The tensors of nested tuples of arguments."""
+    out = []
+    for a in args:
+        out.extend(flat_tensors(a) if isinstance(a, (tuple, list)) else
+                   [a] if isinstance(a, torch.Tensor) else [])
+    return out
+
+
+def wide_scan(frames, rig, f_cfg) -> dict:
+    """S1 and S2 with K1 between them (association.associate_scan_kernels)
+    against the plain camera scan on the card (`_scan_camera` per camera,
+    its JV on K1), on a chunk's fold inputs as fusion.associate builds
+    them: det_slot, n_hyp and n_dropped equal; their times, the plain
+    scan's a step, and S1's and S2's bounds (S1: the table rows of each
+    hypothesis' cameras observed before the step, its det_slot row and the
+    cost it writes; S2: the step's det_slot column and counts)."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.ops import association
+
+    chunk, _ = pipeline.mask_stale_cameras(frames, f_cfg.max_sync_diff)
+    kp_n, _, det_ok = fusion.normalize_frame(chunk, rig, f_cfg)
+    ctab, conf_obs = fusion.fold_inputs(kp_n, chunk.det_score, rig, f_cfg)
+    args = (ctab, conf_obs, det_ok, f_cfg.max_hypotheses, f_cfg.max_epipolar_error,
+            f_cfg.max_cost)
+    got = association.associate_scan_kernels(*args)
+    saved = association.scan_kernels_take
+    association.scan_kernels_take = lambda h_cap, d: False
+    try:
+        want = association.associate_scan(*args)
+        plain_ms = sync_time(lambda: association.associate_scan(*args), 2)
+    finally:
+        association.scan_kernels_take = saved
+    for name, a, b in zip(("det_slot", "n_hyp", "n_dropped"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"wide rig: the scan kernels' {name} differs from the plain "
+                                 f"scan's on the card")
+    cams = ctab.shape[1]
+    ms = sync_time(lambda: association.associate_scan_kernels(*args), 3)
+    s1 = kernel_durations(lambda: association.associate_scan_kernels(*args),
+                          "scan_costs_kernel", 1)
+    s2 = kernel_durations(lambda: association.associate_scan_kernels(*args),
+                          "scan_extend_kernel", 1)
+    b, h_cap, d = got[0].shape[0], got[0].shape[1], ctab.shape[-1]
+    seen = got[0] >= 0
+    later = (cams - 1 - torch.arange(cams, device=ctab.device)).double()
+    rows = float((seen.double() * later).sum()) / cams  # observed rows read a step
+    s1_bytes = rows * d * 4 + b * h_cap * cams * 8 + b * cams * d * 5 + b * h_cap * d * 4
+    s2_bytes = b * h_cap * (8 * 4 + d) + b * 8 * 2
+    s1_bound, s1_by = bound_of(s1_bytes, 0)
+    s2_bound, s2_by = bound_of(s2_bytes, 0)
+    s1_ms = statistics.median(s1) / 1e3 if s1 else None
+    s2_ms = statistics.median(s2) / 1e3 if s2 else None
+    plain_step = plain_ms / cams
+    report = {"frames": b, "hypotheses": int(got[1].sum()), "dropped": int(got[2].sum()),
+              "scan_ms": ms, "plain_scan_ms": plain_ms, "s1_ms": s1_ms, "s2_ms": s2_ms,
+              "s1_launches": len(s1), "s2_launches": len(s2), "s1_bound_ms": s1_bound,
+              "s2_bound_ms": s2_bound, "plain_step_ms": plain_step}
+    return {"report": report,
+            "s1": {"ms": s1_ms, "plain_ms": plain_step, "bound_ms": s1_bound, "bound_by": s1_by,
+                   "err": 0.0},
+            "s2": {"ms": s2_ms, "plain_ms": plain_step, "bound_ms": s2_bound, "bound_by": s2_by,
+                   "err": 0.0}}
+
+
+def wide_state0(cfg, dev):
+    """The tracker's initial state of `cfg` on `dev`, in float32."""
+    from smartedgesensor3dhumanpose_tpu_torch.types import TrackerState
+
+    t = cfg.tracker
+    return TrackerState.initial(t.max_tracks, t.n_mov_avg, t.avg_delay, dtype=torch.float32,
+                                device=dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, help="write a profiler table here")
@@ -4426,6 +4777,7 @@ def run_phases(args, dev, smi, references) -> int:
     pipe, inputs, launches = phase_slice(dev, golden, rig, cfg)
     times, step_on_device = phase_times(dev, pipe, golden, rig, cfg, rng, args.profile)
     off_pipe, off_launches = phase_offline(dev, golden_offline, rig, cfg, inputs)
+    new_on_demo = new_kernel_launches(dev, pipe, off_pipe, inputs)
     k3_err = phase_k3(dev, off_pipe, inputs)
     k3_err = max(k3_err, phase_scaled(dev, scaled))
     times.update(phase_offline_times(dev, off_pipe, inputs, args.profile))
@@ -4443,6 +4795,7 @@ def run_phases(args, dev, smi, references) -> int:
     times.update(lm_times)
     f1_times, f1_err = phase_f1(dev, smi, rig, cfg, inputs)
     times.update(f1_times)
+    wide_kernels = phase_wide(dev, smi)
 
     pkg = "smartedgesensor3dhumanpose_tpu_torch/csrc"
     tpu = "smartedgesensor3dhumanpose_tpu/ops"
@@ -4503,6 +4856,36 @@ def run_phases(args, dev, smi, references) -> int:
     # K1 past 120 columns: device ms and bound per timed case.
     kernels[0]["wide"] = {name: {"ms": t[0], "bound_ms": t[1], "bound_by": t[2]}
                           for name, t in wide.items()}
+    # E1, S1, S2 and F1's wide variant (PERF.md: they port no pallas_call,
+    # as L1, L2 and F1): launches on the device per replay of the demo's
+    # step (phase 4's pipeline), of a demo scene's run_offline (phase 6's)
+    # and of one chunk of the dome's run_offline (phase 17); their times
+    # from phase 17 at the dome's shapes: E1 on two frames' pair terms and
+    # its plain twin (`pair_terms_plain`) on the same arguments; S1 and S2
+    # per camera step of the chunk's scan, their twin the plain scan's
+    # whole step (`_scan_camera`, its JV included); F1's wide variant on
+    # two frames' hypotheses and the plain body on them, on the card (its
+    # time on the chunk's slots is in phase 17's line).
+    replaces = {
+        "pair_terms": f"{tpu}/epipolar.py:192",
+        "scan_costs": f"{os.path.dirname(tpu)}/fusion.py:96",
+        "scan_extend": f"{os.path.dirname(tpu)}/fusion.py:96",
+        "triangulation_wide": f"{os.path.dirname(tpu)}/fusion.py:527",
+    }
+    sources = {"pair_terms": "pair_terms.cu", "scan_costs": "scan_step.cu",
+               "scan_extend": "scan_step.cu", "triangulation_wide": "triangulation.cu"}
+    for name, t in wide_kernels.items():
+        by_path = {"step": new_on_demo["step"][name + "_kernel"],
+                   "run_offline": new_on_demo["run_offline"][name + "_kernel"],
+                   "run_offline_dome_chunk": t["chunk"]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{pkg}/{sources[name]}",
+            "replaces": replaces[name], "launches": by_path[
+                "step" if name == "pair_terms" else "run_offline_dome_chunk"],
+            "launches_by_path": by_path, "max_abs_err": float(t["err"]), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("jv_assign.cu", "association_fold.cu", "tracker_scan.cu", "graph_loop.cu",
-           "lm_prior.cu", "triangulation.cu")
+           "lm_prior.cu", "triangulation.cu", "pair_terms.cu", "scan_step.cu")
 HEADERS = ("jv.cuh", "bulk_copy.cuh")
 # --fmad=false: every float operation rounds on its own, as in the plain
 # PyTorch versions the kernels are held to bit for bit.
@@ -127,10 +127,17 @@ def _signatures() -> tuple:
         ("ses3d_lm_trip", [p] * 13 + [i] * 3 + [f] * 4 + [p] * 3),
         ("ses3d_lm_marginals", [p] * 9 + [i, p]),
         ("ses3d_lm_split", [p, i]),
-        ("ses3d_triangulate", [p] * 12 + [i, p]),
-        ("ses3d_triangulate_smem_bytes", [i]),
-        ("ses3d_triangulate_host", [p] * 12),
-        ("ses3d_triangulate_host_smem_bytes", [i]),
+        ("ses3d_triangulate", [p] * 13 + [i, p]),
+        ("ses3d_triangulate_smem_bytes", [i, i]),
+        ("ses3d_triangulate_wide_bytes", [i]),
+        ("ses3d_triangulate_host", [p] * 12 + [i]),
+        ("ses3d_triangulate_host_smem_bytes", [i, i]),
+        ("ses3d_triangulate_host_wide_bytes", [i]),
+        ("ses3d_pair_terms", [p] * 14 + [ctypes.c_longlong, i, i, i, p]),
+        ("ses3d_scan_costs", [p, p]),
+        ("ses3d_scan_extend", [p, p]),
+        ("ses3d_scan_costs_host", [p]),
+        ("ses3d_scan_extend_host", [p]),
     )
 
 
@@ -170,8 +177,8 @@ def lm_split_library(verbose: bool = False) -> ctypes.CDLL:
 # (the macro HOST_MACRO selects that build): the tests' handle on their
 # arithmetic where there is no card. -ffp-contract=off: no multiply-add is
 # fused, as on the card (--fmad=false).
-HOST_SOURCES = ("triangulation.cu",)
-HOST_MACRO = "SES3D_F1_HOST"
+HOST_SOURCES = ("triangulation.cu", "scan_step.cu")
+HOST_MACRO = "SES3D_HOST"
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
               "-Wall", "-Wextra", f"-D{HOST_MACRO}")
 _host_lib = None

@@ -29,7 +29,14 @@
 // One block per hypothesis. A hypothesis' working set (the rig's per-camera
 // constants, its keypoints, every view's normal-matrix contribution, the
 // leave-one-out and sigma-point results) lives in shared memory (`Smem`,
-// ~2.5 KB a camera) and never goes to device memory. The block runs phases
+// ~2.5 KB a camera) and never goes to device memory: C <= 91 on an H100.
+// A wider rig takes the wide variant (triangulation_wide_kernel, C <= 742):
+// the same phases, with the arrays written or read once a view (the
+// coefficient constants, the covariances, T_c, the leave-one-out and the
+// sigma-point results: 2.2 KB a camera) in a slice of device memory of its
+// own per hypothesis, which stays in L2 between the phases, and those the
+// reprojection sums read C times a task (P, its norms, the keypoints, the
+// view masks: 0.3 KB a camera) still in shared memory. The block runs phases
 // separated by __syncthreads; a phase's tasks are independent and its
 // threads take them in turn:
 //   load        the cameras' constants, the hypothesis' keypoints;
@@ -54,7 +61,7 @@
 // persons once (~0.2 MB a frame). A phase's critical path is one 4x4 solve
 // (~300 operations) plus, for the leave-one-out slots, C reprojections.
 //
-// Built with -DSES3D_F1_HOST by a C++ compiler (no CUDA), this file gives
+// Built with -DSES3D_HOST by a C++ compiler (no CUDA), this file gives
 // the same block's phases run one task after another on the host
 // (`ses3d_triangulate_host`): the tests hold F1's arithmetic to the plain
 // version on the CPU through it, and the card's kernel to it bit for bit.
@@ -62,7 +69,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#ifdef SES3D_F1_HOST
+#ifdef SES3D_HOST
 #include <cmath>
 #include <vector>
 #define F1_FN static inline
@@ -172,13 +179,23 @@ struct Smem {
 constexpr size_t kFixedFloats = 2 * kJ * kSym + 3 * kJ * 3 + 5 * kJ + kJ * 6 + kK * (3 + 1 + 9);
 constexpr size_t kFixedInts = 3 * kJ + kK;
 constexpr size_t kFloatsPerCam = 12 + 5 + 5 * kSym + 2 * kJ * 3 + kJ * kSym + kJ * 4 + kJ * 12;
+// The wide variant's split of kFloatsPerCam: P, nrm and kp in shared
+// memory; K, cv, T, loo and sd in device memory.
+constexpr size_t kSharedFloatsPerCam = 12 + 5 + kJ * 3;
+constexpr size_t kDeviceFloatsPerCam = kFloatsPerCam - kSharedFloatsPerCam;
 
-F1_HD size_t smem_bytes_for(int c) {
-  const size_t words = kFixedFloats + kFixedInts + kFloatsPerCam * static_cast<size_t>(c);
+F1_HD size_t smem_bytes_for(int c, bool wide) {
+  const size_t per_cam = wide ? kSharedFloatsPerCam : kFloatsPerCam;
+  const size_t words = kFixedFloats + kFixedInts + per_cam * static_cast<size_t>(c);
   return words * 4 + 2 * static_cast<size_t>(kJ) * static_cast<size_t>(c);
 }
 
-F1_FN Smem carve(void* base, int c) {
+// The wide variant's device memory for one hypothesis, in floats.
+F1_HD size_t device_floats_for(int c) { return kDeviceFloatsPerCam * static_cast<size_t>(c); }
+
+// `dev`: the hypothesis' slice of device memory (the wide variant), else
+// null and every array in shared memory.
+F1_FN Smem carve(void* base, int c, float* dev) {
   Smem s;
   float* f = static_cast<float*>(base);
   auto take = [&f](size_t n) {
@@ -186,14 +203,20 @@ F1_FN Smem carve(void* base, int c) {
     f += n;
     return p;
   };
+  auto take_dev = [&f, &dev](size_t n) {
+    float*& from = dev != nullptr ? dev : f;
+    float* p = from;
+    from += n;
+    return p;
+  };
   s.P = take(12 * c);
   s.nrm = take(5 * c);
-  s.K = take(5 * kSym * c);
+  s.K = take_dev(5 * kSym * c);
   s.kp = take(kJ * 3 * c);
-  s.cv = take(kJ * 3 * c);
-  s.T = take(kJ * kSym * c);
-  s.loo = take(kJ * 4 * c);
-  s.sd = take(kJ * 12 * c);
+  s.cv = take_dev(kJ * 3 * c);
+  s.T = take_dev(kJ * kSym * c);
+  s.loo = take_dev(kJ * 4 * c);
+  s.sd = take_dev(kJ * 12 * c);
   s.M0 = take(kJ * kSym);
   s.M0u = take(kJ * kSym);
   s.xyz0 = take(kJ * 3);
@@ -345,30 +368,38 @@ F1_UNROLL
 // Sums over the views (or sigma points) in the order of PyTorch's CPU
 // reductions (cascade_sum, vectors of kVec floats), which the plain
 // version runs there. `cascade` is one output's sum across vectors of
-// outputs (the sum along an axis that is not the innermost, as M0's): a
-// running sum in blocks of kLevelStep elements, each block's sum added to
-// a second running sum, the part block after them (cascade_sum's first
-// two levels: all of it below kLevelStep^2 = 256 elements, and F1 sums at
-// most 4 MAX_CAMERAS). `row_sum` is kRows interleaved cascades added in
-// turn. `inner_sum` sums along the contiguous last axis: the scalars past
-// the last whole vector, then each of the kVec lanes' `row_sum` over the
-// vectors.
+// outputs (the sum along an axis that is not the innermost, as M0's):
+// multi_row_sum's kLevels running sums, level 0 over blocks of kLevelStep
+// elements, each level added into the next when a block of the level
+// below completes a multiple of kLevelStep of them, the part block after
+// the last whole block, then levels 1, 2, 3 added to level 0 in turn
+// (its level step is 16 below 2^20 elements; F1 sums at most 4 x 742).
+// `row_sum` is kRows interleaved cascades added in turn. `inner_sum` sums
+// along the contiguous last axis: the scalars past the last whole vector,
+// then each of the kVec lanes' `row_sum` over the vectors.
 constexpr int kRows = 4;
-constexpr int kLevelStep = 16;
+constexpr int kLevels = 4;
+constexpr int kLevelPower = 4;
+constexpr int kLevelStep = 1 << kLevelPower;
 constexpr int kVec = 8;
 
 template <typename Term>
 F1_FN float cascade(int n, const Term& term) {
-  float blocks = 0.0f;
+  float acc[kLevels] = {0.0f, 0.0f, 0.0f, 0.0f};
   int i = 0;
-  for (; i + kLevelStep <= n; i += kLevelStep) {
-    float block = 0.0f;
-    for (int b = 0; b < kLevelStep; ++b) block = block + term(i + b);
-    blocks = blocks + block;
+  while (i + kLevelStep <= n) {
+    for (int b = 0; b < kLevelStep; ++b, ++i) acc[0] = acc[0] + term(i);
+F1_UNROLL
+    for (int level = 1; level < kLevels; ++level) {
+      acc[level] = acc[level] + acc[level - 1];
+      acc[level - 1] = 0.0f;
+      if ((i & ((kLevelStep - 1) << (level * kLevelPower))) != 0) break;
+    }
   }
-  float part = 0.0f;
-  for (; i < n; ++i) part = part + term(i);
-  return part + blocks;
+  for (; i < n; ++i) acc[0] = acc[0] + term(i);
+F1_UNROLL
+  for (int level = 1; level < kLevels; ++level) acc[0] = acc[0] + acc[level];
+  return acc[0];
 }
 
 template <typename Term>
@@ -396,12 +427,21 @@ F1_FN float inner_sum(int n, const Term& term) {
 }
 
 // ops/triangulation.py reprojection_error over the joint's views but `skip`.
+// Its sums run across vectors of outputs: of the joints (`row_sum`) for the
+// base solve, of every (dropped view, joint) pair (`cascade`) for the
+// leave-one-out solves, whose error tensors hold the views outermost.
+template <typename Term>
+F1_FN float view_sum(int c_cams, bool loo, const Term& term) {
+  return loo ? cascade(c_cams, term) : row_sum(c_cams, term);
+}
+
 F1_FN float reproj_error(const Smem& s, int c_cams, int j, int skip, const float xyz[3]) {
   const auto on = [&](int c) { return s.vm[j * c_cams + c] && c != skip; };
-  const float norm = row_sum(c_cams, [&](int c) {
+  const bool loo = skip >= 0;
+  const float norm = view_sum(c_cams, loo, [&](int c) {
     return on(c) ? s.kp[(c * kJ + j) * 3 + 2] : 0.0f;
   });
-  const float total = row_sum(c_cams, [&](int c) {
+  const float total = view_sum(c_cams, loo, [&](int c) {
     if (!on(c)) return 0.0f;
     const float* P = s.P + 12 * c;
     const float* kp = s.kp + (c * kJ + j) * 3;
@@ -628,19 +668,27 @@ F1_FN void ut_contribs(const Params& p, const Smem& s, int t) {
               s.T + (j * c_cams + c) * kSym);
 }
 
-// (joint, entry): entry e of M0u, ops/covariance.py's einsum over (view,
-// coefficient): one multiply-add chain, view by view.
+// (joint, entry): entry e of M0u, ops/covariance.py's einsums over (view,
+// coefficient): a multiply-add chain, view by view, over each chunk of
+// kProductViews views, the chunks' sums added in turn.
+constexpr int kProductViews = 64;
+
 F1_FN void ut_sum(const Params& p, const Smem& s, int t) {
   const int c_cams = p.c;
   const int j = t / kSym, e = t % kSym;
-  float acc = 0.0f;
-  for (int c = 0; c < c_cams; ++c) {
-    const float* coeff = s.T + (j * c_cams + c) * kSym;
-    const float* K = s.K + 5 * kSym * c + e;
+  float total = 0.0f;
+  for (int lo = 0; lo < c_cams; lo += kProductViews) {
+    const int hi = lo + kProductViews < c_cams ? lo + kProductViews : c_cams;
+    float acc = 0.0f;
+    for (int c = lo; c < hi; ++c) {
+      const float* coeff = s.T + (j * c_cams + c) * kSym;
+      const float* K = s.K + 5 * kSym * c + e;
 F1_UNROLL
-    for (int q = 0; q < 5; ++q) acc = F1_FMA(coeff[q], K[q * kSym], acc);
+      for (int q = 0; q < 5; ++q) acc = F1_FMA(coeff[q], K[q * kSym], acc);
+    }
+    total = lo == 0 ? acc : total + acc;
   }
-  s.M0u[t] = acc;
+  s.M0u[t] = total;
 }
 
 // (joint, slot): slot < C the four sigma points of view `slot` (a final
@@ -814,7 +862,7 @@ F1_FN void store(const Smem& s, const Tensors& g, int h, int t) {
 
 }  // namespace
 
-#ifndef SES3D_F1_HOST
+#ifndef SES3D_HOST
 
 namespace {
 
@@ -824,12 +872,15 @@ namespace {
     __syncthreads();                                                \
   } while (0)
 
-__global__ void __launch_bounds__(kMaxThreads)
-triangulation_kernel(Params p, Tensors g) {
+// One hypothesis (this block's): `dev` is the launch's device memory of
+// the wide variant (`device_floats_for` a hypothesis), else null.
+template <bool kWide>
+__device__ __forceinline__ void triangulate_block(const Params& p, const Tensors& g, float* dev) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, p.c);
   const int h = blockIdx.x;
   const int c = p.c;
+  const Smem s = carve(smem_raw, c, kWide ? dev + static_cast<size_t>(h) * device_floats_for(c)
+                                          : nullptr);
   F1_PHASE(load_tasks(c), load(p, g, s, h, t));
   F1_PHASE(kJ * c, contribs(p, g, s, h, t));
   F1_PHASE(kJ * kSym, base_sum(p, s, t));
@@ -845,27 +896,47 @@ triangulation_kernel(Params p, Tensors g) {
   for (int t = threadIdx.x; t < kK * 13; t += blockDim.x) store(s, g, h, t);
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+triangulation_kernel(Params p, Tensors g) {
+  triangulate_block<false>(p, g, nullptr);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+triangulation_wide_kernel(Params p, Tensors g, float* dev) {
+  triangulate_block<true>(p, g, dev);
+}
+
 }  // namespace
 
-// The dynamic shared memory one block takes at `cams` cameras.
-extern "C" int ses3d_triangulate_smem_bytes(int cams) {
-  return static_cast<int>(smem_bytes_for(cams));
+// The dynamic shared memory one block takes at `cams` cameras (`wide`:
+// the wide variant's).
+extern "C" int ses3d_triangulate_smem_bytes(int cams, int wide) {
+  return static_cast<int>(smem_bytes_for(cams, wide != 0));
+}
+
+// The wide variant's device memory per hypothesis at `cams` cameras, bytes.
+extern "C" int ses3d_triangulate_wide_bytes(int cams) {
+  return static_cast<int>(device_floats_for(cams) * 4);
 }
 
 // F1 over `params`' hypotheses on `stream`; `params` points to a Params
 // (a void pointer: a C entry's signature names no type of this file's
-// unnamed namespace). Returns the CUDA error (or cudaErrorInvalidValue for
-// settings it does not take).
+// unnamed namespace). `dev`, where not null, is the wide variant's device
+// memory (ses3d_triangulate_wide_bytes per hypothesis) and launches it.
+// Returns the CUDA error (or cudaErrorInvalidValue for settings it does
+// not take).
 extern "C" int ses3d_triangulate(const void* params, const void* kp, const void* cov,
                                  const void* cam_mask, const void* P, const void* F, void* xyz,
                                  void* score, void* cov3, void* valid, void* person_id,
-                                 void* drops, int smem_bytes, void* stream) {
+                                 void* drops, void* dev, int smem_bytes, void* stream) {
   const Params* p = static_cast<const Params*>(params);
+  const bool wide = dev != nullptr;
   if (p == nullptr || p->n < 0 || p->c < 1 ||
-      static_cast<size_t>(smem_bytes) != smem_bytes_for(p->c)) {
+      static_cast<size_t>(smem_bytes) != smem_bytes_for(p->c, wide)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = triangulation_kernel;
+  const void* kernel = wide ? reinterpret_cast<const void*>(triangulation_wide_kernel)
+                            : reinterpret_cast<const void*>(triangulation_kernel);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -893,24 +964,32 @@ extern "C" int ses3d_triangulate(const void* params, const void* kp, const void*
                     static_cast<unsigned char*>(valid),
                     static_cast<int*>(person_id),
                     static_cast<int*>(drops)};
-    kernel<<<p->n, threads_for(p->c), smem_bytes, static_cast<cudaStream_t>(stream)>>>(*p, g);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (wide) {
+      triangulation_wide_kernel<<<p->n, threads_for(p->c), smem_bytes, s>>>(
+          *p, g, static_cast<float*>(dev));
+    } else {
+      triangulation_kernel<<<p->n, threads_for(p->c), smem_bytes, s>>>(*p, g);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-#else  // SES3D_F1_HOST
+#else  // SES3D_HOST
 
 // The kernel's phases on the host, one hypothesis (block) after another and
 // within a phase one task (thread) after another: the same arithmetic, for
-// the tests. Returns 0.
+// the tests; `wide` lays the working set out as the wide variant does.
+// Returns 0.
 extern "C" int ses3d_triangulate_host(const void* params, const void* kp, const void* cov,
                                       const void* cam_mask, const void* P, const void* F,
                                       void* xyz, void* score, void* cov3, void* valid,
-                                      void* person_id, void* drops) {
+                                      void* person_id, void* drops, int wide) {
   const Params* p = static_cast<const Params*>(params);
   if (p == nullptr || p->n < 0 || p->c < 1) return 1;
-  std::vector<float> raw((smem_bytes_for(p->c) + 3) / 4);
-  const Smem s = carve(raw.data(), p->c);
+  std::vector<float> raw((smem_bytes_for(p->c, wide != 0) + 3) / 4);
+  std::vector<float> dev(wide != 0 ? device_floats_for(p->c) : 0);
+  const Smem s = carve(raw.data(), p->c, wide != 0 ? dev.data() : nullptr);
   const Tensors g{static_cast<const float*>(kp),
                   static_cast<const float*>(cov),
                   static_cast<const unsigned char*>(cam_mask),
@@ -941,8 +1020,12 @@ extern "C" int ses3d_triangulate_host(const void* params, const void* kp, const 
   return 0;
 }
 
-extern "C" int ses3d_triangulate_host_smem_bytes(int cams) {
-  return static_cast<int>(smem_bytes_for(cams));
+extern "C" int ses3d_triangulate_host_smem_bytes(int cams, int wide) {
+  return static_cast<int>(smem_bytes_for(cams, wide != 0));
 }
 
-#endif  // SES3D_F1_HOST
+extern "C" int ses3d_triangulate_host_wide_bytes(int cams) {
+  return static_cast<int>(device_floats_for(cams) * 4);
+}
+
+#endif  // SES3D_HOST

@@ -13,12 +13,14 @@ path (skeleton_3d_triang_mult_node.cpp triangulate_persons, :525-997):
   unscented 3D covariance (:508-523) and the limb, root and feet gates,
   routed by device, dtype and shape (`triangulation_route`): kernel F1
   (ops.triangulation_kernel) on the card in float32, one launch for all
-  of a chunk's hypotheses, else the plain PyTorch body,
+  of a chunk's hypotheses (its wide variant past 91 cameras), else the
+  plain PyTorch body,
 * the pairwise skeleton merge (:984-996).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -52,20 +54,34 @@ class HypothesisSet(NamedTuple):
     n_dropped: torch.Tensor  # [] int32 spawns lost to the slot capacity
 
 
+# The most bytes one of the pair costs' per-joint terms ([frames,
+# C(C-1)/2, J, D, D] float32) may take: a chunk of frames whose would take
+# more computes them a slice of frames at a time (the 480-camera dome's
+# take ~0.5 GB a frame; the demo's 0.5 MB).
+FOLD_INPUT_BYTES = 1 << 30
+
+
 def fold_inputs(kp_n, det_score, rig: CameraRig, config: FusionConfig):
     """The association fold's inputs: the per-observation epipolar costs
     between every detection pair, computed once per frame and packed as
     ctab [..., C2, C1*D1, D2] (-1 where unusable, including c1 >= c2), and
     the confident-voter flags conf_obs [..., C*D] (score > 0.5, :352).
-    kp_n [..., C, D, J, 3]: leading axes (frames) pass through."""
-    c, d = kp_n.shape[-4:-2]
+    kp_n [..., C, D, J, 3]: leading axes (frames) pass through; one leading
+    axis is taken in slices of frames whose intermediates fit
+    FOLD_INPUT_BYTES."""
+    c, d, j = kp_n.shape[-4], kp_n.shape[-3], kp_n.shape[-2]
     lead = kp_n.shape[:-4]
     dtype = kp_n.dtype
-    cost_p, usable_p, iu, ju = epipolar.pairwise_association_costs_packed(
-        kp_n, rig.F, config.min_kp_score
-    )
     ctab = torch.full(lead + (c, c, d, d), -1.0, dtype=dtype, device=kp_n.device)
-    ctab[..., ju, iu, :, :] = torch.where(usable_p, cost_p, -1.0)
+    per_frame = max(c * (c - 1) // 2 * j * d * d * kp_n.element_size(), 1)
+    sliced = len(lead) == 1
+    step = max(1, FOLD_INPUT_BYTES // per_frame) if sliced else 1
+    for lo in range(0, lead[0] if sliced else 1, step):
+        part = slice(lo, lo + step) if sliced else slice(None)
+        cost_p, usable_p, iu, ju = epipolar.pairwise_association_costs_packed(
+            kp_n[part], rig.F, config.min_kp_score
+        )
+        ctab[part][..., ju, iu, :, :] = torch.where(usable_p, cost_p, -1.0)
     conf_obs = (det_score > 0.5).to(dtype).reshape(lead + (c * d,))
     return ctab.reshape(lead + (c, c * d, d)), conf_obs
 
@@ -113,18 +129,22 @@ def associate(kp_n, cov_n, det_score, det_ok, rig: CameraRig,
 
     kp_n, cov_n: [B, C, D, J, 3]; det_score [B, C, D]; det_ok [B, C, D]
     bool; a HypothesisSet with the same leading frame axis comes back. One
-    frame without that axis gives one HypothesisSet without it.
+    frame without that axis gives one HypothesisSet without it. A traced
+    call counts the camera steps of the scan (`association.scan_steps`, 0
+    on the fold).
     """
     if kp_n.dim() == 4:
         hyps = associate(kp_n[None], cov_n[None], det_score[None], det_ok[None],
                          rig, config)
         return HypothesisSet(*(x[0] for x in hyps))
     ctab, conf_obs = fold_inputs(kp_n, det_score, rig, config)
+    route = association_route(config, kp_n.shape[1], kp_n.shape[2])
+    tracing.note("association.scan_steps", kp_n.shape[1] if route == "scan" else 0)
     fold = {
         "fold": association.associate_fold_batched,
         "reference": association.associate_fold_batched_reference,
         "scan": association.associate_scan,
-    }[association_route(config, kp_n.shape[1], kp_n.shape[2])]
+    }[route]
     det_slot, n_hyp, n_dropped = fold(
         ctab, conf_obs, det_ok, config.max_hypotheses,
         config.max_epipolar_error, config.max_cost,
@@ -177,13 +197,17 @@ def _select_outlier_drops(err0, k, rem_d2, idx3, loo_err, view_mask,
 
 
 def triangulation_route(cameras: int, device, dtype) -> str:
-    """The triangulation's route for these tensors: "kernel" (F1) on CUDA
-    in float32 where the rig's cameras fit F1 (triangulation_kernel.fits),
-    else "plain" (the CPU, float64, wider rigs). It depends on what a
-    `Pipeline` knows at construction only: the device, the rig's dtype and
-    the camera count."""
-    on_card = torch.device(device).type == "cuda" and dtype == torch.float32
-    return "kernel" if on_card and triangulation_kernel.fits(cameras) else "plain"
+    """The triangulation's route for these tensors: on CUDA in float32
+    "kernel" (F1) where the rig's cameras fit its shared memory
+    (triangulation_kernel.fits), "wide" (F1's wide variant) where they fit
+    that (fits_wide), else "plain" (the CPU, float64, wider rigs). It
+    depends on what a `Pipeline` knows at construction only: the device,
+    the rig's dtype and the camera count."""
+    if torch.device(device).type != "cuda" or dtype != torch.float32:
+        return "plain"
+    if triangulation_kernel.fits(cameras):
+        return "kernel"
+    return "wide" if triangulation_kernel.fits_wide(cameras) else "plain"
 
 
 def triangulate_hypotheses(hyps: HypothesisSet, rig: CameraRig,
@@ -191,13 +215,15 @@ def triangulate_hypotheses(hyps: HypothesisSet, rig: CameraRig,
     """Triangulate every hypothesis into a 21-joint fusion skeleton: view
     masks, weighted DLT, outlier rejection, score down-weighting, UT
     covariance, limb inflation and root/feet gates (:676-982). Kernel F1
-    (one launch for the batch) where `triangulation_route` takes it, else
-    the plain body; a traced call counts the hypotheses F1 triangulates
-    (`triangulation.f1`, 0 on the plain route)."""
+    or its wide variant (one launch for the batch) where
+    `triangulation_route` takes them, else the plain body; a traced call
+    counts the hypotheses each triangulates (`triangulation.f1`,
+    `triangulation.f1w`; 0 off its route)."""
     h, c = hyps.cam_mask.shape
     route = triangulation_route(c, hyps.kp.device, hyps.kp.dtype)
     tracing.note("triangulation.f1", h if route == "kernel" else 0)
-    if route == "kernel":
+    tracing.note("triangulation.f1w", h if route == "wide" else 0)
+    if route in ("kernel", "wide"):
         return triangulation_kernel.triangulate(
             hyps.kp, hyps.cov, hyps.cam_mask, rig.P.to(torch.float32),
             rig.F.to(torch.float32), config,
@@ -467,16 +493,41 @@ def fuse_frames(frames: Frame, rig: CameraRig, config: FusionConfig):
     Returns (persons [B, H, ...], n_dropped [B] int32 hypothesis spawns lost
     to the slot capacity).
     """
-    kp_n, cov_n, det_ok = normalize_frame(frames, rig, config)
-    hyps = associate(kp_n, cov_n, frames.det_score, det_ok, rig, config)
+    return fuse_chunks([frames], rig, config)[0]
+
+
+def _no_stage(name: str):
+    return contextlib.nullcontext()
+
+
+def fuse_chunks(chunks, rig: CameraRig, config: FusionConfig, stage=_no_stage):
+    """`fuse_frames` of each chunk of frames in `chunks`: every chunk's
+    normalisation and association, then every chunk's triangulation, then
+    each chunk's gates and merge, so that `stage` (a context manager of a
+    name, e.g. `tracing.child`) holds each of the first two as one block,
+    `fusion.associate` and `fusion.triangulate`. Returns a list of
+    (persons, n_dropped), one per chunk."""
+    with stage("fusion.associate"):
+        hyps = []
+        for frames in chunks:
+            kp_n, cov_n, det_ok = normalize_frame(frames, rig, config)
+            hyps.append(associate(kp_n, cov_n, frames.det_score, det_ok, rig, config))
+    with stage("fusion.triangulate"):
+        persons = [triangulate_frames(h, rig, config) for h in hyps]
+    return [(gate_and_merge(p, h, config), h.n_dropped) for p, h in zip(persons, hyps)]
+
+
+def triangulate_frames(hyps: HypothesisSet, rig: CameraRig,
+                       config: FusionConfig) -> Persons3D:
+    """`triangulate_hypotheses` of a chunk's hypotheses (a leading frame
+    axis B) as one batch: persons [B, H, ...]."""
     b, h = hyps.cam_mask.shape[:2]
     flat = hyps._replace(
         kp=hyps.kp.flatten(0, 1), cov=hyps.cov.flatten(0, 1),
         cam_mask=hyps.cam_mask.flatten(0, 1), obs_score=hyps.obs_score.flatten(0, 1),
     )
     persons = triangulate_hypotheses(flat, rig, config)
-    persons = Persons3D(*(x.reshape((b, h) + x.shape[1:]) for x in persons))
-    return gate_and_merge(persons, hyps, config), hyps.n_dropped
+    return Persons3D(*(x.reshape((b, h) + x.shape[1:]) for x in persons))
 
 
 def gate_and_merge(persons: Persons3D, hyps: HypothesisSet, config: FusionConfig) -> Persons3D:

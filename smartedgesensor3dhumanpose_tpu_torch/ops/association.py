@@ -21,9 +21,12 @@ fusion.association_route's):
   one camera per step over a batch of frames, the JV of each step (hypotheses
   as rows, detections as columns) one batched `hungarian.
   linear_sum_assignment_batched` call: kernel K1 on the card (its wide
-  routine past 120 columns), the plain JV on the CPU. It runs at any
-  width K1 takes and never reads a device value on the host, so it
-  captures.
+  routine past 120 columns), the plain JV on the CPU. On the card in
+  float32 the rest of a step is kernels S1 (the costs, vetoes, mask and
+  the solve's input) and S2 (extend or spawn; csrc/scan_step.cu), three
+  launches a step in place of `_scan_camera`'s ~115, which the CPU runs
+  and which their host build equals bit for bit. It runs at any width K1
+  takes and never reads a device value on the host, so it captures.
 
 The two give the same decisions except on exactly tied solver optima (the
 tie tiers below make those rare).
@@ -31,6 +34,8 @@ tie tiers below make those rare).
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -406,13 +411,98 @@ def _scan_camera(det_slot, n_hyp, n_dropped, ctab_c, conf_obs, det_ok, c,
     return det_slot, torch.clamp(n2, max=h), n_dropped + torch.clamp(n2 - h, min=0)
 
 
+class ScanStep(ctypes.Structure):
+    """csrc/scan_step.cu `Step`, field by field: one camera step's inputs,
+    carry and outputs (pointers) and its shapes and settings."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "ctab", "conf", "det_ok", "tier", "trivial", "det_slot", "n_obs", "n_hyp",
+        "n_dropped", "cost", "row_active", "mask", "from_mask", "need", "solved")] + [
+        (name, ctypes.c_int) for name in ("b", "h", "c", "d", "cam")] + [
+        (name, ctypes.c_float) for name in ("gate", "max_cost", "clip", "invalid")]
+
+
+# Launches of kernels S1 and S2 (one each a camera step on the card), under
+# _kernels.LAUNCH_LOCK.
+SCAN_LAUNCHES = 0
+# What S1 and S2 take (csrc/scan_step.cu): detections a camera, and S1's
+# tiered costs of a frame in shared memory (H x D floats in 48 KB).
+SCAN_MAX_DETS = 128
+SCAN_MAX_SLOTS = 12 * 1024
+
+
+def scan_kernels_take(h_cap: int, d: int) -> bool:
+    """Whether kernels S1 and S2 take a scan of h_cap slots and d detections."""
+    return d <= SCAN_MAX_DETS and h_cap * d <= SCAN_MAX_SLOTS
+
+
+def associate_scan_kernels(ctab, conf_obs, det_ok, h_cap, gate, max_cost, host=False):
+    """`associate_scan` with each step's costs and extend-or-spawn as kernels
+    S1 and S2 (csrc/scan_step.cu) around the step's batched JV: on the card
+    for float32 CUDA tensors, or (`host`) their host build with the plain
+    JV for float32 CPU tensors, the tests' handle on their arithmetic.
+    Shapes and results as `associate_scan`'s."""
+    global SCAN_LAUNCHES
+    b, c_cams, _, d = ctab.shape
+    dev = ctab.device
+    if ctab.dtype != torch.float32 or (dev.type == "cuda") == host:
+        raise ValueError(f"the scan kernels take float32 {'CPU' if host else 'CUDA'} tensors; "
+                         f"got {ctab.dtype} on {dev}")
+    f32, i64 = torch.float32, torch.int64
+    ctab = ctab.contiguous()
+    conf = conf_obs.to(f32).contiguous()
+    dok = det_ok.to(torch.bool).contiguous()
+    hyps = torch.arange(h_cap, device=dev)
+    dets = torch.arange(d, device=dev)
+    tie = SOLVER_TIE_EPS * (hyps + 1).to(f32)[:, None] * (dets + 1).to(f32)[None, :]
+    tier = (ASSIGN_COST_CLIP + tie).contiguous()
+    trivial = (hyps[:, None] != dets[None, :]).to(f32)
+    det_slot = torch.full((b, h_cap, c_cams), -1, dtype=i64, device=dev)
+    n_obs = torch.zeros((b, h_cap), dtype=i64, device=dev)
+    n_hyp = torch.zeros(b, dtype=i64, device=dev)
+    n_dropped = torch.zeros(b, dtype=i64, device=dev)
+    cost = torch.empty((b, h_cap, d), dtype=f32, device=dev)
+    row_active = torch.empty((b, h_cap), dtype=torch.bool, device=dev)
+    mask = torch.empty((b, h_cap, d), dtype=torch.bool, device=dev)
+    from_mask = torch.empty((b, h_cap), dtype=i64, device=dev)
+    need = torch.empty(b, dtype=torch.bool, device=dev)
+    step = ScanStep(*(t.data_ptr() for t in (
+        ctab, conf, dok, tier, trivial, det_slot, n_obs, n_hyp, n_dropped, cost, row_active,
+        mask, from_mask, need)), None, b, h_cap, c_cams, d, 0, gate, max_cost,
+        ASSIGN_COST_CLIP, INVALID_DET_COST)
+    if host:
+        lib = _kernels.host_library()
+        costs, extend, args = lib.ses3d_scan_costs_host, lib.ses3d_scan_extend_host, ()
+        place = contextlib.nullcontext()
+    else:
+        lib = _kernels.library()
+        costs, extend = lib.ses3d_scan_costs, lib.ses3d_scan_extend
+        args = (torch.cuda.current_stream(dev).cuda_stream,)
+        place = torch.cuda.device(dev)
+    with place:
+        for cam in range(c_cams):
+            step.cam = cam
+            _kernels.check(costs(ctypes.byref(step), *args), f"scan costs launch (camera {cam})")
+            solved = hungarian.linear_sum_assignment_batched(cost, row_active)
+            step.solved = solved.data_ptr()
+            _kernels.check(extend(ctypes.byref(step), *args), f"scan extend launch (camera {cam})")
+    if not host:
+        with _kernels.LAUNCH_LOCK:
+            SCAN_LAUNCHES += 2 * c_cams
+    return det_slot.to(torch.int32), n_hyp.to(torch.int32), n_dropped.to(torch.int32)
+
+
 def associate_scan(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     """The camera scan over a batch of frames (the JAX package's scan branch
     of fusion.associate, its cameras unrolled): ctab [B, C, C*D, D],
     conf_obs [B, C*D], det_ok [B, C, D] -> (det_slot [B, h_cap, C] int32,
     n_hyp [B] int32, n_dropped [B] int32), as `associate_fold_batched`.
     One batched JV per camera: kernel K1 for CUDA tensors, the plain JV for
-    CPU tensors."""
+    CPU tensors; on the card in float32 the rest of each step is kernels
+    S1 and S2 (`associate_scan_kernels`) where they take the shapes."""
+    if (ctab.is_cuda and ctab.dtype == torch.float32
+            and scan_kernels_take(h_cap, ctab.shape[-1])):
+        return associate_scan_kernels(ctab, conf_obs, det_ok, h_cap, gate, max_cost)
     b, c_cams = ctab.shape[:2]
     dev = ctab.device
     det_slot = torch.full((b, h_cap, c_cams), -1, dtype=torch.int64, device=dev)

@@ -8,6 +8,13 @@ import torch
 
 from smartedgesensor3dhumanpose_tpu_torch.ops import linalg, triangulation
 
+# Views the UT's base normal matrix sums in one product. The CPU's BLAS
+# sums a contraction of up to 5 x 64 terms as one multiply-add chain and
+# a longer one in blocks of its own choosing; summed in chunks of 64 views
+# added in turn, the order is one a kernel can take (csrc/triangulation.cu
+# ut_sum).
+PRODUCT_VIEWS = 64
+
 
 def triangulation_covariance(P, kp, cov2d, view_mask, mean_xyz, kappa=0.5):
     """3x3 covariance of a triangulated joint by the unscented transform.
@@ -48,7 +55,11 @@ def triangulation_covariance(P, kp, cov2d, view_mask, mean_xyz, kappa=0.5):
     batch = kp.shape[:-2]
     coeff0 = triangulation.view_coeffs(P, kp, view_mask, weight_by_conf=False)
     const = triangulation.coeff_constants(P, dtype)  # [C, 5, 4, 4]
-    M0 = linalg.heinsum("...ck,ckij->...ij", coeff0, const)
+    M0 = None
+    for lo in range(0, c, PRODUCT_VIEWS):
+        part = linalg.heinsum("...ck,ckij->...ij", coeff0[..., lo:lo + PRODUCT_VIEWS, :],
+                              const[lo:lo + PRODUCT_VIEWS])
+        M0 = part if M0 is None else M0 + part
     t_0 = triangulation.solve_normal(M0, n_views)
 
     kp_xy_v = kp[..., None, :, :2] + deltas.movedim(-2, -3)  # [..., 4, C, 2]

@@ -110,7 +110,9 @@ def pairwise_association_costs_packed(
     (iu[p], ju[p]) enumerate the C(C-1)/2 pairs with iu < ju (NumPy triu
     order) and entry [p, d1, d2] is the symmetric epipolar distance between
     detection (iu[p], d1) and (ju[p], d2) averaged over joints confident in
-    both; `usable` marks pairs sharing any such joint.
+    both; `usable` marks pairs sharing any such joint. The per-joint terms
+    are kernel E1's (`pair_terms`) for float32 CUDA tensors, else
+    `pair_terms_plain`'s, and equal either way.
     """
     c = kp.shape[-4]
     iu_np, ju_np = np.triu_indices(c, k=1)
@@ -149,6 +151,23 @@ def pairwise_association_costs_packed(
         line(Fp[:, 0, 2], Fp[:, 1, 2], Fp[:, 2, 2], x2, y2),
     )
 
+    sides = ((x1, y1, (l10, l11, l12), conf_okT[..., iu, :, :]),
+             (x2, y2, (l20, l21, l22), conf_okT[..., ju, :, :]))
+    on_card = x1.is_cuda and x1.dtype == torch.float32
+    terms, both_ok = (pair_terms if on_card else pair_terms_plain)(*sides[0], *sides[1])
+    n_joints = torch.sum(both_ok, dim=-3)  # [..., Np, D1, D2]
+    dist_sum = torch.sum(terms, dim=-3)
+    cost_p = dist_sum / torch.where(n_joints > 0, n_joints, 1)
+    return cost_p, n_joints > 0, iu, ju
+
+
+def pair_terms_plain(x1, y1, lines1, ok1, x2, y2, lines2, ok2) -> tuple:
+    """The per-joint terms of `pairwise_association_costs_packed`: side 1's
+    coordinates, line (l10, l11, l12) and confident flags [..., Np, J, D1],
+    side 2's [..., Np, J, D2] -> (terms [..., Np, J, D1, D2]: the distance
+    of d2's point from d1's line plus d1's from d2's, |num1| + |num2|, where
+    both joints are confident, else 0; both_ok [..., Np, J, D1, D2])."""
+    (l10, l11, l12), (l20, l21, l22) = lines1, lines2
     num1 = (
         x2[..., None, :] * l10[..., None]
         + y2[..., None, :] * l11[..., None]
@@ -160,12 +179,33 @@ def pairwise_association_costs_packed(
         + l22[..., None, :]
     )
     d = torch.abs(num1) + torch.abs(num2)  # [..., Np, J, D1, D2]
+    both_ok = ok1[..., None] & ok2[..., None, :]
+    return torch.where(both_ok, d, 0.0), both_ok
 
-    both_ok = conf_okT[..., iu, :, :][..., None] & conf_okT[..., ju, :, :][..., None, :]
-    n_joints = torch.sum(both_ok, dim=-3)  # [..., Np, D1, D2]
-    dist_sum = torch.sum(torch.where(both_ok, d, 0.0), dim=-3)
-    cost_p = dist_sum / torch.where(n_joints > 0, n_joints, 1)
-    return cost_p, n_joints > 0, iu, ju
+
+def pair_terms(x1, y1, lines1, ok1, x2, y2, lines2, ok2) -> tuple:
+    """Kernel E1 (csrc/pair_terms.cu) on the card: `pair_terms_plain` of
+    float32 CUDA tensors in one pass, its results bit for bit, in the
+    layout PyTorch's CUDA kernels give the plain terms (the joints
+    innermost in memory), so that the sums over the joints take the same
+    order. One launch on the current stream, no host sync."""
+    from smartedgesensor3dhumanpose_tpu_torch import _kernels
+
+    *lead, joints, d1 = x1.shape
+    d2 = x2.shape[-1]
+    a = [t.contiguous() for t in (x1, y1, *lines1, ok1)]
+    b = [t.contiguous() for t in (x2, y2, *lines2, ok2)]
+    shape = tuple(lead) + (d1, d2, joints)
+    terms = torch.empty(shape, dtype=torch.float32, device=x1.device).movedim(-1, -3)
+    both = torch.empty(shape, dtype=torch.bool, device=x1.device).movedim(-1, -3)
+    pairs = terms.numel() // max(joints * d1 * d2, 1)
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = _kernels.library().ses3d_pair_terms(
+            *(t.data_ptr() for t in a + b), terms.data_ptr(), both.data_ptr(), pairs, joints,
+            d1, d2, stream)
+    _kernels.check(err, f"pair terms launch (pairs={pairs}, d1={d1}, d2={d2})")
+    return terms, both
 
 
 def three_view_drop_scores(

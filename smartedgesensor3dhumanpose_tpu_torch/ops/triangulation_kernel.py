@@ -10,10 +10,18 @@ launches ~1,900 kernels a call on the card, each much shorter than its
 launch; F1 runs the same arithmetic, one block per hypothesis, with every
 intermediate in shared memory, and writes the persons once.
 
+A rig wider than a block's shared memory holds (`fits`: C <= 91) takes
+F1's wide variant (`fits_wide`: C <= 742; triangulation_wide_kernel in
+the source), which keeps the per-view arrays the phases write in a slice
+of device memory per hypothesis (`wide_bytes`, allocated per launch on
+the launch's stream, so a capture records it) and the arithmetic as it
+is.
+
 `fusion.triangulation_route` takes F1 for CUDA tensors in float32 whose
-camera count fits F1's shared memory (`fits`), the plain body elsewhere
-(the CPU, float64, wider rigs). `triangulate` launches F1; it raises for
-what F1 does not take, and never falls back.
+camera count fits F1's shared memory (`fits`), its wide variant where
+that count fits `fits_wide`, the plain body elsewhere (the CPU, float64,
+wider rigs). `triangulate` launches either, by the camera count; it
+raises for what neither takes, and never falls back.
 
 `triangulate_host` runs the same source built for the host by a C++
 compiler (`_kernels.host_library`): the kernel's phases one task after
@@ -32,9 +40,10 @@ from smartedgesensor3dhumanpose_tpu_torch import _kernels, skeleton
 from smartedgesensor3dhumanpose_tpu_torch.config import FusionConfig
 from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D
 
-# Launches of the CUDA kernel; the wrapper adds one per launch, under
-# _kernels.LAUNCH_LOCK.
+# Launches of the CUDA kernel and of its wide variant; the wrapper adds one
+# per launch, under _kernels.LAUNCH_LOCK.
 KERNEL_LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 J = skeleton.NUM_INPUT_JOINTS
 K = skeleton.NUM_FUSION_JOINTS
@@ -51,12 +60,23 @@ _SYM = 10  # unique entries of a symmetric 4x4
 # leave-one-out and sigma-point results); then two byte masks [17, C].
 FIXED_WORDS = 2 * J * _SYM + 3 * J * 3 + 5 * J + 6 * J + K * 13 + 3 * J + K
 WORDS_PER_CAMERA = 12 + 5 + 5 * _SYM + 2 * J * 3 + J * _SYM + J * 4 + J * 12
+# The wide variant's split of WORDS_PER_CAMERA: the camera's P and its
+# norms and the keypoints in shared memory, the rest in device memory.
+SHARED_WORDS_PER_CAMERA = 12 + 5 + J * 3
+DEVICE_WORDS_PER_CAMERA = WORDS_PER_CAMERA - SHARED_WORDS_PER_CAMERA
 
 
-def smem_bytes(cameras: int) -> int:
-    """F1's dynamic shared memory at `cameras` cameras
-    (triangulation.cu::smem_bytes_for)."""
-    return 4 * (FIXED_WORDS + WORDS_PER_CAMERA * cameras) + 2 * J * cameras
+def smem_bytes(cameras: int, wide: bool = False) -> int:
+    """F1's dynamic shared memory at `cameras` cameras, or its wide
+    variant's (triangulation.cu::smem_bytes_for)."""
+    per_camera = SHARED_WORDS_PER_CAMERA if wide else WORDS_PER_CAMERA
+    return 4 * (FIXED_WORDS + per_camera * cameras) + 2 * J * cameras
+
+
+def wide_bytes(cameras: int) -> int:
+    """The wide variant's device memory for one hypothesis
+    (triangulation.cu::device_floats_for, in bytes)."""
+    return 4 * DEVICE_WORDS_PER_CAMERA * cameras
 
 
 def threads(cameras: int) -> int:
@@ -65,14 +85,23 @@ def threads(cameras: int) -> int:
     return min(-(-J * (cameras + 2) // 32) * 32, MAX_THREADS)
 
 
-# The most cameras whose working set fits a block.
+# The most cameras whose working set fits a block, and the most whose
+# shared part in the wide variant does.
 MAX_CAMERAS = (SMEM_PER_BLOCK - STATIC_SMEM_RESERVE - 4 * FIXED_WORDS) // (
     4 * WORDS_PER_CAMERA + 2 * J)
+MAX_CAMERAS_WIDE = (SMEM_PER_BLOCK - STATIC_SMEM_RESERVE - 4 * FIXED_WORDS) // (
+    4 * SHARED_WORDS_PER_CAMERA + 2 * J)
 
 
 def fits(cameras: int) -> bool:
     """Whether F1 takes a rig of `cameras` cameras."""
     return 1 <= cameras <= MAX_CAMERAS
+
+
+def fits_wide(cameras: int) -> bool:
+    """Whether F1's wide variant takes a rig of `cameras` cameras that F1
+    does not."""
+    return MAX_CAMERAS < cameras <= MAX_CAMERAS_WIDE
 
 
 class Params(ctypes.Structure):
@@ -137,7 +166,7 @@ def _check(kp, cov, cam_mask, P, F) -> tuple:
     """(hypotheses, cameras) of F1's inputs; raises on what it does not
     take: kp, cov [N, C, 17, 3] float32; cam_mask [N, C] bool; P
     [C, 3, 4] and F [C, C, 3, 3] float32; all on one device; C within
-    `fits`."""
+    `fits` or `fits_wide`."""
     if kp.dim() != 4 or kp.shape[2:] != (J, 3):
         raise ValueError(f"kp must be [N, C, {J}, 3]; got {tuple(kp.shape)}")
     n, c = kp.shape[:2]
@@ -154,8 +183,9 @@ def _check(kp, cov, cam_mask, P, F) -> tuple:
             raise TypeError(f"the triangulation kernel takes float32; {name} is {t.dtype}")
     if cam_mask.dtype != torch.bool:
         raise TypeError(f"cam_mask must be bool; got {cam_mask.dtype}")
-    if not fits(c):
-        raise ValueError(f"the triangulation kernel takes 1 to {MAX_CAMERAS} cameras; got {c}")
+    if not (fits(c) or fits_wide(c)):
+        raise ValueError(f"the triangulation kernel takes 1 to {MAX_CAMERAS_WIDE} cameras; "
+                         f"got {c}")
     return n, c
 
 
@@ -188,10 +218,11 @@ def _pointers(kp, cov, cam_mask, P, F, out: Persons3D) -> list:
 def triangulate(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None) -> Persons3D:
     """F1 on the card: the persons [N, 21, ...] (person_id -1) of N
     hypotheses, kp and cov [N, C, 17, 3], cam_mask [N, C], on the rig's P
-    [C, 3, 4] and F [C, C, 3, 3]. One launch on the current stream of the
-    tensors' device; no host sync, so a capture records it. `drops`, an
-    int32 [N, 17] tensor, receives each joint's dropped view (-1 none)."""
-    global KERNEL_LAUNCHES
+    [C, 3, 4] and F [C, C, 3, 3]. One launch (of the wide variant past
+    MAX_CAMERAS) on the current stream of the tensors' device; no host
+    sync, so a capture records it. `drops`, an int32 [N, 17] tensor,
+    receives each joint's dropped view (-1 none)."""
+    global KERNEL_LAUNCHES, WIDE_LAUNCHES
     n, c = _check(kp, cov, cam_mask, P, F)
     if kp.device.type != "cuda":
         raise ValueError(f"the triangulation kernel runs on CUDA tensors; got {kp.device}")
@@ -199,15 +230,21 @@ def triangulate(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None) -> Pe
     drops_ptr = _drops_ptr(drops, n, kp.device)
     out = _outputs(n, kp.device)
     p = params(config, n, c)
-    smem = smem_bytes(c)
+    wide = fits_wide(c)
+    smem = smem_bytes(c, wide)
+    dev = (torch.empty(max(n, 1) * wide_bytes(c) // 4, dtype=torch.float32, device=kp.device)
+           if wide else None)
     lib = _kernels.library()
     with torch.cuda.device(kp.device):
         stream = torch.cuda.current_stream(kp.device).cuda_stream
         err = lib.ses3d_triangulate(ctypes.byref(p), *_pointers(*tensors, out), drops_ptr,
-                                    smem, stream)
-    _kernels.check(err, f"triangulation launch (n={n}, cameras={c}, smem={smem})")
+                                    None if dev is None else dev.data_ptr(), smem, stream)
+    _kernels.check(err, f"triangulation launch (n={n}, cameras={c}, wide={wide}, smem={smem})")
     with _kernels.LAUNCH_LOCK:
-        KERNEL_LAUNCHES += 1
+        if wide:
+            WIDE_LAUNCHES += 1
+        else:
+            KERNEL_LAUNCHES += 1
     return out
 
 
@@ -222,7 +259,8 @@ def triangulate_host(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None) 
     drops_ptr = _drops_ptr(drops, n, "cpu")
     out = _outputs(n, "cpu")
     err = _kernels.host_library().ses3d_triangulate_host(
-        ctypes.byref(params(config, n, c)), *_pointers(*tensors, out), drops_ptr)
+        ctypes.byref(params(config, n, c)), *_pointers(*tensors, out), drops_ptr,
+        int(fits_wide(c)))
     if err != 0:
         raise RuntimeError(f"the host build of the triangulation kernel returned {err}")
     return out

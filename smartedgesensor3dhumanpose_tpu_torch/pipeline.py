@@ -159,16 +159,19 @@ def _cat(parts):
 def fuse_offline(frames: Frame, rig: CameraRig, config: PipelineConfig,
                  fusion_batch: int):
     """Stale-camera masking and fusion of a stacked sequence, `fusion_batch`
-    frames at a time (one association-fold launch per chunk). Returns
-    (persons [F, H, ...], pivots [F], n_dropped_hypotheses [F])."""
-    outs = []
+    frames at a time (one association launch and one triangulation launch
+    per chunk, `fusion.fuse_chunks`, which a traced call marks as
+    `fusion.associate` and `fusion.triangulate`). Returns (persons
+    [F, H, ...], pivots [F], n_dropped_hypotheses [F])."""
+    chunks, pivots = [], []
     for lo, hi in _chunks(frames.kp2d.shape[0], fusion_batch):
         chunk, pivot = mask_stale_cameras(
             Frame(*(x[lo:hi] for x in frames)), config.fusion.max_sync_diff
         )
-        persons, n_drop = fusion.fuse_frames(chunk, rig, config.fusion)
-        outs.append((persons, pivot, n_drop))
-    return _cat(outs)
+        chunks.append(chunk)
+        pivots.append(pivot)
+    fused = fusion.fuse_chunks(chunks, rig, config.fusion, stage=tracing.child)
+    return _cat([(persons, pivot, n_drop) for (persons, n_drop), pivot in zip(fused, pivots)])
 
 
 def smooth_offline(persons: Persons3D, config: PipelineConfig, fusion_batch: int):

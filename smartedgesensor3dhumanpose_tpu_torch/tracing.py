@@ -27,9 +27,10 @@ logged or written per record.
   and one child span per stage. While a graph is captured, each mark
   also counts the kernel nodes captured before it: `<stage>.kernels`
   counters. Code inside a stage may add a counter of its own there
-  (`note`): `<stage>.<name>`, taken at capture (on the CPU, where nothing
-  is captured, at each call), e.g. `fusion.triangulation.f1`, the
-  hypotheses kernel F1 triangulates per call.
+  (`note`): `<stage>.<name>` under the top-level stage, taken at capture
+  (on the CPU, where nothing is captured, at each call), e.g.
+  `fusion.triangulation.f1`, the hypotheses kernel F1 triangulates per
+  call, and `fusion.association.scan_steps`, the camera scan's steps.
 - Loops captured while a tracer is active (ops/loops.py WHILE nodes, the
   LM's one launch in ops/lm_prior.py) keep their trips and the device
   clock of each trip in tensors that every replay rewrites (`trip_log`);
@@ -461,6 +462,15 @@ class StageMarks:
                 return label
         return ""
 
+    def top_stage(self) -> str:
+        """The top-level stage open at this point of the call."""
+        for label in reversed(self._seen):
+            if label == END:
+                return ""
+            if label[0] not in "+-":
+                return label
+        return ""
+
     def mark(self, label: str) -> None:
         col = len(self._seen)
         if col >= MAX_MARKS:
@@ -598,12 +608,12 @@ def stage(name: str) -> None:
 
 
 def note(name: str, value: int) -> None:
-    """Add the counter `<open stage>.<name>` = `value` to the traced call
-    running now (StageMarks.notes keeps those of its capture); nothing
+    """Add the counter `<top-level stage>.<name>` = `value` to the traced
+    call running now (StageMarks.notes keeps those of its capture); nothing
     where no traced call runs."""
     marks = _MARKS
     if marks is not None:
-        marks._notes.append((f"{marks.open_stage()}.{name}", int(value)))
+        marks._notes.append((f"{marks.top_stage()}.{name}", int(value)))
 
 
 @contextlib.contextmanager

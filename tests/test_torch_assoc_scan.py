@@ -5,8 +5,10 @@ The scan is the port of JAX's fusion._associate_camera and the scan branch
 of its associate, the route JAX takes for "cond_while", "pallas" and
 "unrolled", for "auto" off the TPU and beyond its fold kernel's domain. It
 is held to JAX's associate(assignment_impl="cond_while") on frames of the
-two golden demo scenes and on a random frame with 128 hypothesis slots
-(past the JV kernel's warp width), in float64 and float32: which detection
+two golden demo scenes, on a random frame with 128 hypothesis slots
+(past the JV kernel's warp width) and on a frame of the 480-camera dome
+(the route its configuration takes: K2's fold does not fit), with ghosts
+and 4 hypothesis slots, in float64 and float32: which detection
 each hypothesis observes per camera and the live and dropped counts are
 integers and must be exactly equal (the gathered observation data agree to
 the ulp). Then the configurations that only the new routes run, against
@@ -61,6 +63,16 @@ def _random_frame():
     return [{k: v[0] for k, v in data.items()}]
 
 
+def _dome_frame():
+    """One frame of the 480-camera hall, 2 persons and a ghost slot."""
+    scene = synthetic.generate_scene(synthetic.SceneConfig(
+        num_cameras=480, num_people=2, num_frames=1, seed=11, num_ghost_slots=1,
+        ghost_rate=0.5, identity_swap_rate=0.2,
+    ))
+    data = synthetic.frames_from_scene(scene)
+    return [{k: v[0] for k, v in data.items()}]
+
+
 def _jax_associate(jcfg, jrig):
     @jax.jit
     def run(kp2d, cov2d, det_score, det_valid):
@@ -74,11 +86,12 @@ def _jax_associate(jcfg, jrig):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("case", ["benign", "adversarial", "random128"])
+@pytest.mark.parametrize("case", ["benign", "adversarial", "random128", "dome480"])
 def test_scan_matches_jax_cond_while(case, dtype):
-    frames = _random_frame() if case == "random128" else _golden_frames(case)
+    frames = {"random128": _random_frame, "dome480": _dome_frame}.get(
+        case, lambda: _golden_frames(case))()
     cams, d = frames[0]["kp2d"].shape[:2]
-    h = 128 if case == "random128" else 16
+    h = {"random128": 128, "dome480": 4}.get(case, 16)
     jdt = jnp.float64 if dtype == np.float64 else jnp.float32
     tdt = torch.float64 if dtype == np.float64 else torch.float32
     kw = dict(num_cameras=cams, max_dets_per_cam=d, max_hypotheses=h,

@@ -4,7 +4,9 @@ set spans tile each stepped set once; the trip records of captured loops
 keep the contract chip_smoke.py reads; and, on a card, the traced graphs'
 kernel counts and the stage marks' clock against CUPTI's."""
 
+import collections
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -34,8 +36,9 @@ STEP_STAGES = ("fusion", "tracking", "feedback")
 OFFLINE_STAGES = ("fusion", "smoothing", "tracker", "feedback")
 # The untraced step graph's top-level kernel nodes at demo_16cam, as the
 # benchmark reads them (live.step_graph_kernels): 3,636 before tracing
-# existed, 1,634 since kernel F1 triangulates the hypotheses in one launch.
-UNTRACED_STEP_KERNELS = 1634
+# existed, 1,634 since kernel F1 triangulates the hypotheses in one launch,
+# 1,633 since kernel E1 computes the pair costs' terms.
+UNTRACED_STEP_KERNELS = 1633
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -108,7 +111,9 @@ def test_tracing_leaves_outputs_bit_identical(scene):
     got_b = traced.run_offline(traced.init_state(), frames)
     for x, y in zip(torch.utils._pytree.tree_leaves(got_a), torch.utils._pytree.tree_leaves(got_b)):
         assert torch.equal(x, y), "run_offline"
-    assert len(traced.tracer.drain().spans) == 12 * (1 + 4) + 1 + 4
+    # A step: itself, fusion, tracking, prior, feedback; a run_offline call:
+    # itself, its four stages and the fusion's two children.
+    assert len(traced.tracer.drain().spans) == 12 * (1 + 4) + 1 + 4 + 2
 
 
 def test_step_stage_spans_nest_and_tile():
@@ -164,6 +169,44 @@ def test_offline_stage_spans_tile_each_call():
         assert spans["name"][spans["parent"][c]] == "call"
         assert_tiles(spans, c, OFFLINE_STAGES)
     assert not np.isin(spans["name"], ["tracking", "prior"]).any()
+
+
+@pytest.mark.parametrize("impl, steps", [("auto", 0), ("cond_while", 4)])
+def test_offline_fusion_marks_association_then_triangulation(impl, steps):
+    """Inside each traced run_offline call's `fusion` stage, the children
+    `fusion.associate` (every chunk's association) and `fusion.triangulate`
+    (every chunk's triangulation) follow each other in that order; the
+    fusion counts the camera scan's steps a chunk runs
+    (`fusion.association.scan_steps`: the 4 cameras on the scan, 0 on the
+    fold) and the hypotheses F1 and its wide variant triangulate (0 each
+    on the CPU's plain body), once per chunk, and their stages' kernels."""
+    data, cfg, rig = small_setup(8)
+    cfg = dataclasses.replace(cfg, fusion=dataclasses.replace(cfg.fusion, assignment_impl=impl))
+    pipe = pipeline.Pipeline(rig, cfg, device="cpu", fusion_batch=3, trace=True)
+    frames = Frame.from_arrays(data, "cpu")
+    with pipe.tracer as tr:
+        for i in range(2):
+            k = tr.open("call", rid=i)
+            pipe.run_offline(pipe.init_state(), frames)
+            tr.close(k)
+    rec = tr.drain()
+    spans = rec.spans
+    calls = np.flatnonzero(spans["name"] == "Pipeline.run_offline")
+    assert len(calls) == 2
+    for c in calls:
+        fusion_span = int(np.flatnonzero((spans["parent"] == c) & (spans["name"] == "fusion"))[0])
+        kids = children(spans, fusion_span)
+        assert list(kids["name"]) == ["fusion.associate", "fusion.triangulate"]
+        assert spans["start"][fusion_span] <= kids["start"][0] <= kids["end"][0] \
+            <= kids["start"][1] <= kids["end"][1] <= spans["end"][fusion_span]
+        assert np.all(kids["rid"] == spans["rid"][c])
+    counters = rec.counters[rec.counters["scope"] == "Pipeline.run_offline"]
+    got = collections.defaultdict(list)
+    for name, value in zip(counters["name"], counters["value"]):
+        got[str(name)].append(int(value))
+    # Three chunks of 3, 3 and 2 frames.
+    assert got["fusion.association.scan_steps"] == [steps] * 3
+    assert got["fusion.triangulation.f1"] == got["fusion.triangulation.f1w"] == [0] * 3
 
 
 def test_marks_must_repeat_the_first_calls_layout():

@@ -7,12 +7,15 @@ settings against the input models, and the kernel's arithmetic through
 its host build (the same source compiled by a C++ compiler, the block's
 phases one task after another) against the plain PyTorch body on the
 golden demo frames (their three-view and leave-one-out drops included)
-and a 64-camera frame, bit for bit, and inside the pipeline. On a card: the kernel against its host build bit for bit, and
-against the plain body on the card. This file imports no JAX: the card's
+and a 64-camera frame, bit for bit, and inside the pipeline; the wide
+variant's (C > 91) on seeded hypotheses at 92, 120 and 480 cameras. On a
+card: the kernel against its host build bit for bit, and against the
+plain body on the card. This file imports no JAX: the card's
 machine has none (test_torch_triangulation_jax.py holds the host build to
 the JAX package).
 """
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -120,26 +123,39 @@ def assert_as_plain(got, drops, plain32, drops32, plain64, what: str):
     ("cuda", torch.float32, 16, "kernel"),
     ("cuda", torch.float32, 64, "kernel"),
     ("cuda", torch.float32, tk.MAX_CAMERAS, "kernel"),
-    ("cuda", torch.float32, tk.MAX_CAMERAS + 1, "plain"),
+    ("cuda", torch.float32, tk.MAX_CAMERAS + 1, "wide"),
+    ("cuda", torch.float32, 480, "wide"),
+    ("cuda", torch.float32, tk.MAX_CAMERAS_WIDE, "wide"),
+    ("cuda", torch.float32, tk.MAX_CAMERAS_WIDE + 1, "plain"),
+    ("cuda", torch.float64, 480, "plain"),
+    ("cpu", torch.float32, 480, "plain"),
 ])
 def test_route(device, dtype, cameras_, want):
     """F1 on CUDA in float32 where the rig's cameras fit its shared
-    memory (the demo's 16 and the scaled 64 do), the plain body on the
-    CPU, in float64 and past the limit."""
+    memory (the demo's 16 and the scaled 64 do, 91 at most), its wide
+    variant past that (the Panoptic dome's 480), the plain body on the
+    CPU, in float64 and past the wide variant's limit."""
     assert fusion.triangulation_route(cameras_, torch.device(device), dtype) == want
 
 
 def test_smem_plan_matches_the_source():
     """The wrapper's shared-memory bytes are the source's at every width it
     takes, and the widest fits a block; the block's threads cover one
-    widest phase (17 x (C + 2) slots) in whole warps, at most 512."""
+    widest phase (17 x (C + 2) slots) in whole warps, at most 512. The
+    same for the wide variant, whose device memory per hypothesis is the
+    source's too, and which takes at least 512 cameras."""
     lib = _kernels.host_library()
+    budget = tk.SMEM_PER_BLOCK - tk.STATIC_SMEM_RESERVE
     for c in (1, 2, 16, 17, 40, 64, tk.MAX_CAMERAS):
-        assert lib.ses3d_triangulate_host_smem_bytes(c) == tk.smem_bytes(c), c
-    assert tk.smem_bytes(tk.MAX_CAMERAS) <= tk.SMEM_PER_BLOCK - tk.STATIC_SMEM_RESERVE
-    assert tk.smem_bytes(tk.MAX_CAMERAS + 1) > tk.SMEM_PER_BLOCK - tk.STATIC_SMEM_RESERVE
-    assert tk.MAX_CAMERAS >= 64
-    assert [tk.threads(c) for c in (1, 16, 64)] == [64, 320, 512]
+        assert lib.ses3d_triangulate_host_smem_bytes(c, 0) == tk.smem_bytes(c), c
+    for c in (1, 16, tk.MAX_CAMERAS + 1, 480, tk.MAX_CAMERAS_WIDE):
+        assert lib.ses3d_triangulate_host_smem_bytes(c, 1) == tk.smem_bytes(c, wide=True), c
+        assert lib.ses3d_triangulate_host_wide_bytes(c) == tk.wide_bytes(c), c
+    assert tk.smem_bytes(tk.MAX_CAMERAS) <= budget < tk.smem_bytes(tk.MAX_CAMERAS + 1)
+    assert (tk.smem_bytes(tk.MAX_CAMERAS_WIDE, wide=True) <= budget
+            < tk.smem_bytes(tk.MAX_CAMERAS_WIDE + 1, wide=True))
+    assert tk.MAX_CAMERAS >= 64 and tk.MAX_CAMERAS_WIDE >= 512
+    assert [tk.threads(c) for c in (1, 16, 64, 480)] == [64, 320, 512, 512]
 
 
 @pytest.mark.parametrize("pose", ("simple", "h36m"))
@@ -198,7 +214,7 @@ def test_wrapper_refuses(case, error, match):
     elif case == "F_shape":
         args[4] = args[4][:, :3]
     elif case == "wide":
-        args = _inputs(c=tk.MAX_CAMERAS + 1)
+        args = _inputs(c=tk.MAX_CAMERAS_WIDE + 1)
     with pytest.raises(error, match=match):
         tk.triangulate(*args, config.FusionConfig())
 
@@ -248,6 +264,100 @@ def test_host_build_matches_plain_scaled():
     """The same at 64 cameras (PipelineConfig.scaled_64cam, 40 slots)."""
     flat, rig, cfg = hypotheses("scaled", "simple", torch.float32)
     assert_equals_plain(flat, rig, cfg, "scaled")
+
+
+# Camera counts of the wide variant's host-build checks: just past F1's
+# shared memory, a rig of its own, and the Panoptic dome's VGA array.
+WIDE_CAMERAS = (tk.MAX_CAMERAS + 1, 120, 480)
+
+
+def wide_hypotheses(cameras_: int, seed: int, n: int = 4):
+    """Seeded hypotheses of a `cameras_`-camera hall (the rig's rings): n
+    persons of one frame of the synthetic scene (each hypothesis one
+    person's detections, no association), every other person's keypoints
+    swapped in part with another's in 30% of the views (outliers for the
+    leave-one-out drop at any width), and hypotheses 1 and 3 seen by three
+    and five cameras only, one of them (0.2, -0.12) off in normalized
+    coordinates (the three-view drop, and a leave-one-out drop past 91
+    views, where one view in hundreds cannot move the error 10%). n is
+    even: the plain body's sum over views of an odd number of hypotheses
+    takes the last one's last joint in PyTorch's interleaved order instead
+    of its cascade (a column past the last whole group of 32)."""
+    scene_cfg = synthetic.SceneConfig(num_cameras=cameras_, num_people=n, num_frames=1,
+                                      seed=seed, shuffle_detections=False,
+                                      identity_swap_rate=0.3)
+    data = synthetic.frames_from_scene(synthetic.generate_scene(scene_cfg), np.float32)
+    rig = cameras.hall_rig(cameras_, device="cpu")
+    cfg = config.PipelineConfig.demo_16cam().fusion
+    kp_n, cov_n, det_ok = fusion.normalize_frame(Frame.from_arrays(data, "cpu")._replace(
+        **{k: torch.as_tensor(data[k][0]) for k in ("kp2d", "cov2d", "det_valid")}), rig, cfg)
+    mask = det_ok.T.contiguous()  # [n, C]
+    kp_n = kp_n.clone()
+    pick = torch.Generator().manual_seed(seed)
+    for h, views in ((1, 3), (3, 5)):
+        seen = torch.nonzero(mask[h])[:, 0]
+        few = seen[torch.randperm(len(seen), generator=pick)[:views]]
+        mask[h] = False
+        mask[h, few] = True
+        kp_n[few[0], h, :, :2] += torch.tensor([0.2, -0.12])
+    unobserved = torch.tensor([0.0, 0.0, -1.0])
+    kp = torch.where(mask[..., None, None], kp_n.transpose(0, 1), unobserved).contiguous()
+    cov = torch.where(mask[..., None, None], cov_n.transpose(0, 1), 0.0).contiguous()
+    flat = fusion.HypothesisSet(kp=kp, cov=cov, cam_mask=mask, obs_score=mask.float(),
+                                n_hyp=torch.tensor(n, dtype=torch.int32),
+                                n_dropped=torch.tensor(0, dtype=torch.int32))
+    return flat, rig, cfg
+
+
+def _correctly_rounded_sqrt(monkeypatch):
+    """torch.sqrt of float32 CPU tensors rounded correctly, as F1's is (its
+    vectorized CPU square root is a last bit off in ~0.7% of values: the
+    caveat in csrc/triangulation.cu's header)."""
+    sqrt = torch.sqrt
+
+    def exact(x, *args, **kwargs):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float32 and x.device.type == "cpu":
+            return sqrt(x.double(), *args, **kwargs).float()
+        return sqrt(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "sqrt", exact)
+
+
+@pytest.mark.parametrize("cameras_", WIDE_CAMERAS)
+def test_host_build_matches_plain_wide(cameras_, monkeypatch):
+    """The wide variant's host build (its working set laid out as on the
+    card, the sums over 92 to 480 views in PyTorch's CPU order: cascades
+    past 256 elements, the UT's base product in 64-view chunks) against
+    the plain body in float32, bit for bit, square roots rounded
+    correctly on both sides: every output and every joint's dropped view,
+    with three-view and leave-one-out drops and valid persons among
+    them."""
+    _correctly_rounded_sqrt(monkeypatch)
+    flat, rig, cfg = wide_hypotheses(cameras_, seed=cameras_)
+    drops = assert_equals_plain(flat, rig, cfg, f"{cameras_} cameras")
+    k = _views(flat, cfg)
+    assert int(((drops >= 0) & (k == 3)).sum()) > 0
+    assert int(((drops >= 0) & (k >= 4)).sum()) > 0
+
+
+def test_wide_layout_keeps_the_arithmetic():
+    """The wide variant's layout (device memory for the per-view arrays)
+    computes what the shared-memory layout computes, at a width both
+    take."""
+    flat, rig, cfg = wide_hypotheses(16, seed=5)
+    lib = _kernels.host_library()
+    outs = []
+    for wide in (0, 1):
+        out = tk._outputs(flat.kp.shape[0], "cpu")
+        drops = torch.empty((flat.kp.shape[0], 17), dtype=torch.int32)
+        tensors = [t.contiguous() for t in (flat.kp, flat.cov, flat.cam_mask, rig.P, rig.F)]
+        assert lib.ses3d_triangulate_host(
+            ctypes.byref(tk.params(cfg, flat.kp.shape[0], 16)), *tk._pointers(*tensors, out),
+            drops.data_ptr(), wide) == 0
+        outs.append((out, drops))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 def _on_f1_arithmetic(monkeypatch):
