@@ -156,8 +156,9 @@ Phases (each prints one line; any failure exits non-zero):
 
  17 the wide rig: the CMU Panoptic Studio's 480 VGA cameras
     (portbench/configs/panoptic480.json, its rig, pipeline settings and
-    fusion_batch, one chunk of its 25 Hz mix): kernel E1 (the pair costs'
-    per-joint terms) against the plain terms bit for bit; F1's wide
+    fusion_batch, one chunk of its 25 Hz mix): kernel E1 (the chunk's
+    table of pair costs in one launch) against its plain twin
+    (`fusion.pair_costs_plain`) bit for bit; F1's wide
     variant on the chunk's hypotheses against its host build bit for bit,
     and on two frames' against the plain body on the card (phase 16's
     checks); kernels S1 and S2 with K1 between them
@@ -167,17 +168,20 @@ Phases (each prints one line; any failure exits non-zero):
     chunk with no host sync; the captured run_offline: its capture's
     seconds, the peak device memory of the capture and of a replay, a
     replay's host syncs (none), its graph's kernel nodes, its kernels on
-    the device (E1 once per slice of the fold inputs, the wide F1 once,
-    K1, S1 and S2 480 times each, L1 once, K3 once, F1 not at all) and the
-    traced counters (480 scan steps, the chunk's hypotheses on the wide
-    variant, the triangulation stage's few kernels: no plain body); E1's,
+    the device (E1 once, the wide F1 once, K1, S1 and S2 480 times each,
+    L1 once, K3 once, F1 not at all) and the traced counters (480 scan
+    steps, the chunk's frames on E1, the chunk's hypotheses on the wide
+    variant, the triangulation stage's few kernels: no plain body); E1's
+    (on the chunk, with its bound),
     S1's, S2's and the wide F1's device times (torch.profiler), their
     plain twins' (the plain triangulation on two frames' slots: on the
     chunk's it takes more than the card's memory) and bounds, F1's
     registers (-Xptxas -v). E1, S1, S2 and
     the wide F1 are also counted on the device in a replay of phase 4's
     step and of phase 6's run_offline (E1 once per step and per chunk,
-    the others not at all), and have entries in the kernels line
+    the others not at all; E1's table against its twin bit for bit on
+    the step's frame and the first chunk), and have entries in the
+    kernels line
 
 The second-to-last lines are a JSON object with one entry per kernel and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -4394,15 +4398,33 @@ def phase_f1(dev, smi, rig, cfg, inputs) -> tuple:
 
 # ---------------------------------------------------------------- phase 17 --
 
-NEW_KERNELS = ("pair_terms_kernel", "scan_costs_kernel", "scan_extend_kernel",
+NEW_KERNELS = ("pair_costs_kernel", "scan_costs_kernel", "scan_extend_kernel",
                "triangulation_wide_kernel")
+
+
+def e1_matches_twin(kp_n, rig, f_cfg, what: str) -> None:
+    """Kernel E1's table (fusion.fold_inputs on the card) against its plain
+    twin (`fusion.pair_costs_plain`: the plain per-joint terms summed by
+    torch.sum and scattered) on the same keypoints, bit for bit."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion
+
+    score = torch.ones(kp_n.shape[:-2], device=kp_n.device)
+    got = fusion.fold_inputs(kp_n, score, rig, f_cfg)[0]
+    want = fusion.pair_costs_plain(kp_n, rig.F, f_cfg.min_kp_score)
+    if not torch.equal(got, want):
+        where = torch.nonzero(got != want)[:4].tolist()
+        raise AssertionError(f"{what}: kernel E1's table differs from its plain twin in "
+                             f"{int((got != want).sum())} entries, first {where}")
 
 
 def new_kernel_launches(dev, pipe, off_pipe, inputs) -> dict:
     """E1, S1, S2 and F1's wide variant on the device in one replay of the
     demo's captured step and of one demo scene's run_offline: E1 once per
     step and per fusion chunk, the others not at all (the demo takes K2
-    and F1)."""
+    and F1); E1's table against its plain twin bit for bit on the step's
+    frame and on the scene's first chunk."""
+    from smartedgesensor3dhumanpose_tpu_torch import fusion
+
     data = inputs[SCENES[0]]
     frames = stacked_frames(data, dev)
     step = device_kernel_counts(lambda: pipe.step(pipe.init_state(), frame_at(data, 0, dev)),
@@ -4410,11 +4432,30 @@ def new_kernel_launches(dev, pipe, off_pipe, inputs) -> dict:
     off = device_kernel_counts(lambda: off_pipe.run_offline(off_pipe.init_state(), frames),
                                NEW_KERNELS)
     chunks = -(-data["kp2d"].shape[0] // OFFLINE_FUSION_BATCH)
-    want = ({"pair_terms_kernel": 1}, {"pair_terms_kernel": chunks})
+    want = ({"pair_costs_kernel": 1}, {"pair_costs_kernel": chunks})
     for what, got, w in (("step", step, want[0]), ("run_offline", off, want[1])):
         if got != dict(dict.fromkeys(NEW_KERNELS, 0), **w):
             raise AssertionError(f"demo {what}: E1, S1, S2, F1W on the device {got}")
+    f_cfg = pipe.config.fusion
+    kp_n = fusion.normalize_frame(frames, pipe.rig, f_cfg)[0]
+    e1_matches_twin(kp_n[0], pipe.rig, f_cfg, "demo step")
+    e1_matches_twin(kp_n[:OFFLINE_FUSION_BATCH], pipe.rig, f_cfg, "demo chunk")
     return {"step": step, "run_offline": off}
+
+
+def e1_bound(frames: int, cams: int, dets: int, joints: int) -> tuple:
+    """Kernel E1's bound (ms, by) on `frames` frames: its keypoints and F
+    read and the table written once; 10 float32 operations a per-joint
+    term (the two numerators' 2 products and 2 sums each, |num1| + |num2|,
+    the sum over the joints), 19 a line (3 x 4, its norm's 3, rsqrt, 3
+    products; 2 lines per pair, detection and joint) and a division a
+    cost."""
+    pairs = frames * cams * (cams - 1) // 2
+    ops = (pairs * dets * dets * joints * 10 + 2 * pairs * dets * joints * 19
+           + pairs * dets * dets)
+    nbytes = 4 * (frames * cams * dets * joints * 3 + cams * cams * 9
+                  + frames * cams * cams * dets * dets)
+    return bound_of(nbytes, ops)
 
 
 WIDE_CONFIG = os.path.join(_ROOT, "portbench", "configs", "panoptic480.json")
@@ -4472,6 +4513,7 @@ def phase_wide(dev, smi) -> None:
     from portbench.lib import harness
     from portbench.lib import scene as scene_lib
     from smartedgesensor3dhumanpose_tpu_torch import _kernels, config, fusion, pipeline
+    from smartedgesensor3dhumanpose_tpu_torch.ops import epipolar
     from smartedgesensor3dhumanpose_tpu_torch.ops import triangulation_kernel as tk
     from smartedgesensor3dhumanpose_tpu_torch.types import CameraRig, Frame
 
@@ -4554,10 +4596,8 @@ def phase_wide(dev, smi) -> None:
     nodes = harness.graph_kernel_nodes(pipe._offline)
     on_device = device_kernel_counts(lambda: pipe.run_offline(state0, frames),
                                      tuple(WIDE_LAUNCHES) + ("triangulation_kernel",
-                                                             "pair_terms_kernel"))
-    per_frame = cams * (cams - 1) // 2 * 17 * f_cfg.max_dets_per_cam ** 2 * 4
-    slices = -(-batch // max(1, fusion.FOLD_INPUT_BYTES // per_frame))
-    want = dict(WIDE_LAUNCHES, triangulation_kernel=0, pair_terms_kernel=slices)
+                                                             "pair_costs_kernel"))
+    want = dict(WIDE_LAUNCHES, triangulation_kernel=0, pair_costs_kernel=1)
     if on_device != want:
         raise AssertionError(f"wide rig: kernels on the device per replay {on_device}, "
                              f"expected {want}")
@@ -4573,43 +4613,22 @@ def phase_wide(dev, smi) -> None:
                 zip(spans["name"], spans["start"], spans["end"])
                 if str(n).startswith("fusion") or n in ("smoothing", "tracker", "feedback")}
     if (counters.get("fusion.association.scan_steps") != cams
+            or counters.get("fusion.association.pair_costs_e1") != batch
             or counters.get("fusion.triangulation.f1w") != hyps.kp.shape[0]
             or counters.get("fusion.triangulation.f1") != 0
             or counters.get("fusion.triangulate.kernels", 10**9) > 64):
         raise AssertionError(f"wide rig: counters {counters}")
-    # Kernel E1 (the pair costs' per-joint terms) against the plain terms
-    # on the card: the chunk's first two frames' fold inputs bit for bit.
-    from smartedgesensor3dhumanpose_tpu_torch.ops import epipolar
-
-    sub = Frame(*(x[:2] for x in frames))
-    kp_n, _, _ = fusion.normalize_frame(sub, rig, f_cfg)
-    ctab = fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg)[0]
-    saved, epipolar.pair_terms = epipolar.pair_terms, epipolar.pair_terms_plain
-    try:
-        plain_ctab = fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg)[0]
-    finally:
-        epipolar.pair_terms = saved
-    if not torch.equal(ctab, plain_ctab):
-        raise AssertionError("wide rig: kernel E1's fold inputs differ from the plain terms'")
-    e1 = kernel_durations(lambda: fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg),
-                          "pair_terms_kernel", 3)
-    e1_ms = statistics.median(e1) / 1e3 if e1 else None
-    # E1's twin: the plain terms on the same arguments (those of the fold
-    # inputs' one slice of these two frames).
-    seen = []
-    saved = epipolar.pair_terms
-    epipolar.pair_terms = lambda *a: seen.append(a) or saved(*a)
-    try:
-        fusion.fold_inputs(kp_n, sub.det_score, rig, f_cfg)
-    finally:
-        epipolar.pair_terms = saved
-    e1_args = seen[0]
-    e1_out = epipolar.pair_terms(*e1_args)
-    e1_bytes = (sum(t.numel() * t.element_size() for t in flat_tensors(e1_args))
-                + sum(t.numel() * t.element_size() for t in e1_out))
-    e1_plain_ms = sync_time(lambda: epipolar.pair_terms_plain(*e1_args), 3)
-    e1_bound_ms, e1_bound_by = bound_of(e1_bytes, 0)
-    del ctab, plain_ctab, e1_out, seen, e1_args
+    # Kernel E1 (the whole chunk's table in one launch) against its plain
+    # twin on the card, bit for bit; their times and E1's bound.
+    kp_n = fusion.normalize_frame(frames, rig, f_cfg)[0]
+    e1_matches_twin(kp_n, rig, f_cfg, "wide rig chunk")
+    # E1's time by CUDA events around its launches (its wrapper runs nothing
+    # else on the device): late in a full run the profiler's kernel records
+    # of this phase have come back empty.
+    e1_ms = sync_time(lambda: epipolar.pair_costs(kp_n, rig.F, f_cfg.min_kp_score), 5)
+    e1_plain_ms = sync_time(lambda: fusion.pair_costs_plain(kp_n, rig.F, f_cfg.min_kp_score), 2)
+    e1_bound_ms, e1_bound_by = e1_bound(batch, cams, f_cfg.max_dets_per_cam, kp_n.shape[-2])
+    del kp_n
     torch.cuda.empty_cache()
 
     log("17 wide rig", gpu=repr(smi), cameras=cams, fusion_batch=batch,
@@ -4620,7 +4639,8 @@ def phase_wide(dev, smi) -> None:
         f1_wide_device_ms=wide_ms, f1_wide_bound_ms=bound_ms, f1_wide_bound_by=bound_by,
         f1_wide_roofline_pct=100 * bound_ms / wide_ms if wide_ms else None,
         f1_wide_ptxas=f1_ptxas(_kernels.build_log), e1_vs_plain="equal bit for bit",
-        e1_device_ms_two_frames=e1_ms, e1_plain_ms=e1_plain_ms, e1_bound_ms=e1_bound_ms,
+        e1_device_ms_chunk=e1_ms, e1_plain_ms=e1_plain_ms, e1_bound_ms=e1_bound_ms,
+        e1_bound_by=e1_bound_by, e1_roofline_pct=100 * e1_bound_ms / e1_ms if e1_ms else None,
         f1_wide_two_frames="'" + json.dumps({"hypotheses": few.kp.shape[0], "device_ms": few_ms,
                                               "plain_ms": few_plain_ms,
                                               "bound_ms": few_bound_ms}) + "'",
@@ -4634,23 +4654,14 @@ def phase_wide(dev, smi) -> None:
     if replay_syncs:
         raise AssertionError(f"wide rig: a replay syncs the host {replay_syncs} times")
     return {
-        "pair_terms": {"ms": e1_ms, "plain_ms": e1_plain_ms, "bound_ms": e1_bound_ms,
-                       "bound_by": e1_bound_by, "err": 0.0, "chunk": on_device["pair_terms_kernel"]},
+        "pair_costs": {"ms": e1_ms, "plain_ms": e1_plain_ms, "bound_ms": e1_bound_ms,
+                       "bound_by": e1_bound_by, "err": 0.0, "chunk": on_device["pair_costs_kernel"]},
         "scan_costs": dict(scan["s1"], chunk=on_device["scan_costs_kernel"]),
         "scan_extend": dict(scan["s2"], chunk=on_device["scan_extend_kernel"]),
         "triangulation_wide": {"ms": few_ms, "plain_ms": few_plain_ms, "bound_ms": few_bound_ms,
                                "bound_by": few_bound_by, "err": err,
                                "chunk": on_device["triangulation_wide_kernel"]},
     }
-
-
-def flat_tensors(args) -> list:
-    """The tensors of nested tuples of arguments."""
-    out = []
-    for a in args:
-        out.extend(flat_tensors(a) if isinstance(a, (tuple, list)) else
-                   [a] if isinstance(a, torch.Tensor) else [])
-    return out
 
 
 def wide_scan(frames, rig, f_cfg) -> dict:
@@ -4860,19 +4871,19 @@ def run_phases(args, dev, smi, references) -> int:
     # as L1, L2 and F1): launches on the device per replay of the demo's
     # step (phase 4's pipeline), of a demo scene's run_offline (phase 6's)
     # and of one chunk of the dome's run_offline (phase 17); their times
-    # from phase 17 at the dome's shapes: E1 on two frames' pair terms and
-    # its plain twin (`pair_terms_plain`) on the same arguments; S1 and S2
+    # from phase 17 at the dome's shapes: E1 on a chunk's table and its
+    # plain twin (`fusion.pair_costs_plain`) on the same keypoints; S1 and S2
     # per camera step of the chunk's scan, their twin the plain scan's
     # whole step (`_scan_camera`, its JV included); F1's wide variant on
     # two frames' hypotheses and the plain body on them, on the card (its
     # time on the chunk's slots is in phase 17's line).
     replaces = {
-        "pair_terms": f"{tpu}/epipolar.py:192",
+        "pair_costs": f"{tpu}/epipolar.py:192",
         "scan_costs": f"{os.path.dirname(tpu)}/fusion.py:96",
         "scan_extend": f"{os.path.dirname(tpu)}/fusion.py:96",
         "triangulation_wide": f"{os.path.dirname(tpu)}/fusion.py:527",
     }
-    sources = {"pair_terms": "pair_terms.cu", "scan_costs": "scan_step.cu",
+    sources = {"pair_costs": "pair_costs.cu", "scan_costs": "scan_step.cu",
                "scan_extend": "scan_step.cu", "triangulation_wide": "triangulation.cu"}
     for name, t in wide_kernels.items():
         by_path = {"step": new_on_demo["step"][name + "_kernel"],
@@ -4881,7 +4892,7 @@ def run_phases(args, dev, smi, references) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"{pkg}/{sources[name]}",
             "replaces": replaces[name], "launches": by_path[
-                "step" if name == "pair_terms" else "run_offline_dome_chunk"],
+                "step" if name == "pair_costs" else "run_offline_dome_chunk"],
             "launches_by_path": by_path, "max_abs_err": float(t["err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,

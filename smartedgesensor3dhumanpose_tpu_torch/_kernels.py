@@ -25,7 +25,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("jv_assign.cu", "association_fold.cu", "tracker_scan.cu", "graph_loop.cu",
-           "lm_prior.cu", "triangulation.cu", "pair_terms.cu", "scan_step.cu")
+           "lm_prior.cu", "triangulation.cu", "pair_costs.cu", "scan_step.cu")
 HEADERS = ("jv.cuh", "bulk_copy.cuh")
 # --fmad=false: every float operation rounds on its own, as in the plain
 # PyTorch versions the kernels are held to bit for bit.
@@ -133,7 +133,8 @@ def _signatures() -> tuple:
         ("ses3d_triangulate_host", [p] * 12 + [i]),
         ("ses3d_triangulate_host_smem_bytes", [i, i]),
         ("ses3d_triangulate_host_wide_bytes", [i]),
-        ("ses3d_pair_terms", [p] * 14 + [ctypes.c_longlong, i, i, i, p]),
+        ("ses3d_pair_costs", [p, p]),
+        ("ses3d_pair_costs_host", [p]),
         ("ses3d_scan_costs", [p, p]),
         ("ses3d_scan_extend", [p, p]),
         ("ses3d_scan_costs_host", [p]),
@@ -177,7 +178,7 @@ def lm_split_library(verbose: bool = False) -> ctypes.CDLL:
 # (the macro HOST_MACRO selects that build): the tests' handle on their
 # arithmetic where there is no card. -ffp-contract=off: no multiply-add is
 # fused, as on the card (--fmad=false).
-HOST_SOURCES = ("triangulation.cu", "scan_step.cu")
+HOST_SOURCES = ("triangulation.cu", "scan_step.cu", "pair_costs.cu")
 HOST_MACRO = "SES3D_HOST"
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
               "-Wall", "-Wextra", f"-D{HOST_MACRO}")

@@ -7,7 +7,9 @@ path (skeleton_3d_triang_mult_node.cpp triangulate_persons, :525-997):
   JAX package routes it (`association_route`): the fold, kernel K2
   (ops.association) on the card, one launch for a whole chunk of frames
   (`fuse_frames`; the online `fuse_frame` is a chunk of one), or the
-  camera scan, one batched JV (kernel K1) per camera,
+  camera scan, one batched JV (kernel K1) per camera; either reads the
+  table of pair costs, written by kernel E1 (ops.epipolar) on the card in
+  float32, one launch a chunk (`pair_costs_route`),
 * confidence-weighted DLT with 3-view / leave-one-out outlier rejection
   (:676-844), every leave-one-out variant computed as one batch axis, the
   unscented 3D covariance (:508-523) and the limb, root and feet gates,
@@ -21,6 +23,7 @@ path (skeleton_3d_triang_mult_node.cpp triangulate_persons, :525-997):
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -54,11 +57,40 @@ class HypothesisSet(NamedTuple):
     n_dropped: torch.Tensor  # [] int32 spawns lost to the slot capacity
 
 
-# The most bytes one of the pair costs' per-joint terms ([frames,
+# The most bytes one of the plain pair costs' per-joint terms ([frames,
 # C(C-1)/2, J, D, D] float32) may take: a chunk of frames whose would take
 # more computes them a slice of frames at a time (the 480-camera dome's
-# take ~0.5 GB a frame; the demo's 0.5 MB).
+# take ~0.5 GB a frame; the demo's 0.5 MB). Kernel E1 keeps no such terms.
 FOLD_INPUT_BYTES = 1 << 30
+
+
+def pair_costs_route(device, dtype) -> str:
+    """The pair costs' route for these tensors: "kernel" on CUDA in float32
+    (kernel E1, `epipolar.pair_costs`: the whole table in one launch), else
+    "plain" (`pair_costs_plain`)."""
+    on_card = torch.device(device).type == "cuda" and dtype == torch.float32
+    return "kernel" if on_card else "plain"
+
+
+def pair_costs_plain(kp_n, F, min_kp_score: float):
+    """Kernel E1's plain twin: `epipolar.pairwise_association_costs_packed`
+    (the per-joint terms of `pair_terms_plain` summed by torch.sum) of every
+    camera pair c1 < c2, scattered into ctab [..., C2, C1*D1, D2], -1 where
+    unusable and for c1 >= c2. kp_n [..., C, D, J, 3]; one leading axis is
+    taken in slices of frames whose terms fit FOLD_INPUT_BYTES."""
+    c, d, j = kp_n.shape[-4], kp_n.shape[-3], kp_n.shape[-2]
+    lead = kp_n.shape[:-4]
+    ctab = torch.full(lead + (c, c, d, d), -1.0, dtype=kp_n.dtype, device=kp_n.device)
+    per_frame = max(c * (c - 1) // 2 * j * d * d * kp_n.element_size(), 1)
+    sliced = len(lead) == 1
+    step = max(1, FOLD_INPUT_BYTES // per_frame) if sliced else 1
+    for lo in range(0, lead[0] if sliced else 1, step):
+        part = slice(lo, lo + step) if sliced else slice(None)
+        cost_p, usable_p, iu, ju = epipolar.pairwise_association_costs_packed(
+            kp_n[part], F, min_kp_score
+        )
+        ctab[part][..., ju, iu, :, :] = torch.where(usable_p, cost_p, -1.0)
+    return ctab.reshape(lead + (c, c * d, d))
 
 
 def fold_inputs(kp_n, det_score, rig: CameraRig, config: FusionConfig):
@@ -66,24 +98,20 @@ def fold_inputs(kp_n, det_score, rig: CameraRig, config: FusionConfig):
     between every detection pair, computed once per frame and packed as
     ctab [..., C2, C1*D1, D2] (-1 where unusable, including c1 >= c2), and
     the confident-voter flags conf_obs [..., C*D] (score > 0.5, :352).
-    kp_n [..., C, D, J, 3]: leading axes (frames) pass through; one leading
-    axis is taken in slices of frames whose intermediates fit
-    FOLD_INPUT_BYTES."""
-    c, d, j = kp_n.shape[-4], kp_n.shape[-3], kp_n.shape[-2]
+    kp_n [..., C, D, J, 3]: leading axes (frames) pass through. The table
+    comes by `pair_costs_route`: kernel E1 in one launch, or its plain twin.
+    A traced call counts the frames E1 wrote (`association.pair_costs_e1`,
+    0 on the plain route)."""
+    c, d = kp_n.shape[-4], kp_n.shape[-3]
     lead = kp_n.shape[:-4]
-    dtype = kp_n.dtype
-    ctab = torch.full(lead + (c, c, d, d), -1.0, dtype=dtype, device=kp_n.device)
-    per_frame = max(c * (c - 1) // 2 * j * d * d * kp_n.element_size(), 1)
-    sliced = len(lead) == 1
-    step = max(1, FOLD_INPUT_BYTES // per_frame) if sliced else 1
-    for lo in range(0, lead[0] if sliced else 1, step):
-        part = slice(lo, lo + step) if sliced else slice(None)
-        cost_p, usable_p, iu, ju = epipolar.pairwise_association_costs_packed(
-            kp_n[part], rig.F, config.min_kp_score
-        )
-        ctab[part][..., ju, iu, :, :] = torch.where(usable_p, cost_p, -1.0)
-    conf_obs = (det_score > 0.5).to(dtype).reshape(lead + (c * d,))
-    return ctab.reshape(lead + (c, c * d, d)), conf_obs
+    route = pair_costs_route(kp_n.device, kp_n.dtype)
+    if route == "kernel":
+        ctab = epipolar.pair_costs(kp_n, rig.F, config.min_kp_score)
+    else:
+        ctab = pair_costs_plain(kp_n, rig.F, config.min_kp_score)
+    tracing.note("association.pair_costs_e1", math.prod(lead) if route == "kernel" else 0)
+    conf_obs = (det_score > 0.5).to(kp_n.dtype).reshape(lead + (c * d,))
+    return ctab, conf_obs
 
 
 def association_route(config: FusionConfig, cameras: int, dets: int) -> str:

@@ -3,12 +3,17 @@
 Torch form of the reference's calcCost (skeleton_3d_triang_mult_node.cpp:
 335-390) evaluated once per frame for every unordered camera pair, and of the
 3-view outlier test's pairwise distances (:748-792). The pipeline uses the
-packed pair costs and the drop scores; the point-line distance, the
-hypothesis x detection cost, the dense pair layout and the pairwise joint
-distances are the JAX package's public helpers of the same names.
+packed pair costs (on the card kernel E1, `pair_costs`, writes them as the
+association's table in one launch) and the drop scores; the point-line
+distance, the hypothesis x detection cost, the dense pair layout and the
+pairwise joint distances are the JAX package's public helpers of the same
+names.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import numpy as np
 import torch
@@ -110,10 +115,23 @@ def pairwise_association_costs_packed(
     (iu[p], ju[p]) enumerate the C(C-1)/2 pairs with iu < ju (NumPy triu
     order) and entry [p, d1, d2] is the symmetric epipolar distance between
     detection (iu[p], d1) and (ju[p], d2) averaged over joints confident in
-    both; `usable` marks pairs sharing any such joint. The per-joint terms
-    are kernel E1's (`pair_terms`) for float32 CUDA tensors, else
-    `pair_terms_plain`'s, and equal either way.
+    both; `usable` marks pairs sharing any such joint: the per-joint terms
+    of `packed_pair_terms` summed by `torch.sum`. Kernel E1 (`pair_costs`)
+    computes the same costs, packed as fusion.fold_inputs' table, in one
+    launch.
     """
+    terms, both_ok, iu, ju = packed_pair_terms(kp, F, min_kp_score)
+    n_joints = torch.sum(both_ok, dim=-3)  # [..., Np, D1, D2]
+    dist_sum = torch.sum(terms, dim=-3)
+    cost_p = dist_sum / torch.where(n_joints > 0, n_joints, 1)
+    return cost_p, n_joints > 0, iu, ju
+
+
+def packed_pair_terms(kp: torch.Tensor, F: torch.Tensor, min_kp_score: float):
+    """The per-joint terms of `pairwise_association_costs_packed`: kp [...,
+    C, D, J, 3], F [C, C, 3, 3] -> (terms [..., Np, J, D1, D2], both_ok
+    [..., Np, J, D1, D2] bool, iu, ju), `pair_terms_plain` of every pair's
+    coordinates and per-detection lines."""
     c = kp.shape[-4]
     iu_np, ju_np = np.triu_indices(c, k=1)
     iu = linalg.constant(iu_np, kp.device)
@@ -151,14 +169,9 @@ def pairwise_association_costs_packed(
         line(Fp[:, 0, 2], Fp[:, 1, 2], Fp[:, 2, 2], x2, y2),
     )
 
-    sides = ((x1, y1, (l10, l11, l12), conf_okT[..., iu, :, :]),
-             (x2, y2, (l20, l21, l22), conf_okT[..., ju, :, :]))
-    on_card = x1.is_cuda and x1.dtype == torch.float32
-    terms, both_ok = (pair_terms if on_card else pair_terms_plain)(*sides[0], *sides[1])
-    n_joints = torch.sum(both_ok, dim=-3)  # [..., Np, D1, D2]
-    dist_sum = torch.sum(terms, dim=-3)
-    cost_p = dist_sum / torch.where(n_joints > 0, n_joints, 1)
-    return cost_p, n_joints > 0, iu, ju
+    terms, both_ok = pair_terms_plain(x1, y1, (l10, l11, l12), conf_okT[..., iu, :, :],
+                                      x2, y2, (l20, l21, l22), conf_okT[..., ju, :, :])
+    return terms, both_ok, iu, ju
 
 
 def pair_terms_plain(x1, y1, lines1, ok1, x2, y2, lines2, ok2) -> tuple:
@@ -183,29 +196,88 @@ def pair_terms_plain(x1, y1, lines1, ok1, x2, y2, lines2, ok2) -> tuple:
     return torch.where(both_ok, d, 0.0), both_ok
 
 
-def pair_terms(x1, y1, lines1, ok1, x2, y2, lines2, ok2) -> tuple:
-    """Kernel E1 (csrc/pair_terms.cu) on the card: `pair_terms_plain` of
-    float32 CUDA tensors in one pass, its results bit for bit, in the
-    layout PyTorch's CUDA kernels give the plain terms (the joints
-    innermost in memory), so that the sums over the joints take the same
-    order. One launch on the current stream, no host sync."""
+class PairCosts(ctypes.Structure):
+    """csrc/pair_costs.cu `Costs`, field by field: the keypoints, F and the
+    table (pointers), the shapes, the cameras a block takes a round and the
+    confidence gate."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("kp", "F", "ctab")] + [
+        (name, ctypes.c_int) for name in ("b", "c", "d", "j", "groups")] + [
+        ("min_score", ctypes.c_float)]
+
+
+# Launches of kernel E1 (one a fold_inputs call on the card), under
+# _kernels.LAUNCH_LOCK.
+PAIR_COSTS_LAUNCHES = 0
+# What E1 takes (csrc/pair_costs.cu): a detection's confident joints are one
+# 32-bit mask; a block has at most PAIR_COSTS_THREADS threads, one per
+# (camera c1, detection), and keeps its shared memory within
+# PAIR_COSTS_SMEM bytes; its shared arrays pad D to PAIR_COSTS_SLOTS.
+PAIR_COSTS_MAX_JOINTS = 32
+PAIR_COSTS_THREADS = 128
+PAIR_COSTS_SLOTS = 8
+PAIR_COSTS_SMEM = 56 * 1024
+
+
+def pair_costs_smem_bytes(d: int, j: int, groups: int) -> int:
+    """E1's shared memory at d detections, j joints and `groups` cameras a
+    round (csrc/pair_costs.cu smem_floats): c2's points and masks and the
+    round's lines."""
+    dp = -(-d // PAIR_COSTS_SLOTS) * PAIR_COSTS_SLOTS
+    return 4 * (2 * j * dp + dp + 3 * groups * j * dp)
+
+
+def pair_costs_groups(d: int, j: int) -> int:
+    """The cameras c1 a block of E1 takes a round at d detections and j
+    joints: as many as PAIR_COSTS_THREADS threads hold, halved while the
+    block's shared memory exceeds PAIR_COSTS_SMEM."""
+    groups = max(1, PAIR_COSTS_THREADS // d)
+    while groups > 1 and pair_costs_smem_bytes(d, j, groups) > PAIR_COSTS_SMEM:
+        groups //= 2
+    return groups
+
+
+def pair_costs(kp: torch.Tensor, F: torch.Tensor, min_kp_score: float,
+               host: bool = False) -> torch.Tensor:
+    """Kernel E1 (csrc/pair_costs.cu): fusion.fold_inputs' table of pair
+    costs in one launch on the current stream, no host sync: kp [..., C, D,
+    J, 3] and F [C, C, 3, 3] float32 -> ctab [..., C, C*D, D], whose entry
+    [c2, c1 * D + d1, d2] is `pairwise_association_costs_packed`'s cost of
+    the pair (c1, d1), (c2, d2) for c1 < c2 where usable, else -1. On the
+    card it equals the plain costs (`pair_terms_plain` summed by
+    torch.sum) bit for bit; `host` runs its host build on CPU tensors (the
+    tests' handle on its arithmetic; there the inverse norm is correctly
+    rounded)."""
+    global PAIR_COSTS_LAUNCHES
     from smartedgesensor3dhumanpose_tpu_torch import _kernels
 
-    *lead, joints, d1 = x1.shape
-    d2 = x2.shape[-1]
-    a = [t.contiguous() for t in (x1, y1, *lines1, ok1)]
-    b = [t.contiguous() for t in (x2, y2, *lines2, ok2)]
-    shape = tuple(lead) + (d1, d2, joints)
-    terms = torch.empty(shape, dtype=torch.float32, device=x1.device).movedim(-1, -3)
-    both = torch.empty(shape, dtype=torch.bool, device=x1.device).movedim(-1, -3)
-    pairs = terms.numel() // max(joints * d1 * d2, 1)
-    with torch.cuda.device(x1.device):
-        stream = torch.cuda.current_stream(x1.device).cuda_stream
-        err = _kernels.library().ses3d_pair_terms(
-            *(t.data_ptr() for t in a + b), terms.data_ptr(), both.data_ptr(), pairs, joints,
-            d1, d2, stream)
-    _kernels.check(err, f"pair terms launch (pairs={pairs}, d1={d1}, d2={d2})")
-    return terms, both
+    *lead, c, d, j, three = kp.shape
+    dev = kp.device
+    if (kp.dtype != torch.float32 or F.dtype != torch.float32 or F.device != dev
+            or (dev.type == "cuda") == host):
+        raise ValueError(f"kernel E1 takes float32 {'CPU' if host else 'CUDA'} tensors on one "
+                         f"device; got kp {kp.dtype} on {dev}, F {F.dtype} on {F.device}")
+    if three != 3 or tuple(F.shape) != (c, c, 3, 3) or j > PAIR_COSTS_MAX_JOINTS \
+            or d > PAIR_COSTS_THREADS:
+        raise ValueError(f"kernel E1 takes kp [..., C, D <= {PAIR_COSTS_THREADS}, J <= "
+                         f"{PAIR_COSTS_MAX_JOINTS}, 3] and F [C, C, 3, 3]; got "
+                         f"{tuple(kp.shape)} and {tuple(F.shape)}")
+    kp = kp.contiguous()
+    F = F.contiguous()
+    ctab = torch.empty(tuple(lead) + (c, c * d, d), dtype=torch.float32, device=dev)
+    frames = math.prod(lead)
+    costs = PairCosts(kp.data_ptr(), F.data_ptr(), ctab.data_ptr(), frames, c, d, j,
+                      pair_costs_groups(d, j), min_kp_score)
+    if host:
+        err = _kernels.host_library().ses3d_pair_costs_host(ctypes.byref(costs))
+    else:
+        with torch.cuda.device(dev):
+            err = _kernels.library().ses3d_pair_costs(
+                ctypes.byref(costs), torch.cuda.current_stream(dev).cuda_stream)
+        with _kernels.LAUNCH_LOCK:
+            PAIR_COSTS_LAUNCHES += 1
+    _kernels.check(err, f"pair costs launch (frames={frames}, cameras={c}, d={d}, j={j})")
+    return ctab
 
 
 def three_view_drop_scores(

@@ -3,14 +3,17 @@ portbench/configs/panoptic480.json) on the port's offline path, on the CPU
 at small size: 2 persons, 2 detection slots a camera and 4 hypothesis and
 track slots, 8 frames of the cell's 25 Hz mix. `Pipeline.run_offline`
 routes the association to the camera scan (480 camera steps a chunk: K2's
-fold does not fit) and, on the card, the triangulation to F1's wide
-variant, whose host build stands in for it here; the run is held to the
-benchmark's plain reference (portbench/reference, float64 on the host):
-every decision exact, the compared floats within the cell's limits. A
-traced call counts the scan's steps and the wide variant's hypotheses per
-chunk."""
+fold does not fit) and, on the card, the pair costs to kernel E1 and the
+triangulation to F1's wide variant, whose host builds stand in for them
+here; the run is held to the benchmark's plain reference
+(portbench/reference, float64 on the host): every decision exact, the
+compared floats within the cell's limits. A traced call counts the scan's
+steps, E1's frames and the wide variant's hypotheses per chunk. E1's host
+build is also held to the plain terms summed in its order, bit for bit,
+and on the card E1 to its plain twin."""
 
 import copy
+import functools
 import json
 import os
 import types
@@ -22,9 +25,9 @@ from portbench.lib import judge
 from portbench.lib import scene as scene_lib
 from portbench.reference import pipeline as ref_pipeline
 from portbench.reference import replay
-from smartedgesensor3dhumanpose_tpu_torch import cameras, config, fusion, pipeline
+from smartedgesensor3dhumanpose_tpu_torch import cameras, config, fusion, pipeline, tracing
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
-from smartedgesensor3dhumanpose_tpu_torch.ops import association
+from smartedgesensor3dhumanpose_tpu_torch.ops import association, epipolar
 from smartedgesensor3dhumanpose_tpu_torch.ops import triangulation_kernel as tk
 from smartedgesensor3dhumanpose_tpu_torch.types import CameraRig, Frame
 
@@ -106,9 +109,12 @@ def _dome_call(monkeypatch, fault=None):
     cfg = scene_lib.make_config(config, c)
     data = scene_lib.scene(c, _json("mixes", "offline_25hz.json"), FRAMES, SEED)
     rig = scene_lib.rig_arrays(c)
-    # The card's triangulation: F1's wide variant, its host build here.
+    # The card's triangulation: F1's wide variant, its host build here; and
+    # the card's pair costs: kernel E1, its host build here.
     monkeypatch.setattr(fusion, "triangulation_route", lambda cams, dev, dtype: "wide")
     monkeypatch.setattr(tk, "triangulate", tk.triangulate_host)
+    monkeypatch.setattr(fusion, "pair_costs_route", lambda device, dtype: "kernel")
+    monkeypatch.setattr(epipolar, "pair_costs", functools.partial(epipolar.pair_costs, host=True))
     if fault is not None:
         monkeypatch.setattr(fusion, "associate", fault(fusion.associate))
     pipe = pipeline.Pipeline(CameraRig(*rig), cfg, device="cpu", fusion_batch=FRAMES, trace=True)
@@ -142,6 +148,7 @@ def test_dome_offline_through_the_scan_matches_the_reference(monkeypatch):
     assert fusion.triangulation_route(480, torch.device("cuda"), torch.float32) == "wide"
     c, data, out, state, got = _dome_call(monkeypatch)
     assert got["fusion.association.scan_steps"] == 480
+    assert got["fusion.association.pair_costs_e1"] == FRAMES
     assert got["fusion.triangulation.f1w"] == FRAMES * 4
     assert got["fusion.triangulation.f1"] == 0
     assert int(out.persons_raw.valid.sum()) > 0 and int(out.fused.valid.sum()) > 0
@@ -174,54 +181,190 @@ def test_dome_check_catches_a_fault_in_a_chunks_later_frames(monkeypatch):
     assert numbers["decisions_wrong"] > 0 and not within, numbers
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cameras_, frames", [(16, 1), (16, 2), (480, 2)])
-def test_pair_terms_kernel_matches_plain_on_card(cameras_, frames):
-    """Kernel E1 (the pair costs' per-joint terms in one pass) against the
-    plain terms on the card, bit for bit, on a frame of the dome's scene
-    at 16 cameras and at its 480: the terms, the confident flags and the
-    packed fold inputs they give (one frame: the live step's chunk).
-    The sums over the joints are PyTorch's on both sides: E1 writes its
-    terms in the plain kernels' layout."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: kernel E1 is a CUDA kernel")
-    from smartedgesensor3dhumanpose_tpu_torch.ops import epipolar
-
-    dev = torch.device("cuda", 0)
+def dome_fold_inputs(cameras_, frames, device):
+    """A chunk of the dome's scene at `cameras_` cameras on `device`: (kp_n,
+    det_score, rig, fusion config)."""
     c = copy.deepcopy(_json("configs", "panoptic480.json"))
     c["rig"]["cameras"] = c["pipeline"]["fusion"]["num_cameras"] = cameras_
     cfg = scene_lib.make_config(config, c).fusion
     data = scene_lib.scene(c, _json("mixes", "offline_25hz.json"), frames, SEED)
-    frames = Frame.from_arrays({k: v for k, v in data.items() if k != "det_count"}, dev)
-    rig = CameraRig(*(t.to(dev) for t in scene_lib.rig_arrays(c)))
-    kp_n, _, _ = fusion.normalize_frame(frames, rig, cfg)
-    got = fusion.fold_inputs(kp_n, frames.det_score, rig, cfg)
-    sides = []
-    monkey = pytest.MonkeyPatch()
+    chunk = Frame.from_arrays({k: v for k, v in data.items() if k != "det_count"}, device)
+    rig = CameraRig(*(t.to(device) for t in scene_lib.rig_arrays(c)))
+    kp_n, _, _ = fusion.normalize_frame(chunk, rig, cfg)
+    return kp_n, chunk.det_score, rig, cfg
 
-    def plain(*args):
-        sides.append(args)
-        return epipolar.pair_terms_plain(*args)
 
-    monkey.setattr(epipolar, "pair_terms", plain)
-    try:
-        want = fusion.fold_inputs(kp_n, frames.det_score, rig, cfg)
-    finally:
-        monkey.undo()
-    for args in sides:
-        mine, plain_ = epipolar.pair_terms(*args), epipolar.pair_terms_plain(*args)
-        for a, b in zip(mine, plain_):
-            mismatch = a != b
-            assert not bool(mismatch.any()), (int(mismatch.sum()), a[mismatch][:4].tolist(),
-                                              b[mismatch][:4].tolist())
-        sums = [torch.sum(t[0], dim=-3) for t in (mine, plain_)]
-        assert torch.equal(*sums), (
-            "sums of equal terms differ", int((sums[0] != sums[1]).sum()),
-            [(tuple(t[0].stride()), t[0].data_ptr() % 64, t[0].is_contiguous())
-             for t in (mine, plain_)])
-    for a, b in zip(got, want):
-        assert torch.equal(a, b), (int((a != b).sum()), float((a - b).abs().max()),
-                                   int(torch.isnan(a).sum()), int(torch.isnan(b).sum()))
+def first_mismatches(got, want, n=6) -> list:
+    """The first n entries where two tables differ: (index, got, want)."""
+    where = torch.nonzero(got != want)[:n]
+    return [(tuple(i.tolist()), float(got[tuple(i)]), float(want[tuple(i)])) for i in where]
+
+
+# (cameras, persons, frames, seed, detection slots): the demo's hall, a
+# wide rig of 96 cameras, 5 slots (D not a multiple of 4: the kernel's
+# scalar stores and padded slots) and 12 (two chunks of slots, the kernel
+# with D at run time).
+PAIR_COST_CASES = ((16, 6, 2, 7, 8), (96, 3, 1, 5, 8), (20, 4, 2, 9, 5), (20, 9, 1, 3, 12))
+
+
+def hall_fold_inputs(cams, people, frames, seed, dets):
+    """A seeded hall scene with ghosts, normalized: (kp_n, det_score,
+    det_ok, rig, fusion config)."""
+    sc = synthetic.SceneConfig(num_cameras=cams, num_people=people, num_frames=frames,
+                               seed=seed, num_ghost_slots=1, ghost_rate=0.5)
+    data = synthetic.pad_detections(synthetic.frames_from_scene(synthetic.generate_scene(sc)),
+                                    dets)
+    cfg = config.FusionConfig(num_cameras=cams, max_dets_per_cam=dets, max_hypotheses=16,
+                              assignment_impl="cond_while")
+    rig = cameras.hall_rig(cams, device="cpu")
+    frame = Frame.from_arrays(data, "cpu")
+    kp_n, _, det_ok = fusion.normalize_frame(frame, rig, cfg)
+    return kp_n, frame.det_score, det_ok, rig, cfg
+
+
+def kernel_order_costs(kp_n, F, min_kp_score):
+    """The plain per-joint terms summed over the joints in kernel E1's
+    order, PyTorch's CUDA reduction's (lane i of W, the largest power of
+    two <= J, holds t_i + t_{i+W}; shuffles at offsets W/2 .. 1 combine the
+    lanes), scattered into the table [..., C, C*D, D]."""
+    terms, both, iu, ju = epipolar.packed_pair_terms(kp_n, F, min_kp_score)
+    t = terms.movedim(-3, -1)
+    joints, w = t.shape[-1], 1
+    while 2 * w <= joints:
+        w *= 2
+    v = t[..., :w].clone()
+    v[..., :joints - w] = v[..., :joints - w] + t[..., w:]
+    while v.shape[-1] > 1:
+        v = v[..., :v.shape[-1] // 2] + v[..., v.shape[-1] // 2:]
+    n = torch.sum(both, dim=-3)
+    cost = v[..., 0] / torch.where(n > 0, n, 1)
+    c, d = kp_n.shape[-4], kp_n.shape[-3]
+    ctab = torch.full(kp_n.shape[:-4] + (c, c, d, d), -1.0)
+    ctab[..., ju, iu, :, :] = torch.where(n > 0, cost, -1.0)
+    return ctab.reshape(kp_n.shape[:-4] + (c, c * d, d))
+
+
+def _correctly_rounded_rsqrt(monkeypatch):
+    """torch.rsqrt of float32 CPU tensors rounded correctly, 1 / sqrt, as
+    E1's host build takes it (PyTorch's vectorized CPU rsqrt is a last bit
+    off in some values)."""
+    sqrt = torch.sqrt
+
+    def exact(x):
+        return (1.0 / sqrt(x.double()).float().double()).float()
+
+    monkeypatch.setattr(torch, "rsqrt", exact)
+
+
+@pytest.mark.parametrize("case", PAIR_COST_CASES)
+def test_pair_costs_host_build_matches_plain_terms_in_kernel_order(case, monkeypatch):
+    """Kernel E1 through its host build against the plain per-joint terms
+    summed in the kernel's order (`kernel_order_costs`), bit for bit, the
+    inverse norms rounded correctly on both sides."""
+    kp_n, _, _, rig, cfg = hall_fold_inputs(*case)
+    _correctly_rounded_rsqrt(monkeypatch)
+    got = epipolar.pair_costs(kp_n, rig.F, cfg.min_kp_score, host=True)
+    want = kernel_order_costs(kp_n, rig.F, cfg.min_kp_score)
+    assert int((want >= 0).sum()) > 0 and int((want == -1).sum()) > 0
+    assert torch.equal(got, want), (int((got != want).sum()), first_mismatches(got, want))
+
+
+@pytest.mark.parametrize("joints", [1, 5, 13, 32])
+def test_pair_costs_host_build_at_other_joint_counts(joints, monkeypatch):
+    """E1 at joint counts other than the skeleton's 17 (the count known at
+    run time, each reduction width W of 1 to 32): its host build against
+    the plain terms summed in its order, bit for bit."""
+    kp_n, _, _, rig, cfg = hall_fold_inputs(16, 6, 1, 7, 8)
+    kp_n = torch.cat([kp_n, kp_n], dim=-2)[..., :joints, :].contiguous()
+    _correctly_rounded_rsqrt(monkeypatch)
+    got = epipolar.pair_costs(kp_n, rig.F, cfg.min_kp_score, host=True)
+    want = kernel_order_costs(kp_n, rig.F, cfg.min_kp_score)
+    assert int((want >= 0).sum()) > 0
+    assert torch.equal(got, want), (int((got != want).sum()), first_mismatches(got, want))
+
+
+@pytest.mark.parametrize("case", PAIR_COST_CASES)
+def test_pair_costs_host_build_keeps_the_cpu_routes_decisions(case):
+    """E1's host build against fold_inputs' CPU route (the plain terms in
+    PyTorch's CPU order): the same -1 pattern, the costs within float32
+    rounding, and the same decisions of the plain fold and of the camera
+    scan (det_slot, n_hyp, n_dropped)."""
+    kp_n, score, det_ok, rig, cfg = hall_fold_inputs(*case)
+    want, conf = fusion.fold_inputs(kp_n, score, rig, cfg)
+    got = epipolar.pair_costs(kp_n, rig.F, cfg.min_kp_score, host=True)
+    assert torch.equal(got == -1, want == -1)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    args = (conf, det_ok, cfg.max_hypotheses, cfg.max_epipolar_error, cfg.max_cost)
+    for fold in (association.associate_fold_batched_reference, association.associate_scan):
+        for a, b in zip(fold(got, *args), fold(want, *args)):
+            assert torch.equal(a, b), fold.__name__
+
+
+def _noted_by_fold_inputs(kp_n, score, rig, cfg) -> dict:
+    """fold_inputs in the stage "fusion" of a traced call: the counters it
+    notes."""
+    marks = tracing.StageMarks("fold", kp_n.device, tracing.Tracer())
+    with marks.call():
+        tracing.stage("fusion")
+        fusion.fold_inputs(kp_n, score, rig, cfg)
+        noted = dict(marks._notes)
+    return noted
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel", pytest.param("card", marks=pytest.mark.cuda)])
+def test_pair_costs_counter(route, monkeypatch):
+    """`fusion.association.pair_costs_e1`, the frames whose table kernel E1
+    wrote: 0 on the CPU's plain route, the chunk's frames on the kernel
+    route (its host build standing in for it here; on the card, E1)."""
+    kp_n, score, _, rig, cfg = hall_fold_inputs(16, 6, 3, 7, 8)
+    if route == "card":
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA card: kernel E1 is a CUDA kernel")
+        dev = torch.device("cuda", 0)
+        kp_n, score, rig = kp_n.to(dev), score.to(dev), CameraRig(*(t.to(dev) for t in rig))
+    if route == "kernel":
+        monkeypatch.setattr(fusion, "pair_costs_route", lambda device, dtype: "kernel")
+        monkeypatch.setattr(epipolar, "pair_costs", functools.partial(epipolar.pair_costs,
+                                                                      host=True))
+    got = _noted_by_fold_inputs(kp_n, score, rig, cfg)
+    assert got["fusion.association.pair_costs_e1"] == (0 if route == "plain" else 3)
+
+
+def test_pair_costs_route_and_domain():
+    """E1 takes float32 CUDA tensors (the route is a function of device and
+    dtype alone) and refuses what it does not take."""
+    assert fusion.pair_costs_route(torch.device("cuda", 1), torch.float32) == "kernel"
+    assert fusion.pair_costs_route(torch.device("cuda", 0), torch.float64) == "plain"
+    assert fusion.pair_costs_route(torch.device("cpu"), torch.float32) == "plain"
+    kp = torch.zeros(1, 3, 2, 17, 3)
+    F = torch.zeros(3, 3, 3, 3)
+    assert torch.equal(epipolar.pair_costs(kp, F, 0.1, host=True), torch.full((1, 3, 6, 2), -1.0))
+    for bad_kp, bad_F in ((kp.double(), F), (kp, F.double()), (torch.zeros(1, 3, 2, 33, 3), F),
+                          (kp, torch.zeros(2, 2, 3, 3))):
+        with pytest.raises(ValueError):
+            epipolar.pair_costs(bad_kp, bad_F, 0.1, host=True)
+    with pytest.raises(ValueError):
+        epipolar.pair_costs(kp, F, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cameras_, frames", [(16, 1), (16, 32), (96, 8), (480, 2)])
+def test_pair_terms_kernel_matches_plain_on_card(cameras_, frames):
+    """Kernel E1 (the pair costs' table in one launch) against its plain
+    twin on the card, bit for bit, on a chunk of the dome's scene at 16
+    cameras (the live step's one frame and the demo's chunk), at 96 and at
+    the dome's 480: fold_inputs' table against `pair_terms_plain`'s terms
+    summed by torch.sum and scattered (`fusion.pair_costs_plain`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: kernel E1 is a CUDA kernel")
+    kp_n, score, rig, cfg = dome_fold_inputs(cameras_, frames, torch.device("cuda", 0))
+    assert fusion.pair_costs_route(kp_n.device, kp_n.dtype) == "kernel"
+    before = epipolar.PAIR_COSTS_LAUNCHES
+    got, conf = fusion.fold_inputs(kp_n, score, rig, cfg)
+    assert epipolar.PAIR_COSTS_LAUNCHES == before + 1
+    want = fusion.pair_costs_plain(kp_n, rig.F, cfg.min_kp_score)
+    assert int((want >= 0).sum()) > 0
+    assert torch.equal(got, want), (int((got != want).sum()), first_mismatches(got, want))
 
 
 @pytest.mark.cuda
