@@ -673,26 +673,23 @@ def compare_step(out, golden, scene, f):
     return d_fused, d_pred
 
 
-def reset_counts():
-    from smartedgesensor3dhumanpose_tpu_torch.ops import (
-        association, hungarian, lm_prior, tracker, triangulation_kernel)
+# K1, K2, K3, L1, L2 and F1 by name in the host launch count
+# (_kernels.LAUNCHES), in read_counts' order.
+COUNTED = ("jv_assign", "association_fold", "tracker_scan", "lm_trip", "lm_marginals",
+           "triangulation")
 
-    hungarian.KERNEL_LAUNCHES = 0
-    association.KERNEL_LAUNCHES = 0
-    tracker.KERNEL_LAUNCHES = 0
-    for name in lm_prior.KERNEL_LAUNCHES:
-        lm_prior.KERNEL_LAUNCHES[name] = 0
-    triangulation_kernel.KERNEL_LAUNCHES = 0
+
+def reset_counts():
+    from smartedgesensor3dhumanpose_tpu_torch import _kernels
+
+    _kernels.LAUNCHES.clear()
 
 
 def read_counts():
     """(K1, K2, K3, L1, L2, F1) launches since the last reset_counts()."""
-    from smartedgesensor3dhumanpose_tpu_torch.ops import (
-        association, hungarian, lm_prior, tracker, triangulation_kernel)
+    from smartedgesensor3dhumanpose_tpu_torch import _kernels
 
-    return (hungarian.KERNEL_LAUNCHES, association.KERNEL_LAUNCHES, tracker.KERNEL_LAUNCHES,
-            lm_prior.KERNEL_LAUNCHES["lm_trip"], lm_prior.KERNEL_LAUNCHES["lm_marginals"],
-            triangulation_kernel.KERNEL_LAUNCHES)
+    return tuple(_kernels.LAUNCHES[name] for name in COUNTED)
 
 
 # K1, K2, K3, L1, L2 and F1 by name in a device trace: K1 is the
@@ -4294,7 +4291,7 @@ def check_f1_call(what: str, hyps, rig, rig64, f_cfg) -> tuple:
     got = tk.triangulate(hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F, f_cfg, drops=drops)
     cpu = [t.cpu() for t in (hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F)]
     host_drops = torch.empty((n, 17), dtype=torch.int32)
-    host = tk.triangulate_host(*cpu, f_cfg, drops=host_drops)
+    host = tk.triangulate(*cpu, f_cfg, drops=host_drops, host=True)
     for name, a, b in zip(got._fields + ("drops",), tuple(got) + (drops,),
                           tuple(host) + (host_drops,)):
         if not torch.equal(a.cpu(), b):
@@ -4463,9 +4460,9 @@ WIDE_MIX = os.path.join(_ROOT, "portbench", "mixes", "offline_25hz.json")
 WIDE_SEED = 2_718_281_829
 WIDE_PLAIN_FRAMES = 2
 # Kernels one replay of one chunk runs on the device, by trace name.
-WIDE_LAUNCHES = {"triangulation_wide_kernel": 1, "jv_assign_kernel": 480,
-                 "scan_costs_kernel": 480, "scan_extend_kernel": 480,
-                 "lm_trip_kernel": 1, "tracker_scan_kernel": 1}
+WIDE_DEVICE_KERNELS = {"triangulation_wide_kernel": 1, "jv_assign_kernel": 480,
+                       "scan_costs_kernel": 480, "scan_extend_kernel": 480,
+                       "lm_trip_kernel": 1, "tracker_scan_kernel": 1}
 
 
 def f1_ptxas(build_log) -> str:
@@ -4542,7 +4539,7 @@ def phase_wide(dev, smi) -> None:
     got = tk.triangulate(*args, drops=drops)
     cpu = [t.cpu() for t in (hyps.kp, hyps.cov, hyps.cam_mask, rig.P, rig.F)]
     host_drops = torch.empty_like(drops, device="cpu")
-    host = tk.triangulate_host(*cpu, f_cfg, drops=host_drops)
+    host = tk.triangulate(*cpu, f_cfg, drops=host_drops, host=True)
     for name, a, b in zip(got._fields + ("drops",), tuple(got) + (drops,),
                           tuple(host) + (host_drops,)):
         if not torch.equal(a.cpu(), b):
@@ -4595,9 +4592,9 @@ def phase_wide(dev, smi) -> None:
     replay_syncs = count_syncs(lambda: pipe.run_offline(state0, frames))
     nodes = harness.graph_kernel_nodes(pipe._offline)
     on_device = device_kernel_counts(lambda: pipe.run_offline(state0, frames),
-                                     tuple(WIDE_LAUNCHES) + ("triangulation_kernel",
-                                                             "pair_costs_kernel"))
-    want = dict(WIDE_LAUNCHES, triangulation_kernel=0, pair_costs_kernel=1)
+                                     tuple(WIDE_DEVICE_KERNELS) + ("triangulation_kernel",
+                                                                   "pair_costs_kernel"))
+    want = dict(WIDE_DEVICE_KERNELS, triangulation_kernel=0, pair_costs_kernel=1)
     if on_device != want:
         raise AssertionError(f"wide rig: kernels on the device per replay {on_device}, "
                              f"expected {want}")

@@ -47,10 +47,6 @@ and golden scene descriptions (chip_smoke.py's helpers), and times:
   lm_trip_demo      L1 capped at one trip, from the same cold start; `ms`
                     includes copying the start carry in before each launch
   lm_trip_chunk32   L1 capped at one trip on the offline chunk
-  lm_split_demo     L1's clock64() split (the source built with the split
-                    macro) over 20 LMs at P 16: cycles of each phase per
-                    warp and trip, and per warp (an LM's load and store)
-  lm_split_chunk32  the same at P 512
   lm_marg_chunk32   L2 (the tree marginals) on that chunk at its LM's result
   step_captured     the captured Pipeline.step (demo_16cam) through the public
                     API: every frame of both golden scenes in order, a sync
@@ -357,9 +353,6 @@ def lm_cases(cs, res, want, dev, rig, cfg, scenes) -> None:
                 cs, trip, "lm_trip_kernel", 50,
                 cs.bound_of(lm_prior.trip_bytes(running, p), lm_prior.TRIP_OPS_PER_PERSON * running))
             res[f"lm_trip_{shape}"]["persons"] = p
-        if want(f"lm_split_{shape}") and hasattr(lm_prior, "read_split"):
-            res[f"lm_split_{shape}"] = lm_split(cs, lm_prior, start, ins, p_cfg)
-            res[f"lm_split_{shape}"]["persons"] = p
         if shape == "chunk32" and want("lm_marg_chunk32"):
             x = prior.optimize(g_in, g_in.meas, p_cfg).x
             res["lm_marg_chunk32"] = measure(
@@ -367,16 +360,16 @@ def lm_cases(cs, res, want, dev, rig, cfg, scenes) -> None:
                 cs.bound_of(lm_prior.marginals_bytes(p), lm_prior.MARG_OPS_PER_PERSON * p))
 
 
-def run_lm(lm_prior, work, ins, p_cfg, **lib) -> int:
+def run_lm(lm_prior, work, ins, p_cfg) -> int:
     """The whole LM on the carry `work`, in place: one launch of L1 where the
     checkout has `lm_solve`, else L1 one trip a launch with the host's test
     between trips. Returns the launches."""
     if hasattr(lm_prior, "lm_solve"):
-        lm_prior.lm_solve(work, *ins, p_cfg, **lib)
+        lm_prior.lm_solve(work, *ins, p_cfg)
         return 1
     launches = 0
     while bool(work[5]) and launches < p_cfg.lm_max_iterations:
-        lm_prior.lm_trip(work, *ins, p_cfg, **lib)
+        lm_prior.lm_trip(work, *ins, p_cfg)
         launches += 1
     return launches
 
@@ -408,41 +401,6 @@ def lm_solve(cs, lm_prior, start, ins, p_cfg, reps: int = 20) -> dict:
         "iters": iters, "warp_trips": warp_trips,
         "device_ms_per_trip": device_ms / iters if device_ms else None,
         "bound_ms": bound[0], "bound_by": bound[1], "persons": p, "running": running,
-    }
-
-
-def lm_split(cs, lm_prior, start, ins, p_cfg, reps: int = 20) -> dict:
-    """L1's clock64() split (csrc/lm_prior.cu built with the split macro,
-    `_kernels.lm_split_library`) over `reps` LMs from the cold start
-    `start` (`run_lm`): cycles of each phase per warp and trip and per warp
-    (a one-launch LM loads and stores once), of the ticket per block and
-    launch, and per trip in us at the SM clock nvidia-smi reads after the
-    runs."""
-    from smartedgesensor3dhumanpose_tpu_torch import _kernels
-
-    lib = _kernels.lm_split_library()
-
-    def lm():
-        return run_lm(lm_prior, tuple(t.clone() for t in start), ins, p_cfg, _lib=lib)
-
-    lm()
-    torch.cuda.synchronize()
-    lm_prior.read_split(lib)
-    launches = sum(lm() for _ in range(reps))
-    torch.cuda.synchronize()
-    c = lm_prior.read_split(lib)
-    mhz = float(cs.smi_clocks().split(",")[0])
-    phases = lm_prior.SPLIT_SLOTS[:lm_prior.SPLIT_SLOTS.index("ticket")]
-    per_trip = {k: c[k] / c["trips"] for k in phases}
-    per_trip["ticket_per_block"] = c["ticket"] / c["blocks"]
-    return {
-        "one_launch": hasattr(lm_prior, "lm_solve"), "lms": reps,
-        "launches_per_lm": launches / reps, "warp_trips_per_lm": c["trips"] / reps,
-        "sm_mhz": mhz, "cycles_per_warp_trip": per_trip,
-        "us_per_warp_trip": {k: v / mhz for k, v in per_trip.items()},
-        "warp_cycles_per_trip": sum(per_trip[k] for k in phases),
-        "cycles_per_warp": {k: c[k] / c["warps"] for k in phases + ("ticket",)},
-        "counters": c,
     }
 
 
@@ -550,15 +508,6 @@ def main() -> int:
             print(f"k2 per frame {r['label']} {s}: mean {statistics.mean(pf['device_us']):.2f} us; "
                   + ", ".join(f"{k} solves: {statistics.mean(v):.2f} us x{len(v)}"
                               for k, v in sorted(by_need.items())))
-    for r in runs:
-        for case, v in r.items():
-            if case.startswith("lm_split"):
-                print(f"{case} {r['label']}: {v['launches_per_lm']:.2f} launches and "
-                      f"{v['warp_trips_per_lm']:.1f} warp trips per LM at {v['sm_mhz']:.0f} MHz; "
-                      "cycles per warp trip: " + ", ".join(
-                          f"{k} {c:.0f}" for k, c in v["cycles_per_warp_trip"].items())
-                      + "; per warp: " + ", ".join(
-                          f"{k} {c:.0f}" for k, c in v["cycles_per_warp"].items()))
     if "k1b" in runs[0]:
         print("k1b plain ms: " + " ".join(f"{r['label']} {r['k1b']['plain_ms']:.4f}" for r in runs))
     for r in runs[:len(others) + 1]:

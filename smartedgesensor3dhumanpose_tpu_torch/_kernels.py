@@ -7,11 +7,17 @@ The build happens at first use, from the sources of this checkout only,
 into `_build/` next to this file; the library's name carries a hash of the
 sources and flags, so an edited source is never served stale.
 
+Every kernel wrapper launches through `launch`, which runs the entry on
+the device's current stream, raises on a CUDA error and counts the launch
+in `LAUNCHES` by the kernel's name. Host builds (`host_library`) are not
+counted.
+
 Nothing here runs at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -20,6 +26,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -38,8 +46,12 @@ _lib = None
 # Held while the library is built and loaded: callers in several threads
 # may reach their first kernel at once.
 _LOAD_LOCK = threading.Lock()
-# Held while a wrapper adds one to its module's KERNEL_LAUNCHES.
-LAUNCH_LOCK = threading.Lock()
+# Launches on the card by kernel name (jv_assign, association_fold,
+# scan_costs, scan_extend, pair_costs, lm_trip, lm_marginals,
+# tracker_scan, triangulation, triangulation_wide), counted by `launch`
+# under _COUNT_LOCK (callers may launch from several threads).
+LAUNCHES = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 build_seconds = None  # wall time of the build this process ran, if any
 build_log = None  # nvcc's output of a verbose build this process ran, if any
 
@@ -55,39 +67,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
-def _digest(sources, defines) -> str:
+def _digest() -> str:
     h = hashlib.sha256()
-    for name in sources + HEADERS:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False, sources: tuple = SOURCES, defines: tuple = ()) -> Path:
+def build(verbose: bool = False) -> Path:
     """Compile the kernels if this source state has no library yet; return
-    the library path. `sources` and `defines` (macros) make a variant
-    library of its own name; the main path's library is the default."""
+    the library path."""
     global build_seconds, build_log
-    variant = "".join(f"_{d.lower()}" for d in defines)
-    out = BUILD_DIR / f"libses3d_kernels{variant}_{_digest(sources, defines)}.so"
+    out = BUILD_DIR / f"libses3d_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in sources]
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
     extra = ["-Xptxas", "-v"] if verbose else []
-    extra += [f"-D{d}" for d in defines]
     t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        for src, obj in zip(sources, objs)
+        for src, obj in zip(SOURCES, objs)
     ]
     logs = []
-    for src, proc in zip(sources, procs):
+    for src, proc in zip(SOURCES, procs):
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{stdout}\n{stderr}")
@@ -126,13 +135,12 @@ def _signatures() -> tuple:
         ("ses3d_clock_probe", [p, p, p, ctypes.c_longlong]),
         ("ses3d_lm_trip", [p] * 13 + [i] * 3 + [f] * 4 + [p] * 3),
         ("ses3d_lm_marginals", [p] * 9 + [i, p]),
-        ("ses3d_lm_split", [p, i]),
         ("ses3d_triangulate", [p] * 13 + [i, p]),
         ("ses3d_triangulate_smem_bytes", [i, i]),
         ("ses3d_triangulate_wide_bytes", [i]),
-        ("ses3d_triangulate_host", [p] * 12 + [i]),
-        ("ses3d_triangulate_host_smem_bytes", [i, i]),
-        ("ses3d_triangulate_host_wide_bytes", [i]),
+        ("ses3d_triangulation_host", [p] * 12 + [i]),
+        ("ses3d_triangulation_host_smem_bytes", [i, i]),
+        ("ses3d_triangulation_host_wide_bytes", [i]),
         ("ses3d_pair_costs", [p, p]),
         ("ses3d_pair_costs_host", [p]),
         ("ses3d_scan_costs", [p, p]),
@@ -160,18 +168,6 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = _load(build())
     return _lib
-
-
-# The macro that compiles the per-phase clock64() split into L1 and L2
-# (csrc/lm_prior.cu); the main path's library never defines it.
-LM_SPLIT_MACRO = "SES3D_LM_SPLIT"
-
-
-def lm_split_library(verbose: bool = False) -> ctypes.CDLL:
-    """csrc/lm_prior.cu alone, built with LM_SPLIT_MACRO: its kernels add
-    each phase's cycles into a device counter that `ses3d_lm_split` reads
-    (kernel_ab.py's `lm_split` case)."""
-    return _load(build(verbose, ("lm_prior.cu",), (LM_SPLIT_MACRO,)))
 
 
 # The kernels whose source also builds for the host with a C++ compiler
@@ -215,3 +211,17 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launch(name: str, entry: str, device, *args, what: str) -> None:
+    """Launch kernel `name` through the C entry point `entry` of `library()`
+    with `args` and, last, the current stream of `device`, made the current
+    device while the entry runs (it queries and sets the device's
+    attributes). Raises through `check` with `what`; counts the launch in
+    LAUNCHES[name] only when it succeeded."""
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, what)
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1

@@ -89,47 +89,6 @@ __constant__ int c_inc_start[kJ + 1] = {0, 4, 9, 11, 13, 14, 16, 18, 19, 23, 25,
 __constant__ int c_inc_bone[2 * kB] = {6, 15, 16, 17, 6, 7, 8, 14, 20, 7, 9, 9, 10, 10, 8, 11, 11, 12, 12, 0, 1, 13, 20, 0, 2, 2, 3, 3, 1, 4, 4, 5, 5, 16, 18, 17, 19, 18, 19, 15, 13, 14};
 __constant__ float c_inc_sign[2 * kB] = {-1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, -1.f, -1.f, -1.f, 1.f, -1.f, 1.f, -1.f, -1.f, 1.f, -1.f, 1.f, -1.f, 1.f, 1.f, 1.f, 1.f, -1.f, 1.f, -1.f, 1.f, -1.f, -1.f, 1.f, -1.f, 1.f, -1.f, -1.f, 1.f, -1.f, 1.f, -1.f, -1.f, -1.f, -1.f, 1.f};
 
-#ifdef SES3D_LM_SPLIT
-// The per-phase split (built only with -DSES3D_LM_SPLIT; _kernels.py
-// lm_split_library): lane 0 of each warp reads clock64() after each phase
-// and adds the cycles into g_split, with the trips its warp ran; thread 0
-// of each block adds the ticket's cycles and one block. ses3d_lm_split
-// reads and zeroes it.
-enum SplitSlot {
-  kSplitLoad, kSplitLinearize, kSplitEliminate, kSplitBack, kSplitStepError, kSplitRules,
-  kSplitStore, kSplitTicket, kSplitTrips, kSplitWarps, kSplitBlocks, kSplitSlots
-};
-__device__ unsigned long long g_split[kSplitSlots];
-#define SPLIT_DECL                   \
-  long long split_t = clock64();     \
-  unsigned long long split_c[kSplitTrips] = {}
-#define SPLIT(i)                                 \
-  do {                                           \
-    __syncwarp();                                \
-    const long long split_now = clock64();       \
-    split_c[i] += split_now - split_t;           \
-    split_t = split_now;                         \
-  } while (0)
-#define SPLIT_RESTART() (split_t = clock64())
-#define SPLIT_FLUSH(trips)                                                         \
-  do {                                                                             \
-    if (lane == 0 && (trips) > 0) {                                                \
-      for (int i = 0; i < kSplitTicket; ++i) atomicAdd(&g_split[i], split_c[i]);   \
-      atomicAdd(&g_split[kSplitTrips], static_cast<unsigned long long>(trips));    \
-      atomicAdd(&g_split[kSplitWarps], 1ull);                                      \
-    }                                                                              \
-    if (threadIdx.x == 0) {                                                        \
-      atomicAdd(&g_split[kSplitTicket], split_c[kSplitTicket]);                    \
-      atomicAdd(&g_split[kSplitBlocks], 1ull);                                     \
-    }                                                                              \
-  } while (0)
-#else
-#define SPLIT_DECL
-#define SPLIT(i)
-#define SPLIT_RESTART()
-#define SPLIT_FLUSH(trips)
-#endif
-
 // One person's working set.
 struct Person {
   float x[kJ][3];        // the joints the trip linearises at
@@ -637,7 +596,6 @@ lm_trip_kernel(float* __restrict__ x_g, float* __restrict__ err_g, float* __rest
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p = blockIdx.x * kPersonsPerBlock + warp;
   if (log_stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) log_stamps[0] = global_ns();
-  SPLIT_DECL;
   const int iters_in = *iters;
   const int cap = min(max_trips, max_iters - iters_in);
   int trips = 0;
@@ -654,14 +612,10 @@ lm_trip_kernel(float* __restrict__ x_g, float* __restrict__ err_g, float* __rest
       for (int c = 0; c < 3; ++c) s.x[lane][c] = xk[c];
     }
     float lam = lam_g[p], err = err_g[p];
-    SPLIT(kSplitLoad);
     while (!done && trips < cap) {
       linearize<true>(s, lane, t, in, xk, lam);
-      SPLIT(kSplitLinearize);
       eliminate<true>(s, lane, t, a);
-      SPLIT(kSplitEliminate);
       back_substitute(s, lane, t, a);
-      SPLIT(kSplitBack);
       float xn[3] = {0.f, 0.f, 0.f};
       if (lane < kJ) {
 #pragma unroll
@@ -673,7 +627,6 @@ lm_trip_kernel(float* __restrict__ x_g, float* __restrict__ err_g, float* __rest
       }
       __syncwarp();
       const float err_new = total_error(lane, s.xs, xn, t, in);
-      SPLIT(kSplitStepError);
       // prior._lm_trip's rules, on every lane (err_new is the same on all).
       const bool finite = isfinite(err_new);
       const bool accept = (err_new < err) && finite;
@@ -694,7 +647,6 @@ lm_trip_kernel(float* __restrict__ x_g, float* __restrict__ err_g, float* __rest
         }
       }
       ++trips;
-      SPLIT(kSplitRules);  // its __syncwarp orders s.x for the next trip
       __syncwarp();
     }
     if (trips > 0) {
@@ -708,9 +660,7 @@ lm_trip_kernel(float* __restrict__ x_g, float* __restrict__ err_g, float* __rest
         done_g[p] = done;
       }
     }
-    SPLIT(kSplitStore);
   }
-  SPLIT_RESTART();
   if (lane == 0) s_count[warp] = 2 * trips + (done ? 0 : 1);
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -731,8 +681,6 @@ lm_trip_kernel(float* __restrict__ x_g, float* __restrict__ err_g, float* __rest
       }
     }
   }
-  SPLIT(kSplitTicket);
-  SPLIT_FLUSH(trips);
 }
 
 __global__ void __launch_bounds__(32 * kPersonsPerBlock, 1)
@@ -834,15 +782,3 @@ extern "C" int ses3d_lm_marginals(const void* x, const void* meas, const void* i
       static_cast<unsigned char*>(marg_ok), persons);
   return static_cast<int>(cudaGetLastError());
 }
-
-#ifdef SES3D_LM_SPLIT
-// Copies the split's counters (kSplitSlots of them) to `out` on the host
-// and zeroes them. Returns the CUDA error.
-extern "C" int ses3d_lm_split(void* out, int slots) {
-  if (slots != kSplitSlots) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_split, sizeof(g_split));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long zero[kSplitSlots] = {};
-  return static_cast<int>(cudaMemcpyToSymbol(g_split, zero, sizeof(g_split)));
-}
-#endif

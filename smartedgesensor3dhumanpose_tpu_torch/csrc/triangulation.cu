@@ -63,7 +63,7 @@
 //
 // Built with -DSES3D_HOST by a C++ compiler (no CUDA), this file gives
 // the same block's phases run one task after another on the host
-// (`ses3d_triangulate_host`): the tests hold F1's arithmetic to the plain
+// (`ses3d_triangulation_host`): the tests hold F1's arithmetic to the plain
 // version on the CPU through it, and the card's kernel to it bit for bit.
 
 #include <cstddef>
@@ -981,7 +981,7 @@ extern "C" int ses3d_triangulate(const void* params, const void* kp, const void*
 // within a phase one task (thread) after another: the same arithmetic, for
 // the tests; `wide` lays the working set out as the wide variant does.
 // Returns 0.
-extern "C" int ses3d_triangulate_host(const void* params, const void* kp, const void* cov,
+extern "C" int ses3d_triangulation_host(const void* params, const void* kp, const void* cov,
                                       const void* cam_mask, const void* P, const void* F,
                                       void* xyz, void* score, void* cov3, void* valid,
                                       void* person_id, void* drops, int wide) {
@@ -1020,11 +1020,11 @@ extern "C" int ses3d_triangulate_host(const void* params, const void* kp, const 
   return 0;
 }
 
-extern "C" int ses3d_triangulate_host_smem_bytes(int cams, int wide) {
+extern "C" int ses3d_triangulation_host_smem_bytes(int cams, int wide) {
   return static_cast<int>(smem_bytes_for(cams, wide != 0));
 }
 
-extern "C" int ses3d_triangulate_host_wide_bytes(int cams) {
+extern "C" int ses3d_triangulation_host_wide_bytes(int cams) {
   return static_cast<int>(device_floats_for(cams) * 4);
 }
 

@@ -29,9 +29,8 @@ Graphs capture on a stream of their inputs' device, one kept per device,
 and replay on the caller's current stream, so graphs of one card may be
 replayed at once on several streams (parallel/sharding.py).
 
-The kernel wrappers count their launches on the host (`KERNEL_LAUNCHES`
-in ops/hungarian.py, ops/association.py, ops/tracker.py): the warm-up
-launches each kernel of `fn` once, the capture records it once, and a
+The kernel wrappers count their launches on the host, by kernel name
+(`_kernels.LAUNCHES`): the warm-up launches each kernel of `fn` once, the capture records it once, and a
 replay adds nothing there. A replay's launches are the tracer's per-stage
 counters instead (tracing.py): the graphs of a `Pipeline(..., trace=True)`
 count their kernel nodes per stage at capture (`<stage>.kernels`), and

@@ -34,7 +34,6 @@ tie tiers below make those rare).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -53,10 +52,6 @@ SOLVER_TIE_EPS = 1.0e-3
 # Unusable detection rows sit on a strictly higher tier than valid but
 # infeasible pairings.
 INVALID_DET_COST = 2.0 * ASSIGN_COST_CLIP
-
-# Launches of the CUDA kernel; the wrapper adds one per launch, under
-# _kernels.LAUNCH_LOCK (callers may launch from several threads).
-KERNEL_LAUNCHES = 0
 
 # Shared memory one thread block may hold on an H100 (static + dynamic,
 # after the opt-in), an upper bound of K2's static shared memory (the JV
@@ -239,7 +234,6 @@ def associate_fold_reference(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
 
 def _launch(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     """K2 on the card for a batch of frames: ctab [B, C, C*D, D]."""
-    global KERNEL_LAUNCHES
     if ctab.dtype != torch.float32:
         raise TypeError(f"the CUDA fold kernel takes float32, got {ctab.dtype}")
     b, c, x_len, d = ctab.shape
@@ -262,19 +256,13 @@ def _launch(ctab, conf_obs, det_ok, h_cap, gate, max_cost):
     smem = fold_smem_bytes(c, d, h_cap, prefetch)
     det_slot = torch.empty((b, h_cap, c), dtype=torch.int32, device=ctab.device)
     counts = torch.empty((b, 2), dtype=torch.int32, device=ctab.device)
-    lib = _kernels.library()
-    # The C entry queries and sets attributes of the current device: make
-    # it the tensor's.
-    with torch.cuda.device(ctab.device):
-        stream = torch.cuda.current_stream(ctab.device).cuda_stream
-        err = lib.ses3d_association_fold(
-            ctab.data_ptr(), conf.data_ptr(), dok.data_ptr(), det_slot.data_ptr(),
-            counts.data_ptr(), b, c, d, h_cap, int(prefetch), smem,
-            float(gate), float(max_cost), stream,
-        )
-    _kernels.check(err, f"association_fold launch (prefetch={prefetch}, smem={smem})")
-    with _kernels.LAUNCH_LOCK:
-        KERNEL_LAUNCHES += 1
+    _kernels.launch(
+        "association_fold", "ses3d_association_fold", ctab.device,
+        ctab.data_ptr(), conf.data_ptr(), dok.data_ptr(), det_slot.data_ptr(),
+        counts.data_ptr(), b, c, d, h_cap, int(prefetch), smem,
+        float(gate), float(max_cost),
+        what=f"association_fold launch (prefetch={prefetch}, smem={smem})",
+    )
     return det_slot, counts[:, 0], counts[:, 1]
 
 
@@ -422,9 +410,6 @@ class ScanStep(ctypes.Structure):
         (name, ctypes.c_float) for name in ("gate", "max_cost", "clip", "invalid")]
 
 
-# Launches of kernels S1 and S2 (one each a camera step on the card), under
-# _kernels.LAUNCH_LOCK.
-SCAN_LAUNCHES = 0
 # What S1 and S2 take (csrc/scan_step.cu): detections a camera, and S1's
 # tiered costs of a frame in shared memory (H x D floats in 48 KB).
 SCAN_MAX_DETS = 128
@@ -442,7 +427,6 @@ def associate_scan_kernels(ctab, conf_obs, det_ok, h_cap, gate, max_cost, host=F
     for float32 CUDA tensors, or (`host`) their host build with the plain
     JV for float32 CPU tensors, the tests' handle on their arithmetic.
     Shapes and results as `associate_scan`'s."""
-    global SCAN_LAUNCHES
     b, c_cams, _, d = ctab.shape
     dev = ctab.device
     if ctab.dtype != torch.float32 or (dev.type == "cuda") == host:
@@ -470,25 +454,20 @@ def associate_scan_kernels(ctab, conf_obs, det_ok, h_cap, gate, max_cost, host=F
         ctab, conf, dok, tier, trivial, det_slot, n_obs, n_hyp, n_dropped, cost, row_active,
         mask, from_mask, need)), None, b, h_cap, c_cams, d, 0, gate, max_cost,
         ASSIGN_COST_CLIP, INVALID_DET_COST)
-    if host:
-        lib = _kernels.host_library()
-        costs, extend, args = lib.ses3d_scan_costs_host, lib.ses3d_scan_extend_host, ()
-        place = contextlib.nullcontext()
-    else:
-        lib = _kernels.library()
-        costs, extend = lib.ses3d_scan_costs, lib.ses3d_scan_extend
-        args = (torch.cuda.current_stream(dev).cuda_stream,)
-        place = torch.cuda.device(dev)
-    with place:
-        for cam in range(c_cams):
-            step.cam = cam
-            _kernels.check(costs(ctypes.byref(step), *args), f"scan costs launch (camera {cam})")
-            solved = hungarian.linear_sum_assignment_batched(cost, row_active)
-            step.solved = solved.data_ptr()
-            _kernels.check(extend(ctypes.byref(step), *args), f"scan extend launch (camera {cam})")
-    if not host:
-        with _kernels.LAUNCH_LOCK:
-            SCAN_LAUNCHES += 2 * c_cams
+
+    def run(name: str, what: str) -> None:
+        if host:
+            entry = getattr(_kernels.host_library(), f"ses3d_{name}_host")
+            _kernels.check(entry(ctypes.byref(step)), what)
+        else:
+            _kernels.launch(name, f"ses3d_{name}", dev, ctypes.byref(step), what=what)
+
+    for cam in range(c_cams):
+        step.cam = cam
+        run("scan_costs", f"scan costs launch (camera {cam})")
+        solved = hungarian.linear_sum_assignment_batched(cost, row_active)
+        step.solved = solved.data_ptr()
+        run("scan_extend", f"scan extend launch (camera {cam})")
     return det_slot.to(torch.int32), n_hyp.to(torch.int32), n_dropped.to(torch.int32)
 
 

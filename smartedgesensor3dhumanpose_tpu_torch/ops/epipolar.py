@@ -206,9 +206,6 @@ class PairCosts(ctypes.Structure):
         ("min_score", ctypes.c_float)]
 
 
-# Launches of kernel E1 (one a fold_inputs call on the card), under
-# _kernels.LAUNCH_LOCK.
-PAIR_COSTS_LAUNCHES = 0
 # What E1 takes (csrc/pair_costs.cu): a detection's confident joints are one
 # 32-bit mask; a block has at most PAIR_COSTS_THREADS threads, one per
 # (camera c1, detection), and keeps its shared memory within
@@ -248,7 +245,6 @@ def pair_costs(kp: torch.Tensor, F: torch.Tensor, min_kp_score: float,
     torch.sum) bit for bit; `host` runs its host build on CPU tensors (the
     tests' handle on its arithmetic; there the inverse norm is correctly
     rounded)."""
-    global PAIR_COSTS_LAUNCHES
     from smartedgesensor3dhumanpose_tpu_torch import _kernels
 
     *lead, c, d, j, three = kp.shape
@@ -268,15 +264,11 @@ def pair_costs(kp: torch.Tensor, F: torch.Tensor, min_kp_score: float,
     frames = math.prod(lead)
     costs = PairCosts(kp.data_ptr(), F.data_ptr(), ctab.data_ptr(), frames, c, d, j,
                       pair_costs_groups(d, j), min_kp_score)
+    what = f"pair costs launch (frames={frames}, cameras={c}, d={d}, j={j})"
     if host:
-        err = _kernels.host_library().ses3d_pair_costs_host(ctypes.byref(costs))
+        _kernels.check(_kernels.host_library().ses3d_pair_costs_host(ctypes.byref(costs)), what)
     else:
-        with torch.cuda.device(dev):
-            err = _kernels.library().ses3d_pair_costs(
-                ctypes.byref(costs), torch.cuda.current_stream(dev).cuda_stream)
-        with _kernels.LAUNCH_LOCK:
-            PAIR_COSTS_LAUNCHES += 1
-    _kernels.check(err, f"pair costs launch (frames={frames}, cameras={c}, d={d}, j={j})")
+        _kernels.launch("pair_costs", "ses3d_pair_costs", dev, ctypes.byref(costs), what=what)
     return ctab
 
 

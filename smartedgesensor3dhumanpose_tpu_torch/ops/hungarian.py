@@ -51,9 +51,6 @@ _INF = 3.0e38
 WARPS_PER_BLOCK = 4
 SMEM_LIMIT = 232_448
 
-# Launches of the CUDA kernel; the wrapper adds one per launch, under
-# _kernels.LAUNCH_LOCK (callers may launch from several threads).
-KERNEL_LAUNCHES = 0
 # Search steps the plain version has taken (the data-dependent part of the
 # work, which a kernel's bound counts).
 PLAIN_SEARCH_STEPS = 0
@@ -221,7 +218,6 @@ def linear_sum_assignment_batched_reference(cost: torch.Tensor, row_active=None)
 def _launch(cost: torch.Tensor, row_active) -> torch.Tensor:
     """K1 on the card: cost [B, R, C] float32 contiguous CUDA tensor, one
     device launch (a bool row_active goes to the kernel as its bytes)."""
-    global KERNEL_LAUNCHES
     if cost.dtype != torch.float32:
         raise TypeError(f"the CUDA assignment kernel takes float32, got {cost.dtype}")
     if not cost.is_contiguous():
@@ -240,18 +236,11 @@ def _launch(cost: torch.Tensor, row_active) -> torch.Tensor:
     out = torch.empty((b, r), dtype=torch.int32, device=cost.device)
     if b == 0 or r == 0:
         return out
-    lib = _kernels.library()
-    # The C entry queries and sets attributes of the current device: make
-    # it the tensor's.
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream(cost.device).cuda_stream
-        err = lib.ses3d_jv_assign(
-            cost.data_ptr(), None if act is None else act.data_ptr(),
-            out.data_ptr(), b, r, c, plan.per_block, plan.smem_bytes, stream,
-        )
-    _kernels.check(err, "jv_assign launch")
-    with _kernels.LAUNCH_LOCK:
-        KERNEL_LAUNCHES += 1
+    _kernels.launch(
+        "jv_assign", "ses3d_jv_assign", cost.device,
+        cost.data_ptr(), None if act is None else act.data_ptr(),
+        out.data_ptr(), b, r, c, plan.per_block, plan.smem_bytes, what="jv_assign launch",
+    )
     return out
 
 

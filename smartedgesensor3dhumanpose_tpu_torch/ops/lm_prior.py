@@ -40,8 +40,6 @@ bone on an unmeasured belly).
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -55,9 +53,6 @@ BONE_J = skeleton.BONE_J.astype(np.int64)
 # Bones grouped by the depth of their child joint, deepest first.
 LEVELS = tuple(tuple(int(b) for b in lvl) for lvl in tree_solve.LEVELS)
 
-# Launches of each kernel; the wrappers add one per launch, under
-# _kernels.LAUNCH_LOCK ("lm_trip": L1, from lm_solve or lm_trip).
-KERNEL_LAUNCHES = {"lm_trip": 0, "lm_marginals": 0}
 # No cap on `iters` (lm_trip's single trip).
 _NO_CAP = 2**31 - 1
 
@@ -331,12 +326,7 @@ def _check(name: str, tensors) -> None:
             raise ValueError(f"{name}: every tensor must lie on CUDA, got {t.device}")
 
 
-def _count(name: str) -> None:
-    with _kernels.LAUNCH_LOCK:
-        KERNEL_LAUNCHES[name] += 1
-
-
-def _launch(name, carry, inputs, cfg, max_trips: int, max_iters: int, lib) -> None:
+def _launch(name, carry, inputs, cfg, max_trips: int, max_iters: int) -> None:
     """L1 on CUDA tensors, in place on the carry. While a CUDA graph is
     captured with a tracer recording (tracing.py), the launch gives it a
     trip record as a WHILE node does: the trips its last replay ran and the
@@ -361,44 +351,39 @@ def _launch(name, carry, inputs, cfg, max_trips: int, max_iters: int, lib) -> No
         log_stamps = torch.empty(min(max_trips, max_iters) + 1, dtype=torch.int64,
                                  device=x.device)
         tracer.loop(log_trips, log_stamps, "lm")
-    lib = _kernels.library() if lib is None else lib
-    with torch.cuda.device(x.device):
-        err_code = lib.ses3d_lm_trip(
-            x.data_ptr(), err.data_ptr(), lam.data_ptr(), done.data_ptr(), iters.data_ptr(),
-            running.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in inputs), p,
-            max_trips, max_iters, float(cfg.lm_lambda_factor), float(cfg.lm_lambda_upper),
-            float(cfg.lm_absolute_error_tol), float(cfg.lm_relative_error_tol),
-            None if log_trips is None else log_trips.data_ptr(),
-            None if log_stamps is None else log_stamps.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err_code, f"{name} launch (P = {p})")
-    _count("lm_trip")
+    _kernels.launch(
+        "lm_trip", "ses3d_lm_trip", x.device,
+        x.data_ptr(), err.data_ptr(), lam.data_ptr(), done.data_ptr(), iters.data_ptr(),
+        running.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in inputs), p,
+        max_trips, max_iters, float(cfg.lm_lambda_factor), float(cfg.lm_lambda_upper),
+        float(cfg.lm_absolute_error_tol), float(cfg.lm_relative_error_tol),
+        None if log_trips is None else log_trips.data_ptr(),
+        None if log_stamps is None else log_stamps.data_ptr(),
+        what=f"{name} launch (P = {p})")
 
 
-def lm_solve(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg, max_trips=None,
-             _lib=None):
+def lm_solve(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg, max_trips=None):
     """The whole LM for every person (see the module docstring): trips until
     every person is done or `iters` reaches `max_trips` (default
     cfg.lm_max_iterations). CPU tensors go to the twin, which returns a new
     carry; CUDA tensors to one launch of L1, which updates the carry in
-    place and returns it, with no host sync. `_lib`: another build of the
-    kernels (kernel_ab.py's split)."""
+    place and returns it, with no host sync."""
     cap = cfg.lm_max_iterations if max_trips is None else max_trips
     if carry[0].device.type == "cpu":
         return lm_solve_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg, cap)
     _launch("lm_solve", carry, (meas, active, inv_cov, bone_active, bone_len, bone_w), cfg, cap,
-            cap, _lib)
+            cap)
     return carry
 
 
-def lm_trip(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg, _lib=None):
+def lm_trip(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg):
     """One LM iteration for every person: L1 capped at one trip, with no cap
     on `iters`. CPU tensors go to the twin, which returns a new carry; CUDA
     tensors to L1, which updates the carry in place and returns it."""
     if carry[0].device.type == "cpu":
         return lm_trip_plain(carry, meas, active, inv_cov, bone_active, bone_len, bone_w, cfg)
     _launch("lm_trip", carry, (meas, active, inv_cov, bone_active, bone_len, bone_w), cfg, 1,
-            _NO_CAP, _lib)
+            _NO_CAP)
     return carry
 
 
@@ -417,13 +402,10 @@ def lm_marginals(x, meas, active, inv_cov, bone_active, bone_len, bone_w):
     marg_ok = torch.empty((p,), dtype=torch.bool, device=x.device)
     if p == 0:
         return x_out, marg, marg_ok
-    lib = _kernels.library()
-    with torch.cuda.device(x.device):
-        err_code = lib.ses3d_lm_marginals(
-            *(t.data_ptr() for t in inputs), x_out.data_ptr(), marg.data_ptr(),
-            marg_ok.data_ptr(), p, torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err_code, f"lm_marginals launch (P = {p})")
-    _count("lm_marginals")
+    _kernels.launch(
+        "lm_marginals", "ses3d_lm_marginals", x.device,
+        *(t.data_ptr() for t in inputs), x_out.data_ptr(), marg.data_ptr(),
+        marg_ok.data_ptr(), p, what=f"lm_marginals launch (P = {p})")
     return x_out, marg, marg_ok
 
 
@@ -476,18 +458,3 @@ def marginals_bytes(persons: int) -> int:
     per = _F32 * (2 * K_JOINTS * 3 + K_JOINTS * 9) + N_BONES
     out = _F32 * (K_JOINTS * 3 + K_JOINTS * 9) + 1
     return persons * (per + out) + _F32 * 2 * N_BONES
-
-
-# The counters of the clock64() split (csrc/lm_prior.cu, SplitSlot), built
-# only into _kernels.lm_split_library().
-SPLIT_SLOTS = ("load", "linearize", "eliminate", "back_substitute", "step_error", "rules",
-               "store", "ticket", "trips", "warps", "blocks")
-
-
-def read_split(lib) -> dict:
-    """The split library's counters since the last read, zeroed by it:
-    cycles of each phase summed over warps (the ticket over blocks), the
-    warps' trips, the warps that ran a trip, the blocks."""
-    out = (ctypes.c_ulonglong * len(SPLIT_SLOTS))()
-    _kernels.check(lib.ses3d_lm_split(ctypes.addressof(out), len(SPLIT_SLOTS)), "lm split read")
-    return dict(zip(SPLIT_SLOTS, (int(v) for v in out)))

@@ -47,10 +47,6 @@ K_JOINTS = skeleton.NUM_FUSION_JOINTS
 # columns, so T is bounded by the JV's own limit (ops.hungarian.MAX_N).
 MAX_TRACKS = hungarian.MAX_N
 
-# Launches of the CUDA kernel; the wrapper adds one per launch, under
-# _kernels.LAUNCH_LOCK (callers may launch from several threads).
-KERNEL_LAUNCHES = 0
-
 
 def frame_local_chain(state0: TrackerState, has_dets, fb_delay, pivots, cfg):
     """Vectorized precompute of every frame-local scalar the scan carries
@@ -309,7 +305,6 @@ def _launch(records, st: dict, p: int, t_slots: int, w: int, cfg):
     """K3 on the card over the frame records [F, bytes]. Returns
     (pred_offset [F, P, K*3], publish [F, P] uint8, ids [F, P] int32,
     n_dropped [F] int32); `st` holds the final state afterwards."""
-    global KERNEL_LAUNCHES
     plan = scan_plan(p, t_slots, w)
     dev = records.device
     f = records.shape[0]
@@ -318,26 +313,20 @@ def _launch(records, st: dict, p: int, t_slots: int, w: int, cfg):
     ids = torch.empty((f, p), dtype=torch.int32, device=dev)
     n_dropped = torch.empty((f,), dtype=torch.int32, device=dev)
     vel_sig = linalg.constant(skeleton.FUSION_VEL_SIGMAS, dev, torch.float32)
-    lib = _kernels.library()
-    # The C entry queries and sets attributes of the current device: make
-    # it the tensor's.
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ses3d_tracker_scan(
-            records.data_ptr(), vel_sig.data_ptr(),
-            st["est"].data_ptr(), st["ex"].data_ptr(), st["vel"].data_ptr(),
-            st["tprev"].data_ptr(), st["hprev"].data_ptr(), st["rootp"].data_ptr(),
-            st["alive"].data_ptr(), st["tid"].data_ptr(), st["nobs"].data_ptr(),
-            st["next_id"].data_ptr(),
-            off.data_ptr(), publish.data_ptr(), ids.data_ptr(), n_dropped.data_ptr(),
-            f, p, t_slots, w, records.shape[1], plan.stages, int(plan.rings_on_chip),
-            plan.smem_bytes,
-            float(cfg.max_dist), float(cfg.dist_threshold), int(cfg.min_num_obs),
-            float(cfg.max_unobserved_time), float(cfg.merge_dist_thresh), stream,
-        )
-    _kernels.check(err, f"tracker_scan launch ({plan})")
-    with _kernels.LAUNCH_LOCK:
-        KERNEL_LAUNCHES += 1
+    _kernels.launch(
+        "tracker_scan", "ses3d_tracker_scan", dev,
+        records.data_ptr(), vel_sig.data_ptr(),
+        st["est"].data_ptr(), st["ex"].data_ptr(), st["vel"].data_ptr(),
+        st["tprev"].data_ptr(), st["hprev"].data_ptr(), st["rootp"].data_ptr(),
+        st["alive"].data_ptr(), st["tid"].data_ptr(), st["nobs"].data_ptr(),
+        st["next_id"].data_ptr(),
+        off.data_ptr(), publish.data_ptr(), ids.data_ptr(), n_dropped.data_ptr(),
+        f, p, t_slots, w, records.shape[1], plan.stages, int(plan.rings_on_chip),
+        plan.smem_bytes,
+        float(cfg.max_dist), float(cfg.dist_threshold), int(cfg.min_num_obs),
+        float(cfg.max_unobserved_time), float(cfg.merge_dist_thresh),
+        what=f"tracker_scan launch ({plan})",
+    )
     return off, publish, ids, n_dropped
 
 

@@ -23,10 +23,10 @@ that count fits `fits_wide`, the plain body elsewhere (the CPU, float64,
 wider rigs). `triangulate` launches either, by the camera count; it
 raises for what neither takes, and never falls back.
 
-`triangulate_host` runs the same source built for the host by a C++
-compiler (`_kernels.host_library`): the kernel's phases one task after
-another, bit for bit the card's arithmetic. The CPU tests hold it to the
-plain body, the card tests the kernel to it.
+`triangulate(..., host=True)` runs the same source built for the host by
+a C++ compiler (`_kernels.host_library`): the kernel's phases one task
+after another, bit for bit the card's arithmetic. The CPU tests hold it
+to the plain body, the card tests the kernel to it.
 """
 
 from __future__ import annotations
@@ -39,11 +39,6 @@ import torch
 from smartedgesensor3dhumanpose_tpu_torch import _kernels, skeleton
 from smartedgesensor3dhumanpose_tpu_torch.config import FusionConfig
 from smartedgesensor3dhumanpose_tpu_torch.types import Persons3D
-
-# Launches of the CUDA kernel and of its wide variant; the wrapper adds one
-# per launch, under _kernels.LAUNCH_LOCK.
-KERNEL_LAUNCHES = 0
-WIDE_LAUNCHES = 0
 
 J = skeleton.NUM_INPUT_JOINTS
 K = skeleton.NUM_FUSION_JOINTS
@@ -215,52 +210,35 @@ def _pointers(kp, cov, cam_mask, P, F, out: Persons3D) -> list:
     return [t.data_ptr() for t in (kp, cov, cam_mask, P, F, *out)]
 
 
-def triangulate(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None) -> Persons3D:
+def triangulate(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None,
+                host: bool = False) -> Persons3D:
     """F1 on the card: the persons [N, 21, ...] (person_id -1) of N
     hypotheses, kp and cov [N, C, 17, 3], cam_mask [N, C], on the rig's P
     [C, 3, 4] and F [C, C, 3, 3]. One launch (of the wide variant past
     MAX_CAMERAS) on the current stream of the tensors' device; no host
     sync, so a capture records it. `drops`, an int32 [N, 17] tensor,
-    receives each joint's dropped view (-1 none)."""
-    global KERNEL_LAUNCHES, WIDE_LAUNCHES
+    receives each joint's dropped view (-1 none). `host` runs F1's host
+    build on CPU tensors (CPU tensors out), the kernel's arithmetic bit for
+    bit: the tests' handle on it."""
     n, c = _check(kp, cov, cam_mask, P, F)
-    if kp.device.type != "cuda":
-        raise ValueError(f"the triangulation kernel runs on CUDA tensors; got {kp.device}")
+    if (kp.device.type == "cuda") == host:
+        raise ValueError(f"the triangulation kernel{' (host build)' if host else ''} runs on "
+                         f"{'CPU' if host else 'CUDA'} tensors; got {kp.device}")
     tensors = [t.contiguous() for t in (kp, cov, cam_mask, P, F)]
     drops_ptr = _drops_ptr(drops, n, kp.device)
     out = _outputs(n, kp.device)
     p = params(config, n, c)
     wide = fits_wide(c)
+    if host:
+        err = _kernels.host_library().ses3d_triangulation_host(
+            ctypes.byref(p), *_pointers(*tensors, out), drops_ptr, int(wide))
+        _kernels.check(err, f"triangulation host build (n={n}, cameras={c}, wide={wide})")
+        return out
     smem = smem_bytes(c, wide)
     dev = (torch.empty(max(n, 1) * wide_bytes(c) // 4, dtype=torch.float32, device=kp.device)
            if wide else None)
-    lib = _kernels.library()
-    with torch.cuda.device(kp.device):
-        stream = torch.cuda.current_stream(kp.device).cuda_stream
-        err = lib.ses3d_triangulate(ctypes.byref(p), *_pointers(*tensors, out), drops_ptr,
-                                    None if dev is None else dev.data_ptr(), smem, stream)
-    _kernels.check(err, f"triangulation launch (n={n}, cameras={c}, wide={wide}, smem={smem})")
-    with _kernels.LAUNCH_LOCK:
-        if wide:
-            WIDE_LAUNCHES += 1
-        else:
-            KERNEL_LAUNCHES += 1
-    return out
-
-
-def triangulate_host(kp, cov, cam_mask, P, F, config: FusionConfig, drops=None) -> Persons3D:
-    """F1's source run on the host (CPU tensors in, CPU tensors out, as
-    `triangulate`), the kernel's arithmetic bit for bit: the tests' handle
-    on it."""
-    n, c = _check(kp, cov, cam_mask, P, F)
-    if kp.device.type != "cpu":
-        raise ValueError(f"the host build takes CPU tensors; got {kp.device}")
-    tensors = [t.contiguous() for t in (kp, cov, cam_mask, P, F)]
-    drops_ptr = _drops_ptr(drops, n, "cpu")
-    out = _outputs(n, "cpu")
-    err = _kernels.host_library().ses3d_triangulate_host(
-        ctypes.byref(params(config, n, c)), *_pointers(*tensors, out), drops_ptr,
-        int(fits_wide(c)))
-    if err != 0:
-        raise RuntimeError(f"the host build of the triangulation kernel returned {err}")
+    _kernels.launch("triangulation_wide" if wide else "triangulation", "ses3d_triangulate",
+                    kp.device, ctypes.byref(p), *_pointers(*tensors, out), drops_ptr,
+                    None if dev is None else dev.data_ptr(), smem,
+                    what=f"triangulation launch (n={n}, cameras={c}, wide={wide}, smem={smem})")
     return out

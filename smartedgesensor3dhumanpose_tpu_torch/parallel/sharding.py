@@ -9,9 +9,10 @@ placement:
   under its device. On a card each shard is the replay of a CUDA graph
   (graphs.py) of its own (stage, device, entry), on a CUDA stream kept for
   that (device, entry), so the shards compute at once while the host
-  dispatches, and a loop inside one (the LM) stops on the device as
-  `lax.while_loop` does. Host threads made every stage slower (PERF.md;
-  sharding_ab.py);
+  dispatches, and the LM inside one stops on the device: with the tree
+  solver it is one launch of L1, with the dense one a WHILE node that
+  ends as `lax.while_loop` does (prior.py). Host threads made every stage
+  slower (PERF.md);
 * the collectives are device-to-device copies onto the mesh's home device
   (`Tensor.to(home, non_blocking=True)`), outside the graphs. Before a
   gather the home stream waits on an event recorded at the end of each
@@ -191,7 +192,7 @@ class _Stage:
     """One stage of a sharded path: `body`, a function of tensors only, and
     `key`, its name and every value `body` depends on besides its
     arguments (a config, a chunk size). `stage(device, *args)` runs it
-    eagerly, as the CPU does (and sharding_ab.py's host threads)."""
+    eagerly, as the CPU does."""
 
     key: tuple
     body: Callable
@@ -241,7 +242,7 @@ def _run(fn: _Stage, jobs: list, home: torch.device) -> list:
     the jobs on that device, on a stream of its own, so a job's kernels
     run on while the next job is dispatched, and every card at once. The
     stages are bound by host dispatch: host threads, one per card or one
-    per job, made them several times slower (PERF.md; sharding_ab.py). The args
+    per job, made them several times slower (PERF.md). The args
     (tensors on `home`) are copied to their device on the caller's
     streams, and each job's stream first waits for those copies. Every
     gather waits on an event recorded at the end of the job's stream."""

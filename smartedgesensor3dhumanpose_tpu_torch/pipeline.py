@@ -281,9 +281,13 @@ class Pipeline:
     `device` places every tensor the pipeline creates; the rig and the
     frames must already live there. It is the card unless the caller asks
     for the CPU. On CUDA the solvers run as kernels K1/K2/K3 and the hot path
-    is float32; matrix products are pinned to IEEE fp32 (no TF32). The
-    solvers' routes (`routes`) are decided here, once, from the config and
-    the device; a config whose shapes no route takes raises here. On CUDA
+    is float32; matrix products are pinned to IEEE fp32 (no TF32). Each
+    route is a pure function of the config, the shapes, the device and the
+    dtype, and each stage evaluates its own on every call
+    (`fusion.pair_costs_route`, `fusion.association_route`,
+    `fusion.triangulation_route`, `tracker.tracker_scan`,
+    `lm_prior.takes`). `routes` evaluates the association's and the
+    tracker's here, to refuse a config whose shapes no route takes. On CUDA
     `step`, `run_per_frame_chain` and `run_offline` replay CUDA graphs,
     captured at the first call of each input shape (graphs.py), which
     read the rig by address: the rig and config are fixed at construction.

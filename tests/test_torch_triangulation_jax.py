@@ -73,7 +73,7 @@ def test_host_build_matches_jax(case):
     np.testing.assert_array_equal(np.asarray(jrig.P), rig.P.numpy())
     np.testing.assert_array_equal(np.asarray(jrig.F), rig.F.numpy())
     _, want64 = _jax_triangulate(flat, pose, jnp.float64)
-    got = tk.triangulate_host(flat.kp, flat.cov, flat.cam_mask, rig.P, rig.F, cfg)
+    got = tk.triangulate(flat.kp, flat.cov, flat.cam_mask, rig.P, rig.F, cfg, host=True)
     what = str(case)
     grow = np.sqrt(max(flat.cam_mask.shape[1], 16) / 16)
     np.testing.assert_array_equal(got.valid.numpy(), want["valid"], err_msg=what)

@@ -17,6 +17,7 @@ the JAX package).
 
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 
@@ -147,10 +148,10 @@ def test_smem_plan_matches_the_source():
     lib = _kernels.host_library()
     budget = tk.SMEM_PER_BLOCK - tk.STATIC_SMEM_RESERVE
     for c in (1, 2, 16, 17, 40, 64, tk.MAX_CAMERAS):
-        assert lib.ses3d_triangulate_host_smem_bytes(c, 0) == tk.smem_bytes(c), c
+        assert lib.ses3d_triangulation_host_smem_bytes(c, 0) == tk.smem_bytes(c), c
     for c in (1, 16, tk.MAX_CAMERAS + 1, 480, tk.MAX_CAMERAS_WIDE):
-        assert lib.ses3d_triangulate_host_smem_bytes(c, 1) == tk.smem_bytes(c, wide=True), c
-        assert lib.ses3d_triangulate_host_wide_bytes(c) == tk.wide_bytes(c), c
+        assert lib.ses3d_triangulation_host_smem_bytes(c, 1) == tk.smem_bytes(c, wide=True), c
+        assert lib.ses3d_triangulation_host_wide_bytes(c) == tk.wide_bytes(c), c
     assert tk.smem_bytes(tk.MAX_CAMERAS) <= budget < tk.smem_bytes(tk.MAX_CAMERAS + 1)
     assert (tk.smem_bytes(tk.MAX_CAMERAS_WIDE, wide=True) <= budget
             < tk.smem_bytes(tk.MAX_CAMERAS_WIDE + 1, wide=True))
@@ -223,10 +224,10 @@ def test_wrappers_check_drops_and_devices():
     args = _inputs()
     cfg = config.FusionConfig()
     with pytest.raises(ValueError, match="drops must be"):
-        tk.triangulate_host(*args, cfg, drops=torch.zeros((2, 17), dtype=torch.int64))
+        tk.triangulate(*args, cfg, host=True, drops=torch.zeros((2, 17), dtype=torch.int64))
     with pytest.raises(ValueError, match="drops must be"):
-        tk.triangulate_host(*args, cfg, drops=torch.zeros((3, 17), dtype=torch.int32))
-    empty = tk.triangulate_host(*_inputs(n=0), cfg)
+        tk.triangulate(*args, cfg, host=True, drops=torch.zeros((3, 17), dtype=torch.int32))
+    empty = tk.triangulate(*_inputs(n=0), cfg, host=True)
     assert empty.xyz.shape == (0, 21, 3) and empty.valid.shape == (0,)
 
 
@@ -237,7 +238,8 @@ def assert_equals_plain(flat, rig, cfg, what: str):
     every output and every joint's dropped view. Returns the drops."""
     plain, plain_drops = fusion._triangulate_plain(flat, rig, cfg, with_drops=True)
     drops = torch.empty((flat.kp.shape[0], 17), dtype=torch.int32)
-    got = tk.triangulate_host(flat.kp, flat.cov, flat.cam_mask, rig.P, rig.F, cfg, drops=drops)
+    got = tk.triangulate(flat.kp, flat.cov, flat.cam_mask, rig.P, rig.F, cfg, drops=drops,
+                         host=True)
     for name in got._fields:
         assert torch.equal(getattr(got, name), getattr(plain, name)), f"{what} {name}"
     assert torch.equal(drops, plain_drops.to(torch.int32)), what
@@ -351,7 +353,7 @@ def test_wide_layout_keeps_the_arithmetic():
         out = tk._outputs(flat.kp.shape[0], "cpu")
         drops = torch.empty((flat.kp.shape[0], 17), dtype=torch.int32)
         tensors = [t.contiguous() for t in (flat.kp, flat.cov, flat.cam_mask, rig.P, rig.F)]
-        assert lib.ses3d_triangulate_host(
+        assert lib.ses3d_triangulation_host(
             ctypes.byref(tk.params(cfg, flat.kp.shape[0], 16)), *tk._pointers(*tensors, out),
             drops.data_ptr(), wide) == 0
         outs.append((out, drops))
@@ -364,7 +366,7 @@ def _on_f1_arithmetic(monkeypatch):
     """Route the triangulation to F1 and run F1's host build in its
     place."""
     monkeypatch.setattr(fusion, "triangulation_route", lambda c, d, t: "kernel")
-    monkeypatch.setattr(tk, "triangulate", tk.triangulate_host)
+    monkeypatch.setattr(tk, "triangulate", functools.partial(tk.triangulate, host=True))
 
 
 def _counter(records, scope: str, name: str) -> list:
@@ -447,7 +449,7 @@ def test_kernel_matches_host_build_and_plain_on_card(scene, pose):
     torch.cuda.synchronize()
     cpu = [t.cpu() for t in (flat.kp, flat.cov, flat.cam_mask, rig.P, rig.F)]
     host_drops = torch.empty((n, 17), dtype=torch.int32)
-    host = tk.triangulate_host(*cpu, cfg, drops=host_drops)
+    host = tk.triangulate(*cpu, cfg, drops=host_drops, host=True)
     for a, b in zip(got, host):
         assert torch.equal(a.cpu(), b)
     assert torch.equal(drops.cpu(), host_drops)
@@ -455,6 +457,6 @@ def test_kernel_matches_host_build_and_plain_on_card(scene, pose):
     plain64 = fusion._triangulate_plain(flat64, rig64, cfg)
     assert_as_plain(got, drops, plain32, drops32, plain64, f"{scene}/{pose} on the card")
     assert fusion.triangulation_route(rig.P.shape[0], dev, torch.float32) == "kernel"
-    before = tk.KERNEL_LAUNCHES
+    before = _kernels.LAUNCHES["triangulation"]
     fusion.triangulate_hypotheses(flat, rig, cfg)
-    assert tk.KERNEL_LAUNCHES == before + 1
+    assert _kernels.LAUNCHES["triangulation"] == before + 1

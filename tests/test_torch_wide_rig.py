@@ -25,7 +25,7 @@ from portbench.lib import judge
 from portbench.lib import scene as scene_lib
 from portbench.reference import pipeline as ref_pipeline
 from portbench.reference import replay
-from smartedgesensor3dhumanpose_tpu_torch import cameras, config, fusion, pipeline, tracing
+from smartedgesensor3dhumanpose_tpu_torch import _kernels, cameras, config, fusion, pipeline, tracing
 from smartedgesensor3dhumanpose_tpu_torch.io import synthetic
 from smartedgesensor3dhumanpose_tpu_torch.ops import association, epipolar
 from smartedgesensor3dhumanpose_tpu_torch.ops import triangulation_kernel as tk
@@ -112,7 +112,7 @@ def _dome_call(monkeypatch, fault=None):
     # The card's triangulation: F1's wide variant, its host build here; and
     # the card's pair costs: kernel E1, its host build here.
     monkeypatch.setattr(fusion, "triangulation_route", lambda cams, dev, dtype: "wide")
-    monkeypatch.setattr(tk, "triangulate", tk.triangulate_host)
+    monkeypatch.setattr(tk, "triangulate", functools.partial(tk.triangulate, host=True))
     monkeypatch.setattr(fusion, "pair_costs_route", lambda device, dtype: "kernel")
     monkeypatch.setattr(epipolar, "pair_costs", functools.partial(epipolar.pair_costs, host=True))
     if fault is not None:
@@ -359,9 +359,9 @@ def test_pair_terms_kernel_matches_plain_on_card(cameras_, frames):
         pytest.skip("needs an NVIDIA card: kernel E1 is a CUDA kernel")
     kp_n, score, rig, cfg = dome_fold_inputs(cameras_, frames, torch.device("cuda", 0))
     assert fusion.pair_costs_route(kp_n.device, kp_n.dtype) == "kernel"
-    before = epipolar.PAIR_COSTS_LAUNCHES
+    before = _kernels.LAUNCHES["pair_costs"]
     got, conf = fusion.fold_inputs(kp_n, score, rig, cfg)
-    assert epipolar.PAIR_COSTS_LAUNCHES == before + 1
+    assert _kernels.LAUNCHES["pair_costs"] == before + 1
     want = fusion.pair_costs_plain(kp_n, rig.F, cfg.min_kp_score)
     assert int((want >= 0).sum()) > 0
     assert torch.equal(got, want), (int((got != want).sum()), first_mismatches(got, want))
@@ -377,9 +377,10 @@ def test_scan_kernels_on_card_match_their_host_build(case):
         pytest.skip("needs an NVIDIA card: kernels S1 and S2 are CUDA kernels")
     dev = torch.device("cuda", 0)
     ctab, conf, det_ok, *rest = scan_inputs(*case, device=dev)
-    before = association.SCAN_LAUNCHES
+    before = {name: _kernels.LAUNCHES[name] for name in ("scan_costs", "scan_extend")}
     got = association.associate_scan(ctab, conf, det_ok, *rest)
-    assert association.SCAN_LAUNCHES == before + 2 * ctab.shape[1]
+    for name, count in before.items():
+        assert _kernels.LAUNCHES[name] == count + ctab.shape[1], name
     want = association.associate_scan_kernels(ctab.cpu(), conf.cpu(), det_ok.cpu(), *rest,
                                               host=True)
     for a, b in zip(got, want):
